@@ -1,0 +1,46 @@
+"""Carry a reference (JAX) param tree, given as numpy arrays, into the
+port's tree.
+
+The reference stacks a dense decoder's layers on a leading ``groups``
+axis under the key ``b0_attn`` and scans over it; the port keeps one dict
+per layer in ``params["layers"]``.  Leaf layouts are unchanged (``wq (d, H, hd)``,
+``wo (H, hd, d)``, ``w_gate (d, f)``, ...), so the port's public functions
+see the reference's layouts.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from .configs import ModelConfig
+from .device import resolve_device
+
+
+def _tensor(x, dtype, device) -> torch.Tensor:
+    return torch.as_tensor(np.array(x, dtype=np.float32), dtype=dtype,
+                           device=device)
+
+
+def _map(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _map(v, fn) for k, v in tree.items()}
+    return fn(tree)
+
+
+def params_from_reference(np_params: Dict[str, Any], cfg: ModelConfig, *,
+                          dtype=torch.float32, device="cuda") -> Dict:
+    """Reference tree (``jax.tree.map(np.asarray, params)``) -> port tree."""
+    device = resolve_device(device)
+    leaf = lambda x: _tensor(x, dtype, device)
+    out = {k: _map(np_params[k], leaf)
+           for k in ("embed", "final_norm", "lm_head")}
+    groups = np_params["groups"]["b0_attn"]
+    layers = [_map(groups, lambda x, g=g: leaf(np.asarray(x)[g]))
+              for g in range(int(np.shape(groups["norm1"]["scale"])[0]))]
+    if len(layers) != cfg.n_layers:
+        raise ValueError(f"tree holds {len(layers)} layers, config "
+                         f"{cfg.n_layers}")
+    out["layers"] = layers
+    return out

@@ -1,0 +1,159 @@
+"""AVS lifetime simulator (port of ``repro.core.avs``).
+
+A loop over a log-spaced time grid covering t0 .. 10 years.  Each step
+advances the six trap populations at the current V_DD, evaluates the
+fitted delay polynomial, and raises V_DD in ``v_step`` increments while the
+delay exceeds the policy's ``delay_max``.  The reference's per-step
+``lax.while_loop`` boost becomes a masked loop of exactly
+``max_boosts_per_step`` iterations: a lane leaves the loop for good once
+its condition fails (its state no longer changes), so the fixed bound
+gives the same voltages, with no host synchronisation on the device.
+One mission profile per call, batched over the ``delay_max`` thresholds.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from ..device import resolve_device, true_div
+from . import aging
+from .aging import AgingParams
+from .constants import (DUTY_FACTOR, LIFETIME_S, T_AMB, T_CLK, TOGGLE_RATE,
+                        TRANSITION_TIME, V_MAX, V_NOM, V_STEP)
+from .delay import DelayPolynomial
+from .scenario import SCENARIO_FIELDS, LifetimeTrajectory, Scenario
+
+_F32 = torch.float32
+
+
+@dataclasses.dataclass(frozen=True)
+class LifetimeConfig:
+    """Scalar mission config (the calibration artifact's ``lifetime_cfg``)."""
+    t_clk: float = T_CLK
+    v_init: float = V_NOM
+    v_step: float = V_STEP
+    v_max: float = V_MAX
+    duty: float = DUTY_FACTOR
+    toggle: float = TOGGLE_RATE
+    transition_time: float = TRANSITION_TIME
+    t_amb: float = T_AMB
+    lifetime_s: float = LIFETIME_S
+    t_start: float = 600.0
+    n_steps: int = 480
+    max_boosts_per_step: int = 4
+
+    def scenario(self, max_loss_pct: float = 0.5, **overrides) -> Scenario:
+        return Scenario.from_lifetime_config(self, max_loss_pct, **overrides)
+
+
+def _log10(x) -> torch.Tensor:
+    """float32 ``jnp.log10``: XLA lowers it to ``log(x) * f32(1 / ln 10)``."""
+    return torch.log(x) * 0.4342944819032518
+
+
+def _logspace(start, stop, num: int, device) -> torch.Tensor:
+    """``jnp.logspace(log10(start), log10(stop), num, dtype=float32)``.
+
+    jnp's linspace is ``start * (1 - s) + stop * s`` with ``s = i / (num -
+    1)``, then the exact endpoint; ``10 ** lin`` is taken in float64 and
+    rounded, which matches XLA's float32 power more often than
+    ``torch.pow`` in float32 does.
+    """
+    start = _log10(torch.as_tensor(start, dtype=_F32, device=device))
+    stop = _log10(torch.as_tensor(stop, dtype=_F32, device=device))
+    div = num - 1
+    step = true_div(torch.arange(div, dtype=_F32, device=device), div)
+    lin = torch.cat([start * (1 - step) + stop * step, stop[None]])
+    return torch.pow(10.0, lin.to(torch.float64)).to(_F32)
+
+
+def simulate(params: AgingParams, poly: DelayPolynomial,
+             scenarios: Scenario, delay_max=None, *, recovery: bool = True,
+             avs_enabled: bool = True, device="cuda") -> LifetimeTrajectory:
+    """Simulate one mission profile's lifetime for a batch of thresholds.
+
+    ``delay_max`` (default: the scenario's clock — classical AVS) may have
+    any shape; the result's ``batch_shape`` is its broadcast against the
+    scenario's (single-element) leaves.  As in the reference, a batched
+    call does its scalar arithmetic on float32 leaves and an unbatched one
+    on Python floats.
+    """
+    dev = resolve_device(device)
+    if any(torch.as_tensor(getattr(scenarios, f)).numel() != 1
+           for f in SCENARIO_FIELDS):
+        raise NotImplementedError("one mission profile per call; scenario "
+                                  "batches are not ported")
+    if delay_max is None:
+        delay_max = scenarios.t_clk
+    dmax = torch.as_tensor(delay_max, dtype=_F32)
+    batch = tuple(torch.broadcast_shapes(scenarios.batch_shape,
+                                         tuple(dmax.shape)))
+
+    def leaf(name):
+        v = getattr(scenarios, name)
+        if batch or isinstance(v, torch.Tensor):
+            return torch.as_tensor(v, dtype=_F32).reshape(()).to(dev)
+        return float(v)
+
+    params, poly = params.to(dev), poly.to(dev)
+    rates = aging.stress_rates(
+        params, duty=leaf("duty"), toggle=leaf("toggle"),
+        t_clk=leaf("t_clk"), transition_time=leaf("transition_time"),
+        recovery=recovery)
+    tgrid = _logspace(leaf("t_start"), leaf("lifetime_s"),
+                      scenarios.n_steps, dev)
+    dts = torch.diff(tgrid, prepend=torch.zeros(1, dtype=_F32, device=dev))
+    t_amb, v_step = leaf("t_amb"), leaf("v_step")
+    v_ceiling = leaf("v_max") - 1e-6
+    flat_dmax = torch.broadcast_to(dmax, batch).reshape(-1).to(dev)
+    B = flat_dmax.shape[0]
+
+    dv = torch.zeros((B, aging.N_POP), dtype=_F32, device=dev)
+    v = torch.as_tensor(leaf("v_init"), dtype=_F32, device=dev).expand(B)
+    out = {k: [] for k in ("V", "delay", "dvp", "dvn", "dv")}
+    for i in range(scenarios.n_steps):
+        dv = aging.update_state(params, dv, v[:, None], rates, dts[i], t_amb)
+        dvp, dvn = aging.totals(dv)
+        dp_v, dn_v = dvp * 1e-3, dvn * 1e-3
+        delay = poly(dp_v, dn_v, v)
+        if avs_enabled:
+            for _ in range(scenarios.max_boosts_per_step):
+                boost = (delay > flat_dmax) & (v < v_ceiling)
+                v = torch.where(boost, v + v_step, v)
+                delay = torch.where(boost, poly(dp_v, dn_v, v), delay)
+        for k, val in (("V", v), ("delay", delay), ("dvp", dvp),
+                       ("dvn", dvn), ("dv", dv)):
+            out[k].append(val)
+    host = {k: torch.stack(vals, dim=1).cpu().numpy()
+            for k, vals in out.items()}
+    T = scenarios.n_steps
+    return LifetimeTrajectory(
+        t=np.broadcast_to(tgrid.cpu().numpy(), batch + (T,)),
+        V=host["V"].reshape(batch + (T,)),
+        delay=host["delay"].reshape(batch + (T,)),
+        dvp=host["dvp"].reshape(batch + (T,)),
+        dvn=host["dvn"].reshape(batch + (T,)),
+        dv=host["dv"].reshape(batch + (T, aging.N_POP)))
+
+
+def run_lifetime(params: AgingParams, poly: DelayPolynomial,
+                 cfg: LifetimeConfig = LifetimeConfig(), *,
+                 delay_max=T_CLK, recovery: bool = True,
+                 avs_enabled: bool = True, device="cuda") -> Dict[str, Any]:
+    """One scalar config; returns the dict-of-arrays trajectory
+    (``t, V, delay, dvp, dvn, dv``)."""
+    return simulate(params, poly, cfg.scenario(), delay_max=delay_max,
+                    recovery=recovery, avs_enabled=avs_enabled,
+                    device=device).to_dict()
+
+
+def final_shifts(traj) -> Dict[str, float]:
+    """End-of-life (ΔVth_p, ΔVth_n) in mV and final V."""
+    if isinstance(traj, LifetimeTrajectory):
+        traj = traj.to_dict()
+    return {"dvp": float(np.asarray(traj["dvp"])[-1]),
+            "dvn": float(np.asarray(traj["dvn"])[-1]),
+            "v_final": float(np.asarray(traj["V"])[-1])}

@@ -1,0 +1,50 @@
+"""Timing-error / BER model (port of ``repro.core.ber``, evaluation paths).
+
+``log10 BER(d) = log10(BER_sat) - a * exp(-(d - t_clk) / tau)``: steep just
+past the clock edge, saturating as the violating-path population thins
+out; analytically invertible, which the fault-tolerant policy uses.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict
+
+import torch
+
+from ..device import true_div
+from .constants import T_CLK
+
+# Threshold for operators whose tolerable BER exceeds BER_sat: any delay
+# beyond the end-of-life delay works; kept finite.
+DELAY_MAX_CAP = 2.2e-9
+
+
+@dataclasses.dataclass
+class BerModel:
+    log10_sat: float = -4.7     # log10 saturation BER
+    a: float = 7.0              # dynamic range [decades]
+    tau: float = 30.0e-12       # delay scale [s]
+    t_clk: float = T_CLK
+
+    def log10_ber_from_delay(self, d) -> torch.Tensor:
+        d = torch.as_tensor(d, dtype=torch.float32)
+        return self.log10_sat - self.a * torch.exp(
+            true_div(-(d - self.t_clk), self.tau))
+
+    def ber_from_delay(self, d) -> torch.Tensor:
+        """BER (float32) of the aged critical-path delay ``d`` [s]."""
+        return 10.0 ** self.log10_ber_from_delay(d)
+
+    def delay_for_ber(self, ber_tol) -> torch.Tensor:
+        """Invert BER(d) -> delay threshold [s], clamped to [t_clk, CAP]
+        (CAP where the tolerance is above saturation), in float32."""
+        ber_tol = torch.as_tensor(ber_tol, dtype=torch.float32)
+        gap = self.log10_sat - torch.log10(torch.clamp_min(ber_tol, 1e-30))
+        d = self.t_clk - self.tau * torch.log(
+            true_div(torch.clamp_min(gap, 1e-30), self.a))
+        return torch.where(gap <= 0.0, DELAY_MAX_CAP,
+                           torch.clamp(d, self.t_clk, DELAY_MAX_CAP))
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "BerModel":
+        return cls(**d)

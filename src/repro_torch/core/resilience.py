@@ -1,0 +1,36 @@
+"""DNN error-resilience curves (port of ``repro.core.resilience``, the
+published-heterogeneity defaults).
+
+Per-operator accuracy loss is a log-BER logistic,
+``loss(ber) = L_max / (1 + exp(-k * (log10(ber) - log10(ber50))))``; the
+fault-tolerant policy inverts it (:mod:`repro_torch.core.policy`).  The
+measured-curve artifact and its fitting stay in the reference for now.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict
+
+# Operator domains of the paper's Table II.
+OPERATORS = ("q", "k", "v", "qkt", "sv", "o", "gate", "up", "down")
+
+# BER at which accuracy loss hits 50% of L_max: sensitive O/Down,
+# intermediate K, tolerant rest (REALM-style heterogeneity).
+DEFAULT_BER50: Dict[str, float] = {
+    "q": 3.2e-3, "k": 1.1e-4, "v": 3.2e-3, "qkt": 3.2e-3, "sv": 3.2e-3,
+    "o": 7.0e-7, "gate": 3.2e-3, "up": 3.2e-3, "down": 6.0e-6,
+    "r": 3.2e-3, "g": 3.2e-3, "router": 1.1e-4, "embed": 3.2e-3,
+}
+DEFAULT_STEEPNESS = 5.0     # logistic slope in decades^-1
+DEFAULT_LMAX = 100.0        # accuracy collapses to chance at high BER [%]
+
+
+@dataclasses.dataclass(frozen=True)
+class ResilienceCurve:
+    ber50: float
+    steepness: float = DEFAULT_STEEPNESS
+    l_max: float = DEFAULT_LMAX
+
+
+def default_curves(ops: tuple = OPERATORS) -> Dict[str, ResilienceCurve]:
+    return {op: ResilienceCurve(ber50=DEFAULT_BER50[op]) for op in ops}

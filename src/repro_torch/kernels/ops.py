@@ -1,0 +1,156 @@
+"""Public wrappers around the kernels (``repro.kernels.ops`` counterpart).
+
+* The logical tile :func:`_resolve_blocks` resolves (``_ceil_mult(dim,
+  256)``) keys the fused kernel's upset stream, and :func:`_flip_inputs`
+  draws the three-pass randoms for the padded ``(rows_pad, 128)`` word
+  layout; both are reproduced exactly, so every route here is bit-exact
+  against its reference counterpart.  The int8 GEMM kernels mask ragged
+  edges instead of padding the operands.
+* :func:`aged_linear` is the model-facing op: int8 quantisation, int32
+  systolic accumulation, BER-parameterised accumulator upsets, dequant —
+  over the fused kernel, the three-pass kernel route, or the kernel-free
+  route.  Only scalar BERs are ported; the per-shard ``(S,)`` routes come
+  with mesh serving.
+"""
+from __future__ import annotations
+
+import torch
+
+from .. import random as prandom
+from ..device import true_div
+from ..random import M32
+from . import ref
+from .bitflip import bitflip_words
+from .fused_aged_matmul import (fused_aged_matmul as _fused_aged_matmul_kernel,
+                                stream_constant, upset_probability)
+from .systolic_matmul import systolic_matmul
+
+
+def _ceil_mult(dim: int, base: int = 128) -> int:
+    """Requested block ``base``, shrunk to a pow2 >= 8 for small dims."""
+    if dim >= base:
+        return base
+    return max(8, 1 << (max(dim, 1) - 1).bit_length())
+
+
+def _resolve_blocks(M: int, N: int, K: int, bm: int, bn: int, bk: int):
+    """The logical ``(bm, bn, bk)`` tile the reference pads to."""
+    return _ceil_mult(M, bm), _ceil_mult(N, bn), _ceil_mult(K, bk)
+
+
+def quantized_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """int8 (M,K) @ int8 (K,N) -> int32 (M,N), arbitrary shapes."""
+    return systolic_matmul(a.contiguous(), b.contiguous())
+
+
+def make_flip_randoms(key: torch.Tensor, shape, device="cpu"):
+    """Uniforms + bit positions for the injection pass."""
+    ku, kp = prandom.split(key)
+    u = prandom.uniform(ku, shape, device)
+    pos = prandom.randint(kp, shape, 0, 32, device)
+    return u, pos
+
+
+def _flip_inputs(x: torch.Tensor, key: torch.Tensor, block_rows: int = 256):
+    """(R, 128) zero-padded words of ``x`` + their randoms over the padded
+    layout (the reference's random stream depends on ``rows_pad``)."""
+    n = x.numel()
+    rows = -(-n // 128)
+    rows_pad = -(-rows // block_rows) * block_rows
+    xf = torch.nn.functional.pad(x.reshape(-1), (0, rows_pad * 128 - n))
+    xf = xf.reshape(rows_pad, 128)
+    u, pos = make_flip_randoms(key, (rows_pad, 128), x.device)
+    return xf, u, pos, n
+
+
+def inject_bitflips(x: torch.Tensor, ber, key: torch.Tensor) -> torch.Tensor:
+    """Flip bits of an int32 tensor at per-bit rate ``ber`` (kernel pass)."""
+    block_rows = 256
+    xf, u, pos, n = _flip_inputs(x, key, block_rows)
+    out = bitflip_words(xf, u, pos, upset_probability(ber),
+                        block_rows=block_rows)
+    return out.reshape(-1)[:n].reshape(x.shape)
+
+
+def inject_bitflips_ref(x: torch.Tensor, ber, key: torch.Tensor):
+    """Plain injection, bit-exact vs :func:`inject_bitflips`."""
+    xf, u, pos, n = _flip_inputs(x, key)
+    out = ref.bitflip_words_ref(xf, u, pos, upset_probability(ber))
+    return out.reshape(-1)[:n].reshape(x.shape)
+
+
+def fused_aged_matmul(a: torch.Tensor, b: torch.Tensor, xs=None, ws=None, *,
+                      ber=0.0, seed=0, bm: int = 256, bn: int = 256,
+                      bk: int = 256) -> torch.Tensor:
+    """Fused int8 matmul + in-accumulator upsets (+ dequant), any shapes."""
+    bm_, bn_, _ = _resolve_blocks(a.shape[0], b.shape[1], a.shape[1], bm,
+                                  bn, bk)
+    return _fused_aged_matmul_kernel(a.contiguous(), b.contiguous(), xs, ws,
+                                     ber, seed, bm=bm_, bn=bn_)
+
+
+def _signed32(v: int) -> int:
+    v &= M32
+    return v - (1 << 32) if v >= 1 << 31 else v
+
+
+def seed_from_key(key: torch.Tensor) -> int:
+    """The fused kernel's int32 seed from a threefry key."""
+    return _signed32(int(prandom.bits(key, ())))
+
+
+def fold_seed(seed: int, *indices) -> int:
+    """Mix indices into an int32 seed with the fused kernel's fmix32 stream
+    mix — the per-(operator, layer, step) stream derivation."""
+    s = int(seed) & M32
+    for idx in indices:
+        s = stream_constant(s, int(idx) & M32)
+    return _signed32(s)
+
+
+def quantize_int8(x: torch.Tensor, axis: int = -1):
+    """Symmetric per-row absmax int8 quantisation; returns (q, scale).
+
+    The scale keeps ``x``'s dtype, as in the reference (bf16 activations
+    get a bf16 scale).
+    """
+    amax = x.abs().amax(dim=axis, keepdim=True)
+    scale = true_div(torch.clamp_min(amax, 1e-8), 127.0)
+    q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def aged_linear(x: torch.Tensor, w: torch.Tensor, *, ber=0.0,
+                key: torch.Tensor | None = None, seed: int | None = None,
+                use_kernel: bool = True, fused: bool = True) -> torch.Tensor:
+    """``x (.., K) @ w (K, N)`` executed as the paper's systolic array does.
+
+    Injection is requested by passing ``seed`` or ``key``.  Routes, as in
+    the reference: ``use_kernel and fused`` is ONE fused kernel (upset +
+    dequant at the flush); ``use_kernel`` alone is the three-pass kernel
+    route (int8 GEMM -> threefry randoms -> bitflip pass); otherwise the
+    kernel-free plain route with the same streams.
+    """
+    if torch.as_tensor(ber).dim() != 0:
+        raise NotImplementedError("per-shard BER vectors are not ported")
+    inject = key is not None or seed is not None
+    lead = x.shape[:-1]
+    K = x.shape[-1]
+    x2 = x.reshape(-1, K)
+    xq, xs = quantize_int8(x2, axis=-1)
+    wq, ws = quantize_int8(w, axis=0)
+    N = w.shape[1]
+    if use_kernel and fused and inject:
+        if seed is None:
+            seed = seed_from_key(key)
+        out = fused_aged_matmul(xq, wq, xs, ws, ber=ber, seed=seed)
+        return out.reshape(*lead, N).to(x.dtype)
+    acc = quantized_matmul(xq, wq) if use_kernel \
+        else ref.systolic_matmul_ref(xq, wq)
+    if inject:
+        if key is None:
+            key = prandom.PRNGKey(seed)
+        acc = (inject_bitflips(acc, ber, key) if use_kernel
+               else inject_bitflips_ref(acc, ber, key))
+    out = acc.to(torch.float32) * xs * ws
+    return out.reshape(*lead, N).to(x.dtype)

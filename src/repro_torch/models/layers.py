@@ -1,0 +1,188 @@
+"""Shared model layers with per-operator fault-injection hooks.
+
+Every matmul flows through :func:`op_linear` / :func:`op_batched_matmul`,
+tagged with its operator-domain name (the paper's Table II rows).  With a
+:class:`FaultConfig` attached, the op runs the way the paper's accelerator
+runs it — int8 systolic matmul plus bit upsets at that operator's admitted
+BER; without one it is a clean dense op.  Scalar BERs only: the per-shard
+``(S,)`` routes of the reference come with mesh serving.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional
+
+import torch
+import torch.nn.functional as F
+
+from .. import random as prandom
+from ..device import true_div
+from ..kernels import ops as kops
+
+
+@dataclasses.dataclass(frozen=True)
+class FaultConfig:
+    """Per-operator error-injection config for serving-time evaluation.
+
+    ``bers`` maps operator -> BER (a Python float), ``key`` is the base
+    threefry key (:mod:`repro_torch.random`), ``seeds`` the per-operator
+    int32 stream bases of :meth:`with_seeds`, ``step`` the decode step
+    folded into every stream.  The fused kernel route takes seeds
+    (:meth:`seed_for`); the three-pass and activation routes take keys
+    (:meth:`key_for`) — the same derivations as the reference.
+    """
+    bers: Dict[str, float]
+    key: torch.Tensor
+    seeds: Optional[Dict[str, int]] = None
+    step: int = 0
+    use_systolic_kernel: bool = True
+    fused: bool = True
+
+    def ber_for(self, op: str) -> float:
+        return self.bers.get(op, 0.0)
+
+    def for_step(self, step: int) -> "FaultConfig":
+        return dataclasses.replace(self, step=int(step))
+
+    def with_seeds(self) -> "FaultConfig":
+        """Precompute the per-operator int32 stream bases."""
+        seeds = {op: kops.seed_from_key(prandom.fold_in(self.key,
+                                                        _op_salt(op)))
+                 for op in self.bers}
+        return dataclasses.replace(self, seeds=seeds)
+
+    def key_for(self, op: str, salt) -> torch.Tensor:
+        k = prandom.fold_in(self.key, _op_salt(op))
+        k = prandom.fold_in(k, salt)
+        return prandom.fold_in(k, self.step)
+
+    def seed_for(self, op: str, salt) -> int:
+        """int32 seed for the fused kernel's per-tile streams."""
+        base = (self.seeds or {}).get(op)
+        if base is None:
+            base = kops.seed_from_key(prandom.fold_in(self.key, _op_salt(op)))
+        return kops.fold_seed(base, salt, self.step)
+
+
+_OP_IDS = {op: i for i, op in enumerate(
+    ("q", "k", "v", "qkt", "sv", "o", "gate", "up", "down", "router",
+     "embed", "head", "r", "g", "w", "conv"))}
+
+
+def _op_salt(op: str) -> int:
+    return _OP_IDS.get(op, 31)
+
+
+def op_linear(x: torch.Tensor, w: torch.Tensor, op: str,
+              fi: Optional[FaultConfig] = None, salt=0) -> torch.Tensor:
+    """``x (..., K) @ w (K, N)`` through the operator domain ``op``."""
+    if fi is None:
+        return x @ w
+    ber = fi.ber_for(op)
+    if fi.fused and fi.use_systolic_kernel:
+        return kops.aged_linear(x, w, ber=ber, seed=fi.seed_for(op, salt),
+                                use_kernel=True, fused=True)
+    return kops.aged_linear(x, w, ber=ber, key=fi.key_for(op, salt),
+                            use_kernel=fi.use_systolic_kernel, fused=False)
+
+
+def op_einsum(spec: str, x: torch.Tensor, w: torch.Tensor, op: str,
+              fi: Optional[FaultConfig] = None, salt=0) -> torch.Tensor:
+    """Einsum for fused head layouts; the faulted path flattens both sides
+    to one 2-D systolic matmul (contraction letters must be a suffix of x's
+    spec and a prefix of w's: "bsd,dhk->bshk", "bshk,hkd->bsd")."""
+    if fi is None:
+        return torch.einsum(spec, x, w)
+    ins, _ = spec.split("->")
+    x_spec, w_spec = ins.split(",")
+    contract = [c for c in x_spec if c in w_spec]
+    nc = len(contract)
+    if not x_spec[-nc:] == w_spec[:nc] == "".join(contract):
+        raise ValueError(f"unsupported einsum for the faulted path: {spec}")
+    k = 1
+    for d in w.shape[:nc]:
+        k *= d
+    x2 = x.reshape(*x.shape[:x.dim() - nc], k)
+    out = op_linear(x2, w.reshape(k, -1), op, fi, salt)
+    return out.reshape(*x.shape[:x.dim() - nc], *w.shape[nc:])
+
+
+def _exact_int_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Batched int8 x int8 -> int32 product, exact on any device.
+
+    CUDA has no int32 matmul; a float64 matmul of int8 values is exact
+    (every partial sum is an integer below ``K * 128**2 < 2**53``) and,
+    unlike float32, does not depend on the TF32 switches.
+    """
+    return torch.matmul(a.to(torch.float64), b.to(torch.float64)).to(
+        torch.int32)
+
+
+def op_batched_matmul(a: torch.Tensor, b: torch.Tensor, op: str,
+                      fi: Optional[FaultConfig] = None,
+                      salt=0) -> torch.Tensor:
+    """Activation x activation matmul (QK^T / SV domains) over leading batch
+    dims, int8-quantised with accumulator upsets when faulted: the bitflip
+    kernel pass on the kernel route, its plain version otherwise."""
+    if fi is None:
+        return a @ b
+    aq, ascale = kops.quantize_int8(a, axis=-1)
+    bq, bscale = kops.quantize_int8(b, axis=-2)
+    acc = _exact_int_matmul(aq, bq)
+    ber = fi.ber_for(op)
+    if fi.use_systolic_kernel:
+        acc = kops.inject_bitflips(acc, ber, fi.key_for(op, salt))
+    else:
+        acc = kops.inject_bitflips_ref(acc, ber, fi.key_for(op, salt))
+    return (acc.to(torch.float32) * ascale * bscale).to(a.dtype)
+
+
+# --------------------------------------------------------------------------- #
+def rms_norm(x: torch.Tensor, scale: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    xf = x.to(torch.float32)
+    var = xf.square().mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps)).to(x.dtype) * scale
+
+
+def init_norm(d: int, dtype, device) -> Dict:
+    return {"scale": torch.ones((d,), dtype=dtype, device=device)}
+
+
+# --------------------------------------------------------------------------- #
+def rope_frequencies(hd: int, theta: float, device) -> torch.Tensor:
+    half = hd // 2
+    return theta ** true_div(-torch.arange(0, half, dtype=torch.float32,
+                                           device=device), half)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (..., S, H, hd); positions: broadcastable to (..., S)."""
+    freqs = rope_frequencies(x.shape[-1], theta, x.device)
+    ang = positions[..., None].to(torch.float32) * freqs     # (..., S, hd/2)
+    cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# --------------------------------------------------------------------------- #
+def mlp_apply(x: torch.Tensor, p: Dict, fi: Optional[FaultConfig] = None,
+              salt=0) -> torch.Tensor:
+    """SwiGLU: ``down(silu(gate(x)) * up(x))``."""
+    g = op_linear(x, p["w_gate"], "gate", fi, salt)
+    u = op_linear(x, p["w_up"], "up", fi, salt)
+    return op_linear(F.silu(g) * u, p["w_down"], "down", fi, salt)
+
+
+def _normal(shape, scale: float, dtype, device, gen) -> torch.Tensor:
+    return torch.randn(shape, dtype=dtype, device=device,
+                       generator=gen) * scale
+
+
+def mlp_init(d: int, f: int, dtype, device, gen) -> Dict:
+    s_in, s_out = d ** -0.5, f ** -0.5
+    return {"w_gate": _normal((d, f), s_in, dtype, device, gen),
+            "w_up": _normal((d, f), s_in, dtype, device, gen),
+            "w_down": _normal((f, d), s_out, dtype, device, gen)}

@@ -1,0 +1,134 @@
+"""Threefry-2x32 counterpart of the ``jax.random`` calls on the serve path.
+
+Bit-exact with ``jax.random`` under ``jax_threefry_partitionable=True``
+(the default of the jax the reference runs on): ``PRNGKey``, ``split``,
+``fold_in``, ``bits`` (uint32), ``uniform`` (float32) and ``randint``.
+``tests/test_torch_random.py`` holds every function against jax.
+
+A key is a CPU ``int64`` tensor of shape ``(2,)`` holding the two uint32
+key words, like the raw ``uint32[2]`` keys of ``jax.random.PRNGKey``.  Keys
+stay on the host: deriving one is a handful of integer mixes on Python
+ints, so the per-layer ``fold_in`` chains of the serve loop cost no device
+launch and no synchronisation.  Only bulk draws (``bits``, ``uniform``,
+``randint``) are materialised, on the device the caller names.
+
+uint32 arithmetic is done in ``int64`` masked to 32 bits (CPU torch has
+few ``uint32`` ops).  The hash functions below take Python ints and
+``int64`` tensors alike; a 32x32-bit product would overflow ``int64``, so
+:func:`mul32` splits it into 16-bit halves.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+M32 = 0xFFFFFFFF
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+
+
+def mul32(a, b):
+    """``(a * b) mod 2**32`` for values in ``[0, 2**32)``.
+
+    ``a * b = a_lo * b + 2**16 * a_hi * b``; modulo ``2**32`` the second
+    term only needs ``a_hi * b_lo mod 2**16``, so no partial product
+    exceeds ``2**48``.
+    """
+    a_lo, a_hi = a & 0xFFFF, a >> 16
+    return (a_lo * b + (((a_hi * (b & 0xFFFF)) & 0xFFFF) << 16)) & M32
+
+
+def _rotl(x, r: int):
+    return ((x << r) | (x >> (32 - r))) & M32
+
+
+def threefry2x32(k0, k1, x0, x1):
+    """The Threefry-2x32 block cipher (20 rounds), as ``jax.random`` runs it."""
+    ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
+    x0 = (x0 + ks[0]) & M32
+    x1 = (x1 + ks[1]) & M32
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x0 = (x0 + x1) & M32
+            x1 = _rotl(x1, r) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & M32
+        x1 = (x1 + ks[(i + 2) % 3] + i + 1) & M32
+    return x0, x1
+
+
+def _words(key: torch.Tensor):
+    k0, k1 = key.tolist()
+    return int(k0), int(k1)
+
+
+def _key(w0: int, w1: int) -> torch.Tensor:
+    return torch.tensor([w0, w1], dtype=torch.int64)
+
+
+def PRNGKey(seed: int) -> torch.Tensor:
+    """``jax.random.PRNGKey(seed)`` for a 32-bit integer seed."""
+    seed = int(seed)
+    if not -2 ** 31 <= seed < 2 ** 32:
+        raise ValueError(f"seed {seed} is not a 32-bit integer")
+    return _key(0, seed & M32)
+
+
+def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """``jax.random.split``: key ``i`` hashes the counter ``(0, i)``."""
+    k0, k1 = _words(key)
+    return torch.tensor([threefry2x32(k0, k1, 0, i) for i in range(num)],
+                        dtype=torch.int64).reshape(num, 2)
+
+
+def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
+    """``jax.random.fold_in`` with ``data`` taken as a uint32."""
+    k0, k1 = _words(key)
+    return _key(*threefry2x32(k0, k1, 0, int(data) & M32))
+
+
+def bits(key: torch.Tensor, shape=(), device="cpu") -> torch.Tensor:
+    """``jax.random.bits(key, shape, uint32)`` as an ``int64`` tensor.
+
+    Word ``n`` (row-major) hashes the 64-bit counter ``n`` split into its
+    high and low 32-bit halves and returns the xor of the two outputs.
+    """
+    shape = tuple(shape)
+    k0, k1 = _words(key)
+    n = math.prod(shape)
+    if n >= 2 ** 32:
+        raise NotImplementedError("draws of 2**32 words or more")
+    lo = torch.arange(n, dtype=torch.int64, device=device)
+    b0, b1 = threefry2x32(k0, k1, torch.zeros_like(lo), lo)
+    return (b0 ^ b1).reshape(shape)
+
+
+def uniform(key: torch.Tensor, shape=(), device="cpu") -> torch.Tensor:
+    """``jax.random.uniform(key, shape, float32)`` on ``[0, 1)``.
+
+    The top 23 random bits become the mantissa of a float in ``[1, 2)``,
+    from which 1 is subtracted.
+    """
+    mant = (bits(key, shape, device) >> 9) | 0x3F800000
+    return mant.to(torch.int32).view(torch.float32) - 1.0
+
+
+def randint(key: torch.Tensor, shape, minval: int, maxval: int,
+            device="cpu") -> torch.Tensor:
+    """``jax.random.randint(key, shape, minval, maxval, int32)``.
+
+    Two draws (from the two halves of ``split(key)``) reduced modulo the
+    span with jax's multiplier, so the result is biased exactly as jax's.
+    """
+    minval, maxval = int(minval), int(maxval)
+    if not -2 ** 31 <= minval <= maxval <= 2 ** 31 - 1:
+        raise NotImplementedError("int32 bounds with minval <= maxval only")
+    k_hi, k_lo = split(key)
+    span = 1 if maxval <= minval else (maxval - minval) & M32
+    multiplier = ((2 ** 16 % span) ** 2 & M32) % span     # uint32 product
+    offset = bits(k_lo, shape, device) % span
+    if multiplier:      # a zero multiplier drops the first draw entirely
+        offset = (mul32(bits(k_hi, shape, device) % span, multiplier)
+                  + offset) & M32
+        offset = offset % span
+    out = (offset + minval) & M32
+    return (out - ((out >> 31) << 32)).to(torch.int32)

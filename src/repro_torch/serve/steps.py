@@ -1,0 +1,86 @@
+"""Serve steps: prefill, decode, sampling and the generation loop.
+
+:func:`generate` reproduces the reference's ``make_generate_fn`` key and
+fault-stream derivation exactly — ``fi.with_seeds()`` once per call, one
+``split`` of the sampling key per token, ``fi.for_step(t)`` for decode step
+``t`` — as a Python loop of eager steps (no compiled scan).
+"""
+from __future__ import annotations
+
+import time
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from .. import random as prandom
+from ..configs import ModelConfig
+from ..models import transformer as tf
+from ..models.layers import FaultConfig
+from ..obs.taps import logit_taps
+
+
+def prefill(params, cfg: ModelConfig, tokens: torch.Tensor,
+            fi: Optional[FaultConfig], max_len: int):
+    """-> (logits of the last position (B, vocab), cache at ``max_len``)."""
+    B, S = tokens.shape
+    cache = tf.init_cache(cfg, B, max_len, dtype=params["embed"].dtype,
+                          device=tokens.device)
+    logits, cache = tf.forward_logits(params, cfg, tokens, states=cache,
+                                      cache_len=S, fi=fi)
+    return logits[:, -1], cache
+
+
+def decode(params, cfg: ModelConfig, token: torch.Tensor, cache,
+           cache_len: int, fi: Optional[FaultConfig]):
+    """token (B, 1) -> (logits (B, vocab), cache)."""
+    logits, cache = tf.decode_step(params, cfg, token, cache, cache_len,
+                                   fi=fi)
+    return logits[:, -1], cache
+
+
+def sample_token(logits: torch.Tensor, key: torch.Tensor,
+                 temperature: float = 0.0,
+                 top_k: Optional[int] = None) -> torch.Tensor:
+    """Greedy sampling (``temperature == 0``): exact argmax, first index on
+    ties.  ``key`` is consumed as in the reference but unused here."""
+    if temperature > 0 or top_k is not None:
+        raise NotImplementedError("temperature / top-k sampling needs "
+                                  "jax.random.categorical, not ported yet")
+    return torch.argmax(logits, dim=-1).to(torch.int32)
+
+
+def generate(params, cfg: ModelConfig, prompts: torch.Tensor,
+             fi: Optional[FaultConfig], key: torch.Tensor, *,
+             max_len: int, n_steps: int, temperature: float = 0.0,
+             top_k: Optional[int] = None) -> Tuple[np.ndarray, Dict, Dict]:
+    """Prefill + ``n_steps - 1`` decode steps + sampling.
+
+    Returns ``(tokens (B, n_steps), telemetry {name: (n_steps,)}, timings
+    {"prefill_s", "decode_s"})``; the timings are host clock, each phase
+    ended by a device synchronisation.
+    """
+    S = prompts.shape[1]
+    if fi is not None:
+        fi = fi.with_seeds()
+    sync = (torch.cuda.synchronize if prompts.device.type == "cuda"
+            else (lambda: None))
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, cfg, prompts, fi, max_len)
+    key, sub = prandom.split(key)
+    tok = sample_token(logits, sub, temperature, top_k)
+    toks, taps = [tok], [logit_taps(logits)]
+    sync()
+    t1 = time.perf_counter()
+    for t in range(1, n_steps):
+        fi_t = None if fi is None else fi.for_step(t)
+        logits, cache = decode(params, cfg, tok[:, None], cache, S + t, fi_t)
+        key, sub = prandom.split(key)
+        tok = sample_token(logits, sub, temperature, top_k)
+        toks.append(tok)
+        taps.append(logit_taps(logits))
+    tokens = torch.stack(toks, dim=1).cpu().numpy()
+    t2 = time.perf_counter()
+    series = {k: torch.stack([tp[k] for tp in taps]).cpu().numpy()
+              for k in taps[0]}
+    return tokens, series, {"prefill_s": t1 - t0, "decode_s": t2 - t1}

@@ -30,6 +30,9 @@ def key():
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: long-running end-to-end tests")
+    config.addinivalue_line(
+        "markers", "cuda: compares a CUDA kernel of the PyTorch port with "
+        "its plain version; needs a CUDA device and skips without one")
     # Lock the backend to the real single CPU device BEFORE any test module
     # imports repro.launch.dryrun (which sets XLA_FLAGS for ITS OWN process;
     # jax ignores the env var once initialised).
