@@ -10,22 +10,27 @@ Phases (any failure exits non-zero):
 1. the card: ``torch.cuda.is_available()``, ``nvidia-smi`` name and power
    limit;
 2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (nvcc,
-   sm_90a) and print the build time and ptxas report;
+   sm_90a) and print the build time and each kernel's ptxas registers,
+   spills and shared memory;
 3. hold each kernel against its plain PyTorch version at the serve path's
    shapes (llama3_8b, B=2, prompt 16: M = 32 prefill / 2 decode) with
-   BER 1e-3 so flips occur — int32 and float32 outputs bit-exact — and time
-   kernel, plain version and, for the int8 GEMMs, ``torch._int_mm`` with
-   CUDA events beside the bytes/operations bound;
+   BER 1e-3 so flips occur — int32 and float32 outputs bit-exact, in all
+   three GEMM modes, every launch on the fast path — and time kernel, plain
+   version and, for the int8 GEMMs, ``torch._int_mm``: ``ms`` with CUDA
+   events through the wrapper (its host cost included), ``dev_ms`` with
+   ``torch.profiler`` on the device, rotating copies of ``b`` so the weight
+   is read from device memory as in serving, beside the bytes/operations
+   bound;
 4. the main path: ``evaluate_policy`` (Table I/II), a ``FleetRuntime``
    aged 9 years, and ``ServeEngine(llama3_8b full width, bf16 random
    params, use_systolic_kernel=True).generate`` of 8 tokens for B=2 on the
-   fused-kernel route, with launch counts checked against the model's
-   operator count; plus a reduced-model generation held against the same
+   fused-kernel route, with launch counts (and the fast path for every
+   GEMM) checked against the model's operator count; plus a reduced-model generation held against the same
    port on the CPU (plain versions);
    ``torch.profiler`` over one more prefill + decode step gives the
    device busy share and the ops that take the device time;
 5. a short three-pass generation (``use_fused_kernel=False``) that must
-   launch ``systolic_matmul``;
+   launch ``systolic_matmul`` on its fast path;
 6. a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and as the last
    line ``{"ok": true, "device": {...}}``.
 
@@ -36,8 +41,10 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import itertools
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -71,7 +78,9 @@ def check(cond: bool, what: str) -> None:
 
 
 def cuda_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of ``fn()`` over ``iters`` launches (CUDA events)."""
+    """Mean time per call of ``fn()`` over ``iters`` back-to-back calls
+    (CUDA events): the device time, or the caller's host cost where that is
+    longer."""
     import torch
     for _ in range(warmup):
         fn()
@@ -83,6 +92,32 @@ def cuda_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _dev_us(e) -> float:
+    return getattr(e, "self_device_time_total",
+                   getattr(e, "self_cuda_time_total", 0.0))
+
+
+def device_ms(fn, iters: int = 20, match: str | None = None) -> tuple:
+    """``torch.profiler`` device time per call of ``fn()``: the self time
+    of the CUDA kernels it launched (those whose name holds ``match``, if
+    given) over ``iters`` calls.  Returns ``(ms, kernels per call)``."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.key_averages()
+           if getattr(e, "device_type", None) == DeviceType.CUDA
+           and (match is None or match in e.key)]
+    return (sum(_dev_us(e) for e in evs) / 1e3 / iters,
+            sum(e.count for e in evs) / iters)
 
 
 def bound(bytes_moved: float, ops: float) -> tuple:
@@ -98,17 +133,49 @@ def max_abs_err(x, y) -> float:
     return float((x - y).abs().max())
 
 
+def ptxas_report(log: str) -> list:
+    """Registers, spills and static shared memory of each kernel in
+    nvcc's ``-Xptxas -v`` log, with a readable kernel name."""
+    out, cur = [], None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            mangled = m.group(1)
+            name = next((k for k in ("int8_gemm_tc_kernel", "int8_gemm_kernel",
+                                     "bitflip_kernel") if k in mangled),
+                        mangled)
+            # template arguments: the integers up to the first "EEv"
+            args = re.findall(r"Li(\d+)E", mangled.split(name, 1)[-1]
+                              .split("EEv")[0] + "E")
+            if args:
+                name += "<" + ",".join(args) + ">"
+            cur = {"kernel": name}
+            out.append(cur)
+        elif cur is not None:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          ln)
+            if m:
+                cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+            m = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?", ln)
+            if m:
+                cur["registers"] = int(m.group(1))
+                cur["static_smem"] = int(m.group(2) or 0)
+    return out
+
+
 # --------------------------------------------------------------------------- #
 def kernel_checks(dev, cfg) -> dict:
     """Each kernel vs its plain version at the main path's shapes."""
     import torch
-    from repro_torch.kernels import ops, ref
+    from repro_torch import kernels
+    from repro_torch.kernels import _cuda, ops, ref
     from repro_torch.kernels.bitflip import bitflip_words
     from repro_torch.kernels.fused_aged_matmul import (fused_aged_matmul,
                                                        upset_probability)
     from repro_torch.kernels.systolic_matmul import systolic_matmul
 
     gen = torch.Generator(device=dev).manual_seed(1234)
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
     d, f, kvd = cfg.d_model, cfg.d_ff, cfg.n_kv_heads * cfg.hd
     gemm_kn = [(d, cfg.n_heads * cfg.hd, "q/o"), (d, kvd, "k/v"),
                (d, f, "gate/up"), (f, d, "down")]
@@ -126,45 +193,76 @@ def kernel_checks(dev, cfg) -> dict:
             seed = int(torch.randint(-2 ** 31, 2 ** 31 - 1, (1,),
                                      generator=gen, device=dev))
             bm, bn, _ = ops._resolve_blocks(M, N, K, 256, 256, 256)
-            shape = {"M": M, "K": K, "N": N, "op": what}
+            plan = _cuda.gemm_plan(M, N, K, n_sms)
+            shape = {"M": M, "K": K, "N": N, "op": what,
+                     "plan": {"path": plan.path, "bm": plan.bm,
+                              "bn": plan.bn, "splits": plan.splits,
+                              "ctas": plan.ctas}}
+            # copies of b, more bytes than the 50 MB L2 holds, taken in
+            # turn by the timed calls: serving reads every weight cold
+            bs = itertools.cycle([b] + [b.clone() for _ in range(
+                -(-120_000_000 // b.numel()) - 1)])
+            nb = lambda: next(bs)
 
-            fk = lambda: fused_aged_matmul(a, b, xs, ws, ber, seed, bm=bm,
+            kernels.reset_launch_counts()
+            out, exp = (fused_aged_matmul(a, b, xs, ws, ber, seed, bm=bm,
+                                          bn=bn),
+                        ref.fused_aged_matmul_ref(a, b, xs, ws, ber, seed,
+                                                  bm=bm, bn=bn))
+            up, up_exp = (fused_aged_matmul(a, b, None, None, ber, seed,
+                                            bm=bm, bn=bn),
+                          ref.fused_aged_matmul_ref(a, b, None, None, ber,
+                                                    seed, bm=bm, bn=bn))
+            clean, clean_exp = systolic_matmul(a, b), \
+                ref.systolic_matmul_ref(a, b)
+            torch.cuda.synchronize()
+            err = max(max_abs_err(out, exp), max_abs_err(up, up_exp))
+            check(err == 0.0 and torch.equal(out, exp)
+                  and torch.equal(up, up_exp),
+                  f"fused_aged_matmul {shape}: max |err| {err}")
+            flips = int((up != clean_exp).sum())
+            check(flips > 0 or M * N < 1e4, f"no upsets drawn at {shape}")
+            sys_err = max_abs_err(clean, clean_exp)
+            check(sys_err == 0.0 and torch.equal(clean, clean_exp),
+                  f"systolic_matmul {shape}: max |err| {sys_err}")
+            by_path = kernels.launch_counts_by_path()
+            check(by_path == {"fused_aged_matmul": {"fast": 2, "generic": 0},
+                              "systolic_matmul": {"fast": 1, "generic": 0}},
+                  f"GEMM launches off the fast path at {shape}: {by_path}")
+
+            fk = lambda: fused_aged_matmul(a, nb(), xs, ws, ber, seed, bm=bm,
                                            bn=bn)
+            fk1 = lambda: fused_aged_matmul(a, nb(), None, None, ber, seed,
+                                            bm=bm, bn=bn)
             fr = lambda: ref.fused_aged_matmul_ref(a, b, xs, ws, ber, seed,
                                                    bm=bm, bn=bn)
-            out, exp = fk(), fr()
-            torch.cuda.synchronize()
-            flips = int((fused_aged_matmul(a, b, None, None, ber, seed, bm=bm,
-                                           bn=bn)
-                         != ref.systolic_matmul_ref(a, b)).sum())
-            err = max_abs_err(out, exp)
-            check(err == 0.0 and torch.equal(out, exp),
-                  f"fused_aged_matmul {shape}: max |err| {err}")
-            check(flips > 0 or M * N < 1e4, f"no upsets drawn at {shape}")
-            lib = None
+            sk = lambda: systolic_matmul(a, nb())
+            sr = lambda: ref.systolic_matmul_ref(a, b)
+            lib = lib_dev = None
             if M > 16:        # torch._int_mm needs more than 16 rows
-                lib = cuda_time_ms(lambda: torch._int_mm(a, b))
+                lk = lambda: torch._int_mm(a, nb())
+                lib = cuda_time_ms(lk)
+                lib_dev = device_ms(lk)[0]
+            dev_ms, per_call = device_ms(fk, match="int8_gemm")
+            check(per_call == 1, f"fused GEMM kernels per call {per_call}")
             t_b, by = bound(M * K + K * N + 4 * (M + N) + 4 * M * N,
                             2.0 * M * K * N)
             # no one PyTorch call upsets and dequantises; _int_mm times the
             # GEMM part alone, as a yardstick
             rows["fused_aged_matmul"].append(dict(
                 shape, flips=flips, max_abs_err=err, ms=cuda_time_ms(fk),
+                dev_ms=dev_ms,
+                dev_ms_mode1=device_ms(fk1, match="int8_gemm")[0],
                 plain_ms=cuda_time_ms(fr, iters=3, warmup=1),
-                bound_ms=t_b, bound_by=by, library_ms=None, int_mm_ms=lib))
-
-            sk = lambda: systolic_matmul(a, b)
-            sr = lambda: ref.systolic_matmul_ref(a, b)
-            out, exp = sk(), sr()
-            torch.cuda.synchronize()
-            err = max_abs_err(out, exp)
-            check(err == 0.0 and torch.equal(out, exp),
-                  f"systolic_matmul {shape}: max |err| {err}")
+                bound_ms=t_b, bound_by=by, library_ms=None, int_mm_ms=lib,
+                int_mm_dev_ms=lib_dev))
             t_b, by = bound(M * K + K * N + 4 * M * N, 2.0 * M * K * N)
             rows["systolic_matmul"].append(dict(
-                shape, max_abs_err=err, ms=cuda_time_ms(sk),
+                shape, max_abs_err=sys_err, ms=cuda_time_ms(sk),
+                dev_ms=device_ms(sk, match="int8_gemm")[0],
                 plain_ms=cuda_time_ms(sr, iters=3, warmup=1),
-                bound_ms=t_b, bound_by=by, library_ms=lib))
+                bound_ms=t_b, bound_by=by, library_ms=lib,
+                library_dev_ms=lib_dev))
     # qkt/sv words of prefill and decode, padded to (R, 128), R % 256 == 0
     for R, what in ((256, "qkt prefill / qkt,sv decode"), (1024,
                                                            "sv prefill")):
@@ -184,6 +282,7 @@ def kernel_checks(dev, cfg) -> dict:
         t_b, by = bound(16 * R * 128, 0.0)
         rows["bitflip_words"].append(dict(
             R=R, op=what, max_abs_err=err, ms=cuda_time_ms(bk),
+            dev_ms=device_ms(bk, match="bitflip")[0],
             plain_ms=cuda_time_ms(br), bound_ms=t_b, bound_by=by,
             library_ms=None))
     return rows
@@ -222,13 +321,15 @@ def weight_quant_ms(params, layers) -> float:
     return cuda_time_ms(once, iters=3, warmup=1)
 
 
-def profile_generate(engine, prompts) -> dict:
+def profile_generate(engine, prompts, want_gemm: int) -> dict:
     """``torch.profiler`` over prefill + one decode step.
 
     Device busy time is the sum of the CUDA kernels' self times (one
     stream, so they do not overlap); the share divides it by the host
     clock of the same call run without the profiler, whose own host cost
-    would otherwise dilute it.
+    would otherwise dilute it.  A trace that holds fewer than the
+    ``want_gemm`` GEMM launches the step makes has dropped records; it is
+    taken once more, and ``complete`` says whether the kept one is whole.
     """
     import torch
     from torch.autograd import DeviceType
@@ -238,26 +339,32 @@ def profile_generate(engine, prompts) -> dict:
     engine.generate(prompts, 2)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        engine.generate(prompts, 2)
-        torch.cuda.synchronize()
-    dev_us = lambda e: getattr(e, "self_device_time_total",
-                               getattr(e, "self_cuda_time_total", 0.0))
-    kernels = [e for e in prof.key_averages()
-               if getattr(e, "device_type", None) == DeviceType.CUDA]
-    busy = sum(dev_us(e) for e in kernels) / 1e3
-    top = sorted(kernels, key=dev_us, reverse=True)[:12]
-    ours = {e.key: {"device_ms_per_launch": dev_us(e) / 1e3 / e.count,
+    for attempt in (1, 2):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            engine.generate(prompts, 2)
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages()
+                   if getattr(e, "device_type", None) == DeviceType.CUDA]
+        gemm = [e for e in kernels if "int8_gemm" in e.key]
+        if sum(e.count for e in gemm) == want_gemm:
+            break
+    busy = sum(_dev_us(e) for e in kernels) / 1e3
+    top = sorted(kernels, key=_dev_us, reverse=True)[:12]
+    ours = {e.key: {"device_ms_per_launch": _dev_us(e) / 1e3 / e.count,
                     "launches": e.count}
-            for e in kernels if "int8_gemm_kernel" in e.key
+            for e in kernels if "int8_gemm" in e.key
             or "bitflip_kernel" in e.key}
     return {"wall_ms": wall * 1e3, "device_busy_ms": busy,
             "device_busy_share": busy / (wall * 1e3),
             "n_kernel_launches": sum(e.count for e in kernels),
-            "top": [{"name": e.key[:120], "device_ms": dev_us(e) / 1e3,
+            "top": [{"name": e.key[:120], "device_ms": _dev_us(e) / 1e3,
                      "calls": e.count} for e in top],
-            "port_kernels": ours}
+            "port_kernels": ours,
+            "gemm_launches": sum(e.count for e in gemm),
+            "gemm_device_ms": sum(_dev_us(e) for e in gemm) / 1e3,
+            "attempts": attempt,
+            "complete": sum(e.count for e in gemm) == want_gemm}
 
 
 def main(argv=None) -> int:
@@ -308,12 +415,14 @@ def main(argv=None) -> int:
     # 2. build -------------------------------------------------------------
     info = _cuda.build()
     _cuda.library()
-    ptxas = [ln for ln in info["log"].splitlines() if "Used" in ln
-             or "spill" in ln]
+    ptxas = ptxas_report(info["log"])
     report["build_s"] = info["seconds"]
+    report["ptxas"] = ptxas
     print(f"[2] built {info['path']} in {info['seconds']:.1f} s", flush=True)
-    for ln in ptxas:
-        print("    " + ln.strip())
+    for k in ptxas:
+        print(f"    {k['kernel']:34s} {k.get('registers')} registers, "
+              f"spills {k.get('spill_stores')}/{k.get('spill_loads')} B "
+              f"(store/load), {k.get('static_smem')} bytes static smem")
 
     cfg = get_config("llama3_8b")
     # 3. kernels vs plain versions -----------------------------------------
@@ -322,17 +431,26 @@ def main(argv=None) -> int:
     report["kernel_checks"] = rows
     print(f"[3] kernels bit-exact vs plain versions at main-path shapes "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    fmt = lambda v: "n/a" if v is None else f"{v:.4f}"
     for name, rs in rows.items():
         for r in rs:
             yard = r.get("int_mm_ms", r["library_ms"])
-            lib = "n/a" if yard is None else f"{yard:.4f}"
+            yard_dev = r.get("int_mm_dev_ms", r.get("library_dev_ms"))
             where = r.get("op")
             dims = (f"M={r['M']} K={r['K']} N={r['N']}" if "M" in r
                     else f"R={r['R']}")
+            mode1 = (f" (mode 1 {r['dev_ms_mode1']:.4f})"
+                     if "dev_ms_mode1" in r else "")
             print(f"    {name:18s} {dims:24s} {where:28s} "
-                  f"kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  "
-                  f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})  "
-                  f"_int_mm {lib}")
+                  f"kernel {r['ms']:.4f} ms, dev {r['dev_ms']:.4f}{mode1}  "
+                  f"plain {r['plain_ms']:.4f}  bound {r['bound_ms']:.4f} "
+                  f"({r['bound_by']})  _int_mm {fmt(yard)}, dev "
+                  f"{fmt(yard_dev)}")
+    for r in rows["fused_aged_matmul"]:
+        p = r["plan"]
+        print(f"    plan M={r['M']} {r['op']:8s}: {p['path']} path, "
+              f"{p['bm']}x{p['bn']} tile, {p['splits']} K splits, "
+              f"{p['ctas']} CTAs", flush=True)
 
     # 4. main path ---------------------------------------------------------
     cal = load_calibration()
@@ -390,6 +508,7 @@ def main(argv=None) -> int:
     out = engine.generate(prompts, n_steps)
     gen_s = time.perf_counter() - t0
     counts = kernels.launch_counts()
+    by_path = kernels.launch_counts_by_path()
     peak = torch.cuda.max_memory_allocated(dev)
     tok = out.tokens
     check(tok.shape == (2, n_steps), f"tokens shape {tok.shape}")
@@ -403,6 +522,8 @@ def main(argv=None) -> int:
     check(counts["bitflip_words"] == want_flip,
           f"bitflip_words launches {counts} != {want_flip}")
     check(counts["systolic_matmul"] == 0, f"systolic launches {counts}")
+    check(by_path["fused_aged_matmul"] == {"fast": want_fused, "generic": 0},
+          f"main-path GEMM launches off the fast path: {by_path}")
     pf, dc = out.timings["prefill_s"], out.timings["decode_s"]
     per_tok = dc / (n_steps - 1)
     serve = {"layers": L, "batch": 2, "prompt": 16, "n_steps": n_steps,
@@ -410,6 +531,7 @@ def main(argv=None) -> int:
              "decode_s_per_token": per_tok,
              "tokens_per_s": 2 * n_steps / gen_s,
              "max_memory_allocated_gb": peak / 1e9, "launches": counts,
+             "launches_by_path": by_path,
              "tokens": tok.tolist()}
     serve["weight_quant_ms_per_forward"] = weight_quant_ms(params, L)
     report["serve"] = serve
@@ -420,7 +542,7 @@ def main(argv=None) -> int:
           f"forward", flush=True)
     print(f"    launches: {counts}; tokens {tok.tolist()}", flush=True)
     main_counts = counts
-    report["profile"] = profile_generate(engine, prompts)
+    report["profile"] = profile_generate(engine, prompts, 7 * L * 2)
     prof = report["profile"]
     print(f"    prefill + 1 decode step: {prof['wall_ms']:.1f} ms, device "
           f"busy {prof['device_busy_ms']:.1f} ms "
@@ -428,6 +550,11 @@ def main(argv=None) -> int:
           f"{prof['n_kernel_launches']} kernel launches; top kernels: "
           + ", ".join(f"{o['name'][:48]} {o['device_ms']:.1f} ms"
                       for o in prof["top"][:5]), flush=True)
+    print(f"    int8 GEMM (fused) device time in that profile: "
+          f"{prof['gemm_device_ms']:.2f} ms over {prof['gemm_launches']} of "
+          f"{7 * L * 2} launches (profile "
+          f"{'complete' if prof['complete'] else 'INCOMPLETE'}, attempt "
+          f"{prof['attempts']})", flush=True)
     del engine, params
     torch.cuda.empty_cache()
 
@@ -461,12 +588,15 @@ def main(argv=None) -> int:
                        use_systolic_kernel=True, use_fused_kernel=False,
                        device=dev).generate(prompts, 2)
     counts3 = kernels.launch_counts()
+    by_path3 = kernels.launch_counts_by_path()
     check(out3.tokens.shape == (2, 2), "three-pass tokens shape")
     check(counts3["systolic_matmul"] == 7 * L3 * 2,
           f"systolic_matmul launches {counts3}")
     check(counts3["bitflip_words"] == 9 * L3 * 2,
           f"three-pass bitflip launches {counts3}")
     check(counts3["fused_aged_matmul"] == 0, f"fused launches {counts3}")
+    check(by_path3["systolic_matmul"] == {"fast": 7 * L3 * 2, "generic": 0},
+          f"three-pass GEMM launches off the fast path: {by_path3}")
     report["three_pass"] = {"layers": L3, "launches": counts3,
                             "generate_s": time.perf_counter() - t0}
     print(f"[5] three-pass route, {L3} layers, 2 tokens: launches "
@@ -495,7 +625,8 @@ def main(argv=None) -> int:
             "max_abs_err": max(x["max_abs_err"] for x in rows[name]),
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"], "ok": True,
+            "library_ms": r["library_ms"], "dev_ms": r["dev_ms"],
+            "ok": True,
             "shape": {k: r[k] for k in ("M", "K", "N", "R") if k in r}})
     report["kernels"] = line
     out_dir = ROOT / "chiprun_out"

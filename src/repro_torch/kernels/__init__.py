@@ -7,8 +7,10 @@
 * :mod:`ops`               — shape handling, routes, quantisation.
 * :mod:`ref`               — plain PyTorch versions of the three kernels.
 
-Each wrapper counts its launches in a ``launches`` attribute;
-:func:`launch_counts` / :func:`reset_launch_counts` read and clear them.
+Each wrapper counts its launches in a ``launches`` attribute, and the two
+int8 GEMM wrappers also per path in ``launches_by_path``;
+:func:`launch_counts`, :func:`launch_counts_by_path` and
+:func:`reset_launch_counts` read and clear them.
 """
 from __future__ import annotations
 
@@ -29,6 +31,15 @@ def launch_counts() -> dict:
     return {name: fn.launches for name, fn in _wrappers().items()}
 
 
+def launch_counts_by_path() -> dict:
+    """GEMM launches per wrapper and path (``fast`` / ``generic``)."""
+    return {name: dict(fn.launches_by_path)
+            for name, fn in _wrappers().items()
+            if hasattr(fn, "launches_by_path")}
+
+
 def reset_launch_counts() -> None:
     for fn in _wrappers().values():
         fn.launches = 0
+        if hasattr(fn, "launches_by_path"):
+            fn.launches_by_path = dict.fromkeys(fn.launches_by_path, 0)

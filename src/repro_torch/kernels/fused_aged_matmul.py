@@ -7,12 +7,18 @@ into int32, each accumulator word upset at its flush with probability
 ``q = 1 - (1 - ber)**32`` (one bit, drawn from the counter stream), then
 optionally dequantised as ``(float(acc) * xs[r]) * ws[c]``.
 
-The CUDA kernel is ``csrc/aged_kernels.cu::int8_gemm_kernel`` (modes 1
-and 2).  It is bound by the bytes of ``b`` on the serve path (decode at
-M = 2 reads the whole weight to make two rows); its design note is in the
-source.  The TPU path's on-core PRNG has no counterpart: the stream below
-is the reference's interpret-mode stream, so kernel and plain version
-(:func:`repro_torch.kernels.ref.fused_aged_matmul_ref`) agree bit for bit.
+The CUDA kernel is ``csrc/aged_kernels.cu`` in modes 1 and 2.  It is
+bound by the bytes of ``b`` on the serve path (decode at M = 2 reads the
+whole weight to make two rows).  Every serve-path shape takes the fast
+path (``int8_gemm_tc_kernel``): K split over all SMs by
+:func:`repro_torch.kernels._cuda.gemm_plan`, a ring of asynchronous copies
+and int8 tensor cores, with the upset and dequant run once per word after
+the last split's partial; other shapes take the generic masked path
+(``int8_gemm_kernel``).  ``launches_by_path`` counts both.  The design
+note is in the source.  The TPU path's on-core PRNG has no counterpart:
+the stream below is the reference's interpret-mode stream, so kernel and
+plain version (:func:`repro_torch.kernels.ref.fused_aged_matmul_ref`)
+agree bit for bit.
 
 The stream functions take Python ints and ``int64`` tensors holding uint32
 values alike (see :mod:`repro_torch.random` for the masking convention).
@@ -130,13 +136,16 @@ def fused_aged_matmul(a: torch.Tensor, b: torch.Tensor, xs=None, ws=None,
         return out
     if dequant and (xs.device != a.device or ws.device != a.device):
         raise ValueError("scales must be on the operands' device")
-    _cuda.launch_gemm(a, b, out,
-                      mode=(_cuda.GEMM_UPSET_DEQUANT if dequant
-                            else _cuda.GEMM_UPSET),
-                      xs=xs, ws=ws, seed=seed, q=upset_probability(ber),
-                      lbm=bm, lbn=bn, grid_n=-(-N // bn))
+    path = _cuda.launch_gemm(a, b, out,
+                             mode=(_cuda.GEMM_UPSET_DEQUANT if dequant
+                                   else _cuda.GEMM_UPSET),
+                             xs=xs, ws=ws, seed=seed,
+                             q=upset_probability(ber), lbm=bm, lbn=bn,
+                             grid_n=-(-N // bn))
     fused_aged_matmul.launches += 1
+    fused_aged_matmul.launches_by_path[path] += 1
     return out
 
 
 fused_aged_matmul.launches = 0
+fused_aged_matmul.launches_by_path = {_cuda.FAST: 0, _cuda.GENERIC: 0}
