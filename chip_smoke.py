@@ -13,24 +13,28 @@ Phases (any failure exits non-zero):
    sm_90a) and print the build time and each kernel's ptxas registers,
    spills and shared memory;
 3. hold each kernel against its plain PyTorch version at the serve path's
-   shapes (llama3_8b, B=2, prompt 16: M = 32 prefill / 2 decode) with
-   BER 1e-3 so flips occur — int32 and float32 outputs bit-exact, in all
-   three GEMM modes, every launch on the fast path — and time kernel, plain
+   shapes (llama3_8b, B=2, prompt 16: M = 32 prefill / 2 decode; the
+   qkt/sv words of prefill and decode) with BER 1e-3 so flips occur —
+   int32 and float32 outputs bit-exact, in all three GEMM modes, every
+   launch on the fast path, both bitflip modes — and time kernel, plain
    version and, for the int8 GEMMs, ``torch._int_mm``: ``ms`` with CUDA
    events through the wrapper (its host cost included), ``dev_ms`` with
    ``torch.profiler`` on the device, rotating copies of ``b`` so the weight
-   is read from device memory as in serving, beside the bytes/operations
-   bound;
+   is read from device memory as in serving, beside the bound (bytes, int8
+   tensor-core operations or INT32 instructions); the bitflip draw mode
+   also beside the flow it replaced (pad, threefry draws, explicit pass);
 4. the main path: ``evaluate_policy`` (Table I/II), a ``FleetRuntime``
    aged 9 years, and ``ServeEngine(llama3_8b full width, bf16 random
    params, use_systolic_kernel=True).generate`` of 8 tokens for B=2 on the
-   fused-kernel route, with launch counts (and the fast path for every
-   GEMM) checked against the model's operator count; plus a reduced-model generation held against the same
-   port on the CPU (plain versions);
-   ``torch.profiler`` over one more prefill + decode step gives the
-   device busy share and the ops that take the device time;
+   fused-kernel route, with launch counts (the fast path for every GEMM,
+   one draw-mode bitflip launch per qkt/sv injection) checked against the
+   model's operator count; plus a reduced-model generation held against
+   the same port on the CPU (plain versions); ``torch.profiler`` over one
+   more prefill + decode step gives the device busy share, the launches,
+   the ops that take the device time, and shows no int64 threefry chain;
 5. a short three-pass generation (``use_fused_kernel=False``) that must
-   launch ``systolic_matmul`` on its fast path;
+   launch ``systolic_matmul`` on its fast path and one draw-mode bitflip
+   per faulted matmul;
 6. a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and as the last
    line ``{"ok": true, "device": {...}}``.
 
@@ -53,6 +57,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 INT8_OPS_PER_S = 1979e12       # H100 SXM dense int8 tensor-core peak
+INT32_LANES_PER_SM = 64        # Hopper: INT32 instructions per SM per clock
+THREEFRY_INT_OPS = 73          # one threefry-2x32 hash: 2 + 20 * 3 + 5 * 2 + 1
 TABLE2 = {                     # paper Table II: op -> (V_final, dvp, dvn, saving %)
     "q": (0.90, 73.1, 46.1, 17.0), "k": (0.94, 79.0, 52.1, 14.3),
     "v": (0.90, 73.1, 46.1, 17.0), "qkt": (0.90, 73.1, 46.1, 17.0),
@@ -63,6 +69,7 @@ TABLE2 = {                     # paper Table II: op -> (V_final, dvp, dvn, savin
 JAX_KERNELS = {
     "fused_aged_matmul": "src/repro/kernels/fused_aged_matmul.py:208",
     "bitflip_words": "src/repro/kernels/bitflip.py:49",
+    "bitflip_draw": "src/repro/kernels/bitflip.py:49",
     "systolic_matmul": "src/repro/kernels/systolic_matmul.py:64",
 }
 SOURCE = "src/repro_torch/kernels/csrc/aged_kernels.cu"
@@ -120,9 +127,29 @@ def device_ms(fn, iters: int = 20, match: str | None = None) -> tuple:
             sum(e.count for e in evs) / iters)
 
 
-def bound(bytes_moved: float, ops: float) -> tuple:
+def int32_issue_per_s(dev) -> float:
+    """INT32 instructions per second of the whole card: SMs x 64 lanes x
+    the SM clock (device properties; nvidia-smi's maximum SM clock where
+    this torch does not report it)."""
+    import torch
+    props = torch.cuda.get_device_properties(dev)
+    khz = getattr(props, "clock_rate", 0)
+    if not khz:
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                              "--format=csv,noheader,nounits", "-i",
+                              str(dev.index or 0)], capture_output=True,
+                             text=True, timeout=60)
+        khz = float(smi.stdout.split()[0]) * 1e3
+    return props.multi_processor_count * INT32_LANES_PER_SM * khz * 1e3
+
+
+def bound(bytes_moved: float, tc_ops: float = 0.0, int_ops: float = 0.0,
+          int_rate: float = 1.0) -> tuple:
+    """Least time (ms) for the work and what binds it: the bytes over the
+    memory rate, int8 tensor-core operations over their peak, or INT32
+    ALU instructions (``int_ops``) over ``int_rate`` per second."""
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / INT8_OPS_PER_S * 1e3
+    t_ops = max(tc_ops / INT8_OPS_PER_S, int_ops / int_rate) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -142,8 +169,8 @@ def ptxas_report(log: str) -> list:
         if m:
             mangled = m.group(1)
             name = next((k for k in ("int8_gemm_tc_kernel", "int8_gemm_kernel",
-                                     "bitflip_kernel") if k in mangled),
-                        mangled)
+                                     "bitflip_draw_kernel", "bitflip_kernel")
+                         if k in mangled), mangled)
             # template arguments: the integers up to the first "EEv"
             args = re.findall(r"Li(\d+)E", mangled.split(name, 1)[-1]
                               .split("EEv")[0] + "E")
@@ -169,7 +196,8 @@ def kernel_checks(dev, cfg) -> dict:
     import torch
     from repro_torch import kernels
     from repro_torch.kernels import _cuda, ops, ref
-    from repro_torch.kernels.bitflip import bitflip_words
+    from repro_torch import random as prandom
+    from repro_torch.kernels.bitflip import bitflip_draw, bitflip_words
     from repro_torch.kernels.fused_aged_matmul import (fused_aged_matmul,
                                                        upset_probability)
     from repro_torch.kernels.systolic_matmul import systolic_matmul
@@ -181,7 +209,7 @@ def kernel_checks(dev, cfg) -> dict:
                (d, f, "gate/up"), (f, d, "down")]
     ber, q = 1e-3, upset_probability(1e-3)
     rows = {"fused_aged_matmul": [], "systolic_matmul": [],
-            "bitflip_words": []}
+            "bitflip_words": [], "bitflip_draw": []}
     for M in (32, 2):
         for K, N, what in gemm_kn:
             a = torch.randint(-127, 128, (M, K), dtype=torch.int8,
@@ -285,6 +313,65 @@ def kernel_checks(dev, cfg) -> dict:
             dev_ms=device_ms(bk, match="bitflip")[0],
             plain_ms=cuda_time_ms(br), bound_ms=t_b, bound_by=by,
             library_ms=None))
+    # the draw mode at the qkt/sv words of prefill and decode, against its
+    # plain version and the flow it replaced: pad to (rows_pad, 128), draw
+    # u and pos with threefry int64 tensor ops, explicit-randoms pass, slice
+    int_rate = int32_issue_per_s(dev)
+
+    def old_flow(x, key):
+        n = x.numel()
+        rows_pad = -(-n // (128 * 256)) * 256
+        xf = torch.nn.functional.pad(x.reshape(-1), (0, rows_pad * 128 - n))
+        u, pos = ops.make_flip_randoms(key, (rows_pad, 128), x.device)
+        out = bitflip_words(xf.reshape(rows_pad, 128), u, pos, q)
+        return out.reshape(-1)[:n].reshape(x.shape)
+
+    for shape, what in (((2, 8, 4, 16, 16), "qkt prefill"),
+                        ((2, 8, 4, 16, 128), "sv prefill"),
+                        ((2, 8, 4, 1, 64), "qkt decode"),
+                        ((2, 8, 4, 1, 128), "sv decode")):
+        n = math.prod(shape)
+        x = torch.randint(-2 ** 31, 2 ** 31 - 1, shape, dtype=torch.int32,
+                          device=dev, generator=gen)
+        key = prandom.PRNGKey(n)
+        words = ops.flip_key_words(key)
+        kernels.reset_launch_counts()
+        out = bitflip_draw(x, words, q)
+        exp = ref.bitflip_draw_ref(x, words, q)
+        served = ops.inject_bitflips(x, ber, key)
+        old = old_flow(x, key)
+        torch.cuda.synchronize()
+        err = max_abs_err(out, exp)
+        check(err == 0.0 and torch.equal(out, exp) and torch.equal(served, out)
+              and torch.equal(old, out),
+              f"bitflip_draw {shape}: max |err| {err} (served == kernel "
+              f"{torch.equal(served, out)}, old flow == kernel "
+              f"{torch.equal(old, out)})")
+        flips = int((out != x).sum())
+        check(flips > 0, f"bitflip_draw {shape}: no flips")
+        check(kernels.launch_counts()["bitflip_draw"] == 2,
+              f"bitflip_draw launches {kernels.launch_counts()}")
+        bk = lambda: bitflip_draw(x, words, q)
+        dev_ms, per_call = device_ms(bk, match="bitflip_draw")
+        check(per_call == 1, f"bitflip_draw kernels per call {per_call}")
+        # bytes: each word read and written once; instructions: the uniform's
+        # hash for every word, the position's for every flipped word
+        int_ops = THREEFRY_INT_OPS * (n + flips)
+        t_b, by = bound(8 * n, int_ops=int_ops, int_rate=int_rate)
+        old_dev, old_kernels = device_ms(lambda: old_flow(x, key), iters=5)
+        rows["bitflip_draw"].append(dict(
+            n=n, shape=list(shape), op=what, flips=flips, max_abs_err=err,
+            ms=cuda_time_ms(bk), dev_ms=dev_ms,
+            inject_ms=cuda_time_ms(lambda: ops.inject_bitflips(x, ber, key)),
+            plain_ms=cuda_time_ms(lambda: ref.bitflip_draw_ref(x, words, q),
+                                  iters=5, warmup=1),
+            old_flow_ms=cuda_time_ms(lambda: old_flow(x, key), iters=5,
+                                     warmup=1),
+            old_flow_dev_ms=old_dev, old_flow_kernels=old_kernels,
+            bound_ms=t_b, bound_by=by,
+            bytes_bound_ms=8 * n / HBM_BYTES_PER_S * 1e3,
+            int_bound_ms=int_ops / int_rate * 1e3, int32_issue_per_s=int_rate,
+            library_ms=None))
     return rows
 
 
@@ -353,14 +440,20 @@ def profile_generate(engine, prompts, want_gemm: int) -> dict:
     top = sorted(kernels, key=_dev_us, reverse=True)[:12]
     ours = {e.key: {"device_ms_per_launch": _dev_us(e) / 1e3 / e.count,
                     "launches": e.count}
-            for e in kernels if "int8_gemm" in e.key
-            or "bitflip_kernel" in e.key}
+            for e in kernels if "int8_gemm" in e.key or "bitflip" in e.key}
+    # what is left of the threefry chains: int64 bitwise/shift elementwise
+    # kernels (the in-kernel draws leave none on the serve path)
+    chain = [e for e in kernels
+             if re.search(r"(?i)bitwise|shift", e.key)
+             and re.search(r"long|int64", e.key)]
     return {"wall_ms": wall * 1e3, "device_busy_ms": busy,
             "device_busy_share": busy / (wall * 1e3),
             "n_kernel_launches": sum(e.count for e in kernels),
             "top": [{"name": e.key[:120], "device_ms": _dev_us(e) / 1e3,
                      "calls": e.count} for e in top],
             "port_kernels": ours,
+            "threefry_chain_launches": sum(e.count for e in chain),
+            "threefry_chain_kernels": [e.key[:160] for e in chain],
             "gemm_launches": sum(e.count for e in gemm),
             "gemm_device_ms": sum(_dev_us(e) for e in gemm) / 1e3,
             "attempts": attempt,
@@ -438,7 +531,7 @@ def main(argv=None) -> int:
             yard_dev = r.get("int_mm_dev_ms", r.get("library_dev_ms"))
             where = r.get("op")
             dims = (f"M={r['M']} K={r['K']} N={r['N']}" if "M" in r
-                    else f"R={r['R']}")
+                    else f"R={r['R']}" if "R" in r else f"n={r['n']}")
             mode1 = (f" (mode 1 {r['dev_ms_mode1']:.4f})"
                      if "dev_ms_mode1" in r else "")
             print(f"    {name:18s} {dims:24s} {where:28s} "
@@ -446,6 +539,13 @@ def main(argv=None) -> int:
                   f"plain {r['plain_ms']:.4f}  bound {r['bound_ms']:.4f} "
                   f"({r['bound_by']})  _int_mm {fmt(yard)}, dev "
                   f"{fmt(yard_dev)}")
+    for r in rows["bitflip_draw"]:
+        print(f"    bitflip_draw n={r['n']:<7d} {r['op']:12s} inject_bitflips "
+              f"{r['inject_ms']:.4f} ms; dev {r['dev_ms'] * 1e3:.2f} us vs "
+              f"bound {r['bytes_bound_ms'] * 1e3:.2f} us bytes / "
+              f"{r['int_bound_ms'] * 1e3:.2f} us INT32 issue; old flow "
+              f"{r['old_flow_ms']:.4f} ms, dev {r['old_flow_dev_ms']:.4f} ms "
+              f"over {r['old_flow_kernels']:.0f} kernels", flush=True)
     for r in rows["fused_aged_matmul"]:
         p = r["plan"]
         print(f"    plan M={r['M']} {r['op']:8s}: {p['path']} path, "
@@ -516,11 +616,12 @@ def main(argv=None) -> int:
     check(all(np.isfinite(v).all() for v in out.telemetry.values()),
           "logit taps not finite")
     want_fused = 7 * L * n_steps
-    want_flip = 2 * L * n_steps
+    want_flip = 2 * L * n_steps      # qkt and sv of every layer and forward
     check(counts["fused_aged_matmul"] == want_fused,
           f"fused_aged_matmul launches {counts} != {want_fused}")
-    check(counts["bitflip_words"] == want_flip,
-          f"bitflip_words launches {counts} != {want_flip}")
+    check(counts["bitflip_draw"] == want_flip,
+          f"bitflip_draw launches {counts} != {want_flip}")
+    check(counts["bitflip_words"] == 0, f"bitflip_words launches {counts}")
     check(counts["systolic_matmul"] == 0, f"systolic launches {counts}")
     check(by_path["fused_aged_matmul"] == {"fast": want_fused, "generic": 0},
           f"main-path GEMM launches off the fast path: {by_path}")
@@ -550,6 +651,14 @@ def main(argv=None) -> int:
           f"{prof['n_kernel_launches']} kernel launches; top kernels: "
           + ", ".join(f"{o['name'][:48]} {o['device_ms']:.1f} ms"
                       for o in prof["top"][:5]), flush=True)
+    check(prof["threefry_chain_launches"] == 0,
+          f"threefry elementwise kernels in the step: "
+          f"{prof['threefry_chain_kernels']}")
+    print(f"    launches per prefill + decode step {prof['n_kernel_launches']}"
+          f" ({counts['bitflip_draw'] // n_steps} bitflip_draw per forward); "
+          f"device busy {100 * prof['device_busy_share']:.1f}%; decode "
+          f"{per_tok * 1e3:.1f} ms/token; no threefry elementwise kernel",
+          flush=True)
     print(f"    int8 GEMM (fused) device time in that profile: "
           f"{prof['gemm_device_ms']:.2f} ms over {prof['gemm_launches']} of "
           f"{7 * L * 2} launches (profile "
@@ -592,7 +701,8 @@ def main(argv=None) -> int:
     check(out3.tokens.shape == (2, 2), "three-pass tokens shape")
     check(counts3["systolic_matmul"] == 7 * L3 * 2,
           f"systolic_matmul launches {counts3}")
-    check(counts3["bitflip_words"] == 9 * L3 * 2,
+    check(counts3["bitflip_draw"] == 9 * L3 * 2
+          and counts3["bitflip_words"] == 0,
           f"three-pass bitflip launches {counts3}")
     check(counts3["fused_aged_matmul"] == 0, f"fused launches {counts3}")
     check(by_path3["systolic_matmul"] == {"fast": 7 * L3 * 2, "generic": 0},
@@ -604,7 +714,11 @@ def main(argv=None) -> int:
     del params3
 
     # 6. summary ----------------------------------------------------------
+    # the explicit-randoms bitflip_words is on no path any more: it stays
+    # the Pallas kernel's counterpart signature for signature, held against
+    # its plain version in [3], with 0 launches on the paths
     launches = {"fused_aged_matmul": main_counts["fused_aged_matmul"],
+                "bitflip_draw": main_counts["bitflip_draw"],
                 "bitflip_words": main_counts["bitflip_words"],
                 "systolic_matmul": counts3["systolic_matmul"]}
     # the representative shape of each kernel: the decode weight matmul
@@ -615,9 +729,11 @@ def main(argv=None) -> int:
             and r["op"] == "gate/up",
             "systolic_matmul": lambda r: r["M"] == 32
             and r["op"] == "gate/up",
+            "bitflip_draw": lambda r: r["n"] == 131072,
             "bitflip_words": lambda r: r["R"] == 1024}
     line = []
-    for name in ("fused_aged_matmul", "bitflip_words", "systolic_matmul"):
+    for name in ("fused_aged_matmul", "bitflip_draw", "bitflip_words",
+                 "systolic_matmul"):
         r = next(r for r in rows[name] if pick[name](r))
         line.append({
             "name": name, "route": "cuda", "source": SOURCE,
@@ -626,8 +742,8 @@ def main(argv=None) -> int:
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "dev_ms": r["dev_ms"],
-            "ok": True,
-            "shape": {k: r[k] for k in ("M", "K", "N", "R") if k in r}})
+            "on_main_path": name != "bitflip_words", "ok": True,
+            "shape": {k: r[k] for k in ("M", "K", "N", "R", "n") if k in r}})
     report["kernels"] = line
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -3,9 +3,10 @@
 * :mod:`fused_aged_matmul` — int8 GEMM + accumulator upsets + dequant in
   one pass (the serve hot path), with the counter-stream functions.
 * :mod:`systolic_matmul`   — int8 x int8 -> int32 GEMM (three-pass route).
-* :mod:`bitflip`           — accumulator bit-flip pass over (R, 128) words.
+* :mod:`bitflip`           — accumulator bit-flip pass, on given randoms
+  (``bitflip_words``) or drawing its own (``bitflip_draw``).
 * :mod:`ops`               — shape handling, routes, quantisation.
-* :mod:`ref`               — plain PyTorch versions of the three kernels.
+* :mod:`ref`               — plain PyTorch versions of the kernels.
 
 Each wrapper counts its launches in a ``launches`` attribute, and the two
 int8 GEMM wrappers also per path in ``launches_by_path``;
@@ -14,15 +15,17 @@ int8 GEMM wrappers also per path in ``launches_by_path``;
 """
 from __future__ import annotations
 
-KERNEL_NAMES = ("fused_aged_matmul", "bitflip_words", "systolic_matmul")
+KERNEL_NAMES = ("fused_aged_matmul", "bitflip_words", "bitflip_draw",
+                "systolic_matmul")
 
 
 def _wrappers():
-    from .bitflip import bitflip_words
+    from .bitflip import bitflip_draw, bitflip_words
     from .fused_aged_matmul import fused_aged_matmul
     from .systolic_matmul import systolic_matmul
     return {"fused_aged_matmul": fused_aged_matmul,
             "bitflip_words": bitflip_words,
+            "bitflip_draw": bitflip_draw,
             "systolic_matmul": systolic_matmul}
 
 

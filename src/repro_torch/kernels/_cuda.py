@@ -101,6 +101,10 @@ def library() -> ctypes.CDLL:
             lib.aged_bitflip.argtypes = [vp, vp, vp, ctypes.c_float, vp, ll,
                                          vp]
             lib.aged_bitflip.restype = ci
+            u32 = ctypes.c_uint32
+            lib.aged_bitflip_draw.argtypes = [vp, vp, ll, u32, u32, u32, u32,
+                                              ctypes.c_float, vp]
+            lib.aged_bitflip_draw.restype = ci
             lib.aged_error_string.argtypes = [ci]
             lib.aged_error_string.restype = ctypes.c_char_p
             _lib = lib
@@ -251,3 +255,12 @@ def launch_bitflip(x, u, pos, q: float, out) -> None:
         code = library().aged_bitflip(_ptr(x), _ptr(u), _ptr(pos), float(q),
                                       _ptr(out), x.numel(), stream)
     _check(code, "bitflip")
+
+
+def launch_bitflip_draw(x, key_words, q: float, out) -> None:
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        code = library().aged_bitflip_draw(
+            _ptr(x), _ptr(out), x.numel(),
+            *(int(k) & 0xFFFFFFFF for k in key_words), float(q), stream)
+    _check(code, "bitflip draw")

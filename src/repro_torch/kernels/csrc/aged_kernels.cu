@@ -15,8 +15,12 @@
 //   masked instead of padded: live words draw exactly the reference's bits.
 //   The TPU's on-core PRNG (pltpu.prng_seed) has no counterpart: the counter
 //   stream is the stream, so the kernel is bit-exact against the plain version.
-// * aged_bitflip: elementwise where(u < q, x ^ (1 << pos), x) over int32 words
-//   (replaces repro/kernels/bitflip.py::bitflip_words, body _bitflip_kernel).
+// * aged_bitflip / aged_bitflip_draw: elementwise
+//   where(u < q, x ^ (1 << pos), x) over int32 words (replaces
+//   repro/kernels/bitflip.py::bitflip_words, body _bitflip_kernel), in two
+//   modes.  bitflip_kernel reads u and pos from device memory, signature for
+//   signature with the Pallas kernel.  bitflip_draw_kernel, the one the
+//   injection launches, draws them itself (see its note below).
 //
 // What bounds the GEMM on an H100: the serve path runs it at M = 2 (decode) or
 // 32 (prefill) against K x N weights of 4-58 MB, so every call is bound by the
@@ -56,8 +60,7 @@
 // has the times and the fit).
 // The generic path (int8_gemm_kernel: the first design, __dp4a over 64-deep
 // slices loaded synchronously, no split) masks every edge and takes the
-// shapes the fast path does not.  The bitflip pass is bound by its 16
-// bytes/word of traffic.
+// shapes the fast path does not.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -595,20 +598,119 @@ constexpr Config kConfigs[] = {
 
 }  // namespace tc
 
+// The flip rule of both bitflip modes: a shift by 32 or more flips nothing,
+// as XLA's shift_left gives 0.
+__device__ __forceinline__ int flip_bit(int v, float u, int p, float q) {
+  if (u < q) {
+    const uint32_t mask = static_cast<uint32_t>(p) < 32u ? (1u << p) : 0u;
+    v = static_cast<int>(static_cast<uint32_t>(v) ^ mask);
+  }
+  return v;
+}
+
 __global__ void bitflip_kernel(const int* __restrict__ x,
                                const float* __restrict__ u,
                                const int* __restrict__ pos, float q,
                                int* __restrict__ out, long long n) {
   const long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
   if (i >= n) return;
-  int v = x[i];
-  const int p = pos[i];
-  if (u[i] < q) {
-    // a shift by 32 or more flips nothing, as XLA's shift_left gives 0
-    const uint32_t mask = static_cast<uint32_t>(p) < 32u ? (1u << p) : 0u;
-    v = static_cast<int>(static_cast<uint32_t>(v) ^ mask);
+  out[i] = flip_bit(x[i], u[i], pos[i], q);
+}
+
+// Draw mode.  The injection's randoms are jax.random.uniform(ku, shape) and
+// randint(kp, shape, 0, 32) over the reference's zero-padded (rows_pad, 128)
+// layout.  Under the partitionable threefry, word n of a draw hashes the 64-bit
+// counter n alone, (hi, lo) = (n >> 32, n mod 2**32), and is the xor of the two
+// output words, whatever the draw's shape: so word n of the flat tensor is word
+// n of the padded layout, and the pad words, which the reference throws away,
+// are never drawn.  u is (bits(ku) >> 9 | 0x3F800000) read as a float, minus 1;
+// randint's multiplier (2**16 % 32)**2 % 32 is 0, so pos = bits(kl) & 31 with
+// kl = split(kp)[1].  The wrapper derives (ku, kl) on the host.
+//
+// What bounds it: 8 bytes a word against up to two threefry hashes of ~73
+// integer instructions each (20 rounds of add, funnel shift and xor, plus the
+// key injections).  On an H100 the INT32 pipes (64 lanes an SM, 132 SMs at
+// ~1.98 GHz) issue ~40 instructions in the time 8 bytes take at 3.35 TB/s, so
+// one hash alone makes it bound by integer issue, not by the bytes.
+// The position's hash runs only where u < q, which halves the work at the
+// serve path's BERs (a warp pays for it when one of its lanes flips).  Each
+// thread takes four consecutive words with one 16-byte load and store where x
+// and out share their alignment mod 16 (a scalar head of at most 3 words up to
+// x's 16-byte boundary, a tail of at most 3), and four scalar words otherwise.
+// Blocks of 64 threads spread even the decode shapes (4096 words) over 16 SMs.
+struct DrawKeys {
+  uint32_t u0, u1, l0, l1;
+};
+
+__device__ __forceinline__ void threefry_round(uint32_t& x0, uint32_t& x1,
+                                               int r) {
+  x0 += x1;
+  x1 = __funnelshift_l(x1, x1, r) ^ x0;
+}
+
+// Threefry-2x32 (20 rounds) of the counter (hi, lo) as jax.random runs it,
+// returning the xor of its two output words (one uint32 of a bits draw).
+__device__ __forceinline__ uint32_t threefry_bits(uint32_t k0, uint32_t k1,
+                                                  uint32_t hi, uint32_t lo) {
+  const uint32_t k2 = k0 ^ k1 ^ 0x1BD11BDAu;
+  uint32_t x0 = hi + k0, x1 = lo + k1;
+  threefry_round(x0, x1, 13); threefry_round(x0, x1, 15);
+  threefry_round(x0, x1, 26); threefry_round(x0, x1, 6);
+  x0 += k1; x1 += k2 + 1u;
+  threefry_round(x0, x1, 17); threefry_round(x0, x1, 29);
+  threefry_round(x0, x1, 16); threefry_round(x0, x1, 24);
+  x0 += k2; x1 += k0 + 2u;
+  threefry_round(x0, x1, 13); threefry_round(x0, x1, 15);
+  threefry_round(x0, x1, 26); threefry_round(x0, x1, 6);
+  x0 += k0; x1 += k1 + 3u;
+  threefry_round(x0, x1, 17); threefry_round(x0, x1, 29);
+  threefry_round(x0, x1, 16); threefry_round(x0, x1, 24);
+  x0 += k1; x1 += k2 + 4u;
+  threefry_round(x0, x1, 13); threefry_round(x0, x1, 15);
+  threefry_round(x0, x1, 26); threefry_round(x0, x1, 6);
+  x0 += k2; x1 += k0 + 5u;
+  return x0 ^ x1;
+}
+
+__device__ __forceinline__ int draw_flip(int v, long long i, const DrawKeys& k,
+                                         float q) {
+  const uint32_t hi =
+      static_cast<uint32_t>(static_cast<unsigned long long>(i) >> 32);
+  const uint32_t lo = static_cast<uint32_t>(i);
+  const float u =
+      __uint_as_float((threefry_bits(k.u0, k.u1, hi, lo) >> 9) | 0x3F800000u) -
+      1.0f;
+  int p = 0;
+  if (u < q) p = static_cast<int>(threefry_bits(k.l0, k.l1, hi, lo) & 31u);
+  return flip_bit(v, u, p, q);
+}
+
+// Thread g takes the vector words [head + 4g, head + 4g + 4) for g < nvec, and
+// the scalar words 4g .. 4g + 3 of the rest, [0, head) followed by
+// [head + 4 nvec, n).
+__global__ void bitflip_draw_kernel(const int* __restrict__ x,
+                                    int* __restrict__ out, long long n,
+                                    long long head, long long nvec, DrawKeys k,
+                                    float q) {
+  const long long g = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
+  if (g < nvec) {
+    const long long i = head + 4 * g;
+    int4 v = *reinterpret_cast<const int4*>(x + i);
+    v.x = draw_flip(v.x, i, k, q);
+    v.y = draw_flip(v.y, i + 1, k, q);
+    v.z = draw_flip(v.z, i + 2, k, q);
+    v.w = draw_flip(v.w, i + 3, k, q);
+    *reinterpret_cast<int4*>(out + i) = v;
   }
-  out[i] = v;
+  const long long rest = n - 4 * nvec;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const long long s = 4 * g + j;
+    if (s < rest) {
+      const long long i = s < head ? s : s + 4 * nvec;
+      out[i] = draw_flip(x[i], i, k, q);
+    }
+  }
 }
 
 cudaError_t launch_generic(const int8_t* a, const int8_t* b, const float* xs,
@@ -692,6 +794,34 @@ int aged_bitflip(const void* x, const void* u, const void* pos, float q,
                    static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(x), static_cast<const float*>(u),
       static_cast<const int*>(pos), q, static_cast<int*>(out), n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The injection in one launch over the n live words of x (any 4-byte aligned
+// base), with the keys of the uniforms (ku0, ku1) and of the positions
+// (kl0, kl1).
+int aged_bitflip_draw(const void* x, void* out, long long n, uint32_t ku0,
+                      uint32_t ku1, uint32_t kl0, uint32_t kl1, float q,
+                      void* stream) {
+  const uintptr_t xa = reinterpret_cast<uintptr_t>(x);
+  const uintptr_t oa = reinterpret_cast<uintptr_t>(out);
+  if (n <= 0 || ((xa | oa) & 3u))
+    return static_cast<int>(cudaErrorInvalidValue);
+  long long head = n, nvec = 0;
+  if (((xa ^ oa) & 15u) == 0) {
+    head = static_cast<long long>((16u - (xa & 15u)) & 15u) / 4;
+    if (head > n) head = n;
+    nvec = (n - head) / 4;
+  }
+  const long long scalar_threads = (n - 4 * nvec + 3) / 4;
+  const long long threads = nvec > scalar_threads ? nvec : scalar_threads;
+  constexpr int kBlock = 64;
+  const long long blocks = (threads + kBlock - 1) / kBlock;
+  if (blocks > 0x7FFFFFFFLL) return static_cast<int>(cudaErrorInvalidValue);
+  bitflip_draw_kernel<<<static_cast<unsigned>(blocks), kBlock, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(x), static_cast<int*>(out), n, head, nvec,
+      DrawKeys{ku0, ku1, kl0, kl1}, q);
   return static_cast<int>(cudaGetLastError());
 }
 

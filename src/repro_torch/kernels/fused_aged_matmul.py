@@ -25,6 +25,8 @@ values alike (see :mod:`repro_torch.random` for the masking convention).
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from ..random import M32, mul32
@@ -71,9 +73,15 @@ def upset_probability(ber) -> float:
 
     ``x ** 32`` lowers to five float32 squarings (XLA's ``integer_pow``);
     draws compare ``u < q`` at 2**-27 resolution, so the rounding of every
-    squaring matters.
+    squaring matters.  Worked out once per distinct BER: every faulted
+    matmul of the serve loop asks for it.
     """
-    y = 1.0 - torch.tensor(float(ber), dtype=torch.float32)
+    return _upset_probability(float(ber))
+
+
+@functools.lru_cache(maxsize=1024)
+def _upset_probability(ber: float) -> float:
+    y = 1.0 - torch.tensor(ber, dtype=torch.float32)
     for _ in range(5):
         y = y * y
     return float(1.0 - y)

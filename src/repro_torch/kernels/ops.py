@@ -1,11 +1,11 @@
 """Public wrappers around the kernels (``repro.kernels.ops`` counterpart).
 
 * The logical tile :func:`_resolve_blocks` resolves (``_ceil_mult(dim,
-  256)``) keys the fused kernel's upset stream, and :func:`_flip_inputs`
-  draws the three-pass randoms for the padded ``(rows_pad, 128)`` word
-  layout; both are reproduced exactly, so every route here is bit-exact
-  against its reference counterpart.  The int8 GEMM kernels mask ragged
-  edges instead of padding the operands.
+  256)``) keys the fused kernel's upset stream, and the injection draws,
+  for each live word, the randoms the reference draws for it over its
+  padded ``(rows_pad, 128)`` layout; both are reproduced exactly, so every
+  route here is bit-exact against its reference counterpart.  The kernels
+  mask ragged edges instead of padding.
 * :func:`aged_linear` is the model-facing op: int8 quantisation, int32
   systolic accumulation, BER-parameterised accumulator upsets, dequant —
   over the fused kernel, the three-pass kernel route, or the kernel-free
@@ -20,7 +20,7 @@ from .. import random as prandom
 from ..device import true_div
 from ..random import M32
 from . import ref
-from .bitflip import bitflip_words
+from .bitflip import bitflip_draw
 from .fused_aged_matmul import (fused_aged_matmul as _fused_aged_matmul_kernel,
                                 stream_constant, upset_probability)
 from .systolic_matmul import systolic_matmul
@@ -44,39 +44,38 @@ def quantized_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def make_flip_randoms(key: torch.Tensor, shape, device="cpu"):
-    """Uniforms + bit positions for the injection pass."""
+    """Uniforms + bit positions for the explicit-randoms bitflip pass, over
+    ``shape`` (the reference draws them over ``(rows_pad, 128)``)."""
     ku, kp = prandom.split(key)
     u = prandom.uniform(ku, shape, device)
     pos = prandom.randint(kp, shape, 0, 32, device)
     return u, pos
 
 
-def _flip_inputs(x: torch.Tensor, key: torch.Tensor, block_rows: int = 256):
-    """(R, 128) zero-padded words of ``x`` + their randoms over the padded
-    layout (the reference's random stream depends on ``rows_pad``)."""
-    n = x.numel()
-    rows = -(-n // 128)
-    rows_pad = -(-rows // block_rows) * block_rows
-    xf = torch.nn.functional.pad(x.reshape(-1), (0, rows_pad * 128 - n))
-    xf = xf.reshape(rows_pad, 128)
-    u, pos = make_flip_randoms(key, (rows_pad, 128), x.device)
-    return xf, u, pos, n
+def flip_key_words(key: torch.Tensor) -> tuple:
+    """The four uint32 key words of :func:`make_flip_randoms`' two draws,
+    as Python ints (no device work): ``ku, kp = split(key)`` keys the
+    uniforms, and ``randint(kp, ..., 0, 32)`` is the bits of ``split(kp)[1]``
+    mod 32 (its multiplier ``(2**16 % 32)**2 % 32`` is 0, so the draw of
+    ``split(kp)[0]`` drops out)."""
+    k0, k1 = (int(v) for v in key.tolist())
+    ku = prandom.threefry2x32(k0, k1, 0, 0)
+    kp = prandom.threefry2x32(k0, k1, 0, 1)
+    return (*ku, *prandom.threefry2x32(*kp, 0, 1))
 
 
 def inject_bitflips(x: torch.Tensor, ber, key: torch.Tensor) -> torch.Tensor:
-    """Flip bits of an int32 tensor at per-bit rate ``ber`` (kernel pass)."""
-    block_rows = 256
-    xf, u, pos, n = _flip_inputs(x, key, block_rows)
-    out = bitflip_words(xf, u, pos, upset_probability(ber),
-                        block_rows=block_rows)
-    return out.reshape(-1)[:n].reshape(x.shape)
+    """Flip bits of an int32 tensor at per-bit rate ``ber``: one launch of
+    the bitflip pass in draw mode over the live words (its plain version on
+    the CPU), bit-exact with the reference's padded kernel pass."""
+    return bitflip_draw(x.contiguous(), flip_key_words(key),
+                        upset_probability(ber))
 
 
 def inject_bitflips_ref(x: torch.Tensor, ber, key: torch.Tensor):
     """Plain injection, bit-exact vs :func:`inject_bitflips`."""
-    xf, u, pos, n = _flip_inputs(x, key)
-    out = ref.bitflip_words_ref(xf, u, pos, upset_probability(ber))
-    return out.reshape(-1)[:n].reshape(x.shape)
+    return ref.bitflip_draw_ref(x, flip_key_words(key),
+                                upset_probability(ber))
 
 
 def fused_aged_matmul(a: torch.Tensor, b: torch.Tensor, xs=None, ws=None, *,
@@ -128,8 +127,8 @@ def aged_linear(x: torch.Tensor, w: torch.Tensor, *, ber=0.0,
     Injection is requested by passing ``seed`` or ``key``.  Routes, as in
     the reference: ``use_kernel and fused`` is ONE fused kernel (upset +
     dequant at the flush); ``use_kernel`` alone is the three-pass kernel
-    route (int8 GEMM -> threefry randoms -> bitflip pass); otherwise the
-    kernel-free plain route with the same streams.
+    route (int8 GEMM -> bitflip pass drawing its threefry randoms);
+    otherwise the kernel-free plain route with the same streams.
     """
     if torch.as_tensor(ber).dim() != 0:
         raise NotImplementedError("per-shard BER vectors are not ported")

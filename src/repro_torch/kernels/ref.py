@@ -1,5 +1,5 @@
-"""Plain PyTorch versions of the three kernels (the ``repro.kernels.ref``
-counterparts).
+"""Plain PyTorch versions of the kernels (the ``repro.kernels.ref``
+counterparts, and the bitflip pass's draw mode).
 
 The wrappers take them for CPU tensors; ``chip_smoke.py`` and the
 ``cuda``-marked tests hold each CUDA kernel against them on the card.
@@ -8,6 +8,8 @@ from __future__ import annotations
 
 import torch
 
+from .. import random as prandom
+from ..random import M32
 from .fused_aged_matmul import tile_counter_bits, upset_probability, upset_words
 
 
@@ -27,6 +29,19 @@ def bitflip_words_ref(x: torch.Tensor, u: torch.Tensor, pos: torch.Tensor,
     """The bit-flip pass on identical random inputs."""
     mask = torch.ones_like(pos) << pos
     return torch.where(u < q, x ^ mask, x)
+
+
+def bitflip_draw_ref(x: torch.Tensor, key_words, q: float) -> torch.Tensor:
+    """The bit-flip pass drawing its own randoms: word ``i`` of the flat
+    ``x`` takes ``u`` from word ``i`` of a uniform draw of the key
+    ``key_words[:2]`` and ``pos`` from word ``i`` of a bits draw of the key
+    ``key_words[2:]``, ``& 31`` — the words the reference draws for it over
+    its padded layout, with no padding."""
+    ku0, ku1, kl0, kl1 = (int(k) & M32 for k in key_words)
+    index = torch.arange(x.numel(), dtype=torch.int64, device=x.device)
+    u = prandom.float_from_bits(prandom.bits_at(ku0, ku1, index))
+    pos = (prandom.bits_at(kl0, kl1, index) & 31).to(torch.int32)
+    return bitflip_words_ref(x.reshape(-1), u, pos, q).reshape(x.shape)
 
 
 def fused_aged_matmul_ref(a: torch.Tensor, b: torch.Tensor, xs, ws, ber,

@@ -86,30 +86,39 @@ def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
     return _key(*threefry2x32(k0, k1, 0, int(data) & M32))
 
 
-def bits(key: torch.Tensor, shape=(), device="cpu") -> torch.Tensor:
-    """``jax.random.bits(key, shape, uint32)`` as an ``int64`` tensor.
+def bits_at(k0: int, k1: int, index):
+    """Word ``index`` (row-major) of every ``bits`` draw of the key words
+    ``(k0, k1)``: the hash of the 64-bit counter ``index`` split into its
+    high and low 32-bit halves, as the xor of the two outputs.
 
-    Word ``n`` (row-major) hashes the 64-bit counter ``n`` split into its
-    high and low 32-bit halves and returns the xor of the two outputs.
+    The word does not depend on the draw's shape, so any word can be drawn
+    alone.  ``index`` is an ``int64`` tensor or a Python int.
     """
+    b0, b1 = threefry2x32(k0, k1, index >> 32, index & M32)
+    return b0 ^ b1
+
+
+def bits(key: torch.Tensor, shape=(), device="cpu") -> torch.Tensor:
+    """``jax.random.bits(key, shape, uint32)`` as an ``int64`` tensor."""
     shape = tuple(shape)
     k0, k1 = _words(key)
     n = math.prod(shape)
     if n >= 2 ** 32:
         raise NotImplementedError("draws of 2**32 words or more")
-    lo = torch.arange(n, dtype=torch.int64, device=device)
-    b0, b1 = threefry2x32(k0, k1, torch.zeros_like(lo), lo)
-    return (b0 ^ b1).reshape(shape)
+    index = torch.arange(n, dtype=torch.int64, device=device)
+    return bits_at(k0, k1, index).reshape(shape)
+
+
+def float_from_bits(b: torch.Tensor) -> torch.Tensor:
+    """float32 uniforms on ``[0, 1)`` from uint32 words (``int64``): the top
+    23 bits become the mantissa of a float in ``[1, 2)``, from which 1 is
+    subtracted, as ``jax.random.uniform`` does."""
+    return ((b >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
 
 
 def uniform(key: torch.Tensor, shape=(), device="cpu") -> torch.Tensor:
-    """``jax.random.uniform(key, shape, float32)`` on ``[0, 1)``.
-
-    The top 23 random bits become the mantissa of a float in ``[1, 2)``,
-    from which 1 is subtracted.
-    """
-    mant = (bits(key, shape, device) >> 9) | 0x3F800000
-    return mant.to(torch.int32).view(torch.float32) - 1.0
+    """``jax.random.uniform(key, shape, float32)`` on ``[0, 1)``."""
+    return float_from_bits(bits(key, shape, device))
 
 
 def randint(key: torch.Tensor, shape, minval: int, maxval: int,

@@ -11,9 +11,9 @@ the fault config, one for the call's sampling key.
 Routes: ``use_systolic_kernel=False`` is kernel-free (plain int8 matmul +
 plain injection); ``use_systolic_kernel=True`` runs the weight matmuls
 through the fused CUDA kernel (``use_fused_kernel=True``) or the
-three-pass route (int8 GEMM kernel -> threefry randoms -> bitflip kernel),
-and the qkt/sv domains through the bitflip kernel.  ``FleetServeEngine``
-and ``score`` are not ported yet.
+three-pass route (int8 GEMM kernel -> bitflip kernel, which draws its own
+threefry randoms), and the qkt/sv domains through the bitflip kernel.
+``FleetServeEngine`` and ``score`` are not ported yet.
 """
 from __future__ import annotations
 

@@ -13,7 +13,7 @@ from repro_torch import kernels
 from repro_torch import random as prandom
 from repro_torch.kernels import _cuda, ops, ref
 from repro_torch.kernels import fused_aged_matmul as pfam
-from repro_torch.kernels.bitflip import bitflip_words
+from repro_torch.kernels.bitflip import bitflip_draw, bitflip_words
 from repro_torch.kernels.systolic_matmul import systolic_matmul
 
 
@@ -67,6 +67,7 @@ def test_cuda_gemm_kernels_match_plain(cuda_device, M, K, N, ber):
     torch.cuda.synchronize()
     assert kernels.launch_counts() == {"fused_aged_matmul": 2,
                                        "bitflip_words": 0,
+                                       "bitflip_draw": 0,
                                        "systolic_matmul": 1}
 
 
@@ -132,6 +133,60 @@ def test_cuda_bitflip_kernel_matches_plain(cuda_device, R):
     torch.cuda.synchronize()
     assert torch.equal(got, ref.bitflip_words_ref(x, u, pos, 0.03))
     assert bool((got != x).any())
+
+
+def _words(dev, n, seed, offset=0):
+    """``n`` random int32 words on ``dev``, starting ``offset`` words past a
+    fresh allocation (16-byte aligned): offset 1 misaligns the base."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    buf = torch.randint(-2 ** 31, 2 ** 31 - 1, (n + offset,),
+                        dtype=torch.int32, device=dev, generator=g)
+    return buf[offset:]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ber", [0.0, 1e-3, 0.3])
+@pytest.mark.parametrize("n", [0, 1, 3, 127, 128, 4096, 8192, 131072,
+                               2 ** 20 + 5])
+def test_cuda_bitflip_draw_matches_plain(cuda_device, n, ber):
+    """Draw mode vs its plain version on the card, bit for bit: aligned
+    bases (vector words plus a scalar tail) and a base one word past the
+    alignment (scalar words only), one launch per call."""
+    q = pfam.upset_probability(ber)
+    words = ops.flip_key_words(prandom.PRNGKey(n))
+    for offset in (0, 1, 4):
+        x = _words(cuda_device, n, n + offset, offset)
+        kernels.reset_launch_counts()
+        got = bitflip_draw(x, words, q)
+        want = ref.bitflip_draw_ref(x, words, q)
+        torch.cuda.synchronize()
+        assert got.shape == x.shape and torch.equal(got, want)
+        assert kernels.launch_counts()["bitflip_draw"] == (1 if n else 0)
+        if ber == 0.0:
+            assert torch.equal(got, x)
+        elif n >= 4096:
+            assert bool((got != x).any())
+
+
+@pytest.mark.cuda
+def test_cuda_inject_bitflips_is_one_launch(cuda_device):
+    """``inject_bitflips`` on the serve path's qkt/sv shapes: one draw-mode
+    launch per call and nothing else of the port's kernels, equal to the
+    same call on the CPU."""
+    shapes = [(2, 8, 4, 1, 64), (2, 8, 4, 1, 128), (2, 8, 4, 16, 16),
+              (2, 8, 4, 16, 128)]
+    kernels.reset_launch_counts()
+    for i, shape in enumerate(shapes):
+        g = torch.Generator().manual_seed(i)
+        x = torch.randint(-2 ** 31, 2 ** 31 - 1, shape, dtype=torch.int32,
+                          generator=g)
+        key = prandom.PRNGKey(i)
+        got = ops.inject_bitflips(x.to(cuda_device), 1e-3, key)
+        assert torch.equal(got.cpu(), ops.inject_bitflips(x, 1e-3, key))
+    assert kernels.launch_counts() == {"fused_aged_matmul": 0,
+                                       "bitflip_words": 0,
+                                       "bitflip_draw": len(shapes),
+                                       "systolic_matmul": 0}
 
 
 @pytest.mark.cuda

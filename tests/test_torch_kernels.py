@@ -21,7 +21,7 @@ from repro_torch import kernels
 from repro_torch import random as prandom
 from repro_torch.kernels import fused_aged_matmul as pfam
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.bitflip import bitflip_words
+from repro_torch.kernels.bitflip import bitflip_draw, bitflip_words
 from repro_torch.kernels.systolic_matmul import systolic_matmul
 
 
@@ -150,7 +150,8 @@ def test_bitflip_plain_matches_pallas():
 
 @pytest.mark.parametrize("shape", [(33, 130), (2, 8, 4, 1, 64)])
 def test_inject_bitflips_matches_reference(shape):
-    """Kernel pass and plain pass, over the padded (rows_pad, 128) draws."""
+    """Kernel pass and plain pass (the draw mode over the live words) vs
+    the reference's passes over its padded (rows_pad, 128) draws."""
     rng = np.random.default_rng(6)
     x = rng.integers(-2 ** 30, 2 ** 30, shape, dtype=np.int64) \
         .astype(np.int32)
@@ -163,6 +164,105 @@ def test_inject_bitflips_matches_reference(shape):
         ops.inject_bitflips_ref(T(x), 1e-2, pkey).numpy(),
         np.asarray(jops.inject_bitflips_ref(jnp.asarray(x), 1e-2, jkey)))
     assert (want != x).any()
+
+
+# the serve path's qkt/sv words (llama3_8b, B=2, prompt 16, max_len 64:
+# decode qkt, prefill qkt, prefill sv), ragged word counts, and counts on
+# either side of a rows_pad boundary (256 rows of 128 words)
+DRAW_SHAPES = [(2, 8, 4, 1, 64), (2, 8, 4, 16, 16), (2, 8, 4, 16, 128),
+               (3, 5, 7), (1,), (256, 128), (256 * 128 + 1,)]
+
+
+@pytest.mark.parametrize("ber", [1e-2, 0.3])
+@pytest.mark.parametrize("shape", DRAW_SHAPES)
+def test_inject_bitflips_draw_matches_reference(shape, ber):
+    """The draw-mode pass over the live words (plain version, and the CPU
+    ``inject_bitflips`` that takes it) equals the reference's padded kernel
+    pass in interpret mode and its plain pass, bit for bit."""
+    rng = np.random.default_rng(9)
+    x = rng.integers(-2 ** 31, 2 ** 31, shape, dtype=np.int64) \
+        .astype(np.int32)
+    jkey, pkey = jax.random.PRNGKey(11), prandom.PRNGKey(11)
+    want = np.asarray(jops.inject_bitflips(jnp.asarray(x), ber, jkey,
+                                           interpret=True))
+    np.testing.assert_array_equal(
+        np.asarray(jops.inject_bitflips_ref(jnp.asarray(x), ber, jkey)), want)
+    q = pfam.upset_probability(ber)
+    got = ref.bitflip_draw_ref(T(x), ops.flip_key_words(pkey), q).numpy()
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(
+        ops.inject_bitflips(T(x), ber, pkey).numpy(), want)
+    np.testing.assert_array_equal(
+        ops.inject_bitflips_ref(T(x), ber, pkey).numpy(), want)
+    if x.size >= 100:
+        assert (want != x).any()
+
+
+@pytest.mark.parametrize("rows,bigger", [(256, 512), (1024, 2048),
+                                         (256, 1024)])
+def test_flip_draws_do_not_depend_on_shape(rows, bigger):
+    """The premise of the draw mode: the reference's randoms over
+    ``(rows_pad, 128)`` are the first words of a larger draw's, and so of a
+    flat draw over any word count."""
+    key = jax.random.PRNGKey(3)
+    u, pos = jops.make_flip_randoms(key, (rows, 128))
+    ub, posb = jops.make_flip_randoms(key, (bigger, 128))
+    uf, posf = jops.make_flip_randoms(key, (rows * 128 + 5,))
+    for small, big in ((u, ub), (pos, posb)):
+        np.testing.assert_array_equal(np.asarray(small),
+                                      np.asarray(big)[:rows])
+    np.testing.assert_array_equal(np.asarray(u).reshape(-1),
+                                  np.asarray(uf)[:rows * 128])
+    np.testing.assert_array_equal(np.asarray(pos).reshape(-1),
+                                  np.asarray(posf)[:rows * 128])
+
+
+@pytest.mark.parametrize("seed", [0, 4, 2 ** 31 - 1])
+def test_flip_key_words_are_split_twice(seed):
+    """``(ku, split(kp)[1])`` with ``ku, kp = split(key)``, against the
+    port's and jax's ``split``; and the explicit randoms the reference
+    passes drawn from them."""
+    pkey = prandom.PRNGKey(seed)
+    ku, kp = prandom.split(pkey)
+    _, kl = prandom.split(kp)
+    words = ops.flip_key_words(pkey)
+    assert words == (*ku.tolist(), *kl.tolist())
+    jku, jkp = jax.random.split(jax.random.PRNGKey(seed))
+    _, jkl = jax.random.split(jkp)
+    assert words == tuple(int(v) for v in np.concatenate(
+        [np.asarray(jku), np.asarray(jkl)]))
+    u, pos = ops.make_flip_randoms(pkey, (2, 128))
+    index = torch.arange(256)
+    assert torch.equal(u.reshape(-1), prandom.float_from_bits(
+        prandom.bits_at(words[0], words[1], index)))
+    assert torch.equal(pos.reshape(-1), (prandom.bits_at(
+        words[2], words[3], index) & 31).to(torch.int32))
+
+
+def test_bitflip_draw_equals_explicit_pass_over_padding():
+    """The port's old three-step flow (pad to ``(rows_pad, 128)``, draw,
+    explicit-randoms pass, slice) and the draw mode agree."""
+    rng = np.random.default_rng(12)
+    x = T(rng.integers(-2 ** 31, 2 ** 31, (300, 7), dtype=np.int64)
+          .astype(np.int32))
+    key, q = prandom.PRNGKey(8), pfam.upset_probability(0.05)
+    xf = torch.nn.functional.pad(x.reshape(-1), (0, 256 * 128 - x.numel()))
+    u, pos = ops.make_flip_randoms(key, (256, 128))
+    old = bitflip_words(xf.reshape(256, 128), u, pos, q)
+    old = old.reshape(-1)[:x.numel()].reshape(x.shape)
+    assert torch.equal(bitflip_draw(x, ops.flip_key_words(key), q), old)
+    assert bool((old != x).any())
+
+
+def test_bitflip_draw_checks_operands():
+    words = ops.flip_key_words(prandom.PRNGKey(0))
+    with pytest.raises(TypeError):
+        bitflip_draw(torch.zeros(8, dtype=torch.int64), words, 0.1)
+    with pytest.raises(ValueError):
+        bitflip_draw(torch.zeros(8, dtype=torch.int32), words[:3], 0.1)
+    with pytest.raises(ValueError):            # no kernel, no fallback
+        bitflip_draw(torch.zeros(8, dtype=torch.int32, device="meta"),
+                     words, 0.1)
 
 
 @pytest.mark.parametrize("route", ["fused", "three_pass", "kernel_free"])
