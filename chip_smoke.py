@@ -12,17 +12,19 @@ Phases (any failure exits non-zero):
 2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (nvcc,
    sm_90a) and print the build time and each kernel's ptxas registers,
    spills and shared memory;
-3. hold each kernel against its plain PyTorch version at the serve path's
-   shapes (llama3_8b, B=2, prompt 16: M = 32 prefill / 2 decode; the
-   qkt/sv words of prefill and decode) with BER 1e-3 so flips occur —
-   int32 and float32 outputs bit-exact, in all three GEMM modes, every
-   launch on the fast path, both bitflip modes — and time kernel, plain
-   version and, for the int8 GEMMs, ``torch._int_mm``: ``ms`` with CUDA
-   events through the wrapper (its host cost included), ``dev_ms`` with
-   ``torch.profiler`` on the device, rotating copies of ``b`` so the weight
-   is read from device memory as in serving, beside the bound (bytes, int8
-   tensor-core operations or INT32 instructions); the bitflip draw mode
-   also beside the flow it replaced (pad, threefry draws, explicit pass);
+3. hold each kernel against its plain PyTorch version at the serve paths'
+   shapes (llama3_8b and qwen3_moe_235b at head_dim 128, B=2, prompt 16:
+   M = 32 prefill /
+   2 decode; the qkt/sv words of prefill and decode) with BER 1e-3 so
+   flips occur — int32 and float32 outputs bit-exact, in all three GEMM
+   modes, every launch on the fast path, both bitflip modes — and time
+   kernel, plain version and, for the int8 GEMMs, ``torch._int_mm``:
+   ``ms`` with CUDA events through the wrapper (its host cost included),
+   ``dev_ms`` with ``torch.profiler`` on the device, rotating copies of
+   ``b`` so the weight is read from device memory as in serving, beside
+   the bound (bytes, int8 tensor-core operations or INT32 instructions);
+   the bitflip draw mode also beside the flow it replaced (pad, threefry
+   draws, explicit pass);
 4. the main path: ``evaluate_policy`` (Table I/II), a ``FleetRuntime``
    aged 9 years, and ``ServeEngine(llama3_8b full width, bf16 random
    params, use_systolic_kernel=True).generate`` of 8 tokens for B=2 on the
@@ -32,11 +34,27 @@ Phases (any failure exits non-zero):
    the same port on the CPU (plain versions); ``torch.profiler`` over one
    more prefill + decode step gives the device busy share, the launches,
    the ops that take the device time, and shows no int64 threefry chain;
+   PyTorch's sync debug mode shows that a decode step makes no
+   host-device synchronisation;
 5. a short three-pass generation (``use_fused_kernel=False``) that must
    launch ``systolic_matmul`` on its fast path and one draw-mode bitflip
    per faulted matmul;
-6. a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and as the last
-   line ``{"ok": true, "device": {...}}``.
+6. the MoE path: qwen3_moe_235b at its published widths (head_dim 128,
+   which the reference config leaves to derive as d_model // n_heads =
+   64; 12 of 94 layers, bf16 random params) on ``FleetRuntime.for_model``
+   aged 9 years (10 operator domains, the router's included), ``generate``
+   of 8 tokens at T=0.8, top_k=50 with exact launch counts (the fused
+   kernel on q/k/v/o/router, the draw-mode bitflip on qkt/sv; the expert
+   FFNs are clean batched matmuls, as in the reference), no host-device
+   synchronisation in a sampled decode step, the peak memory (under
+   76 GB), the sampler's kernels (its Gumbel draw is int64 threefry tensor
+   ops), a profiled prefill + decode step, and ``score`` of the prompts
+   plus the generated tokens; then reduced qwen3_moe_235b and
+   arctic_480b sampled (T=0.8, top_k=8) at BER 1e-3 on the card's kernel
+   route against the port on the CPU;
+7. a ``{"kernels": [...]}`` line (launches summed over the runs of [4],
+   [5] and [6]), the ``nvidia-smi`` line, and as the last line
+   ``{"ok": true, "device": {...}}``.
 
 Details go to ``chiprun_out/chip_smoke.json``.  The port never calls
 ``torch._int_mm``; it is timed here only as a yardstick.
@@ -59,6 +77,11 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 INT8_OPS_PER_S = 1979e12       # H100 SXM dense int8 tensor-core peak
 INT32_LANES_PER_SM = 64        # Hopper: INT32 instructions per SM per clock
 THREEFRY_INT_OPS = 73          # one threefry-2x32 hash: 2 + 20 * 3 + 5 * 2 + 1
+MOE_PEAK_LIMIT = 76e9         # bytes: the MoE phase must leave 4 GB of the card
+# qwen3_moe_235b's depth in [6]: one layer is ~5 GB of bf16 weights (its
+# 128 experts ~4.83 GB), so 12 of 94 layers plus embed/lm_head (~62 GB)
+# is the most that leaves the card headroom under MOE_PEAK_LIMIT
+MOE_LAYERS = 12
 TABLE2 = {                     # paper Table II: op -> (V_final, dvp, dvn, saving %)
     "q": (0.90, 73.1, 46.1, 17.0), "k": (0.94, 79.0, 52.1, 14.3),
     "v": (0.90, 73.1, 46.1, 17.0), "qkt": (0.90, 73.1, 46.1, 17.0),
@@ -109,22 +132,30 @@ def _dev_us(e) -> float:
 def device_ms(fn, iters: int = 20, match: str | None = None) -> tuple:
     """``torch.profiler`` device time per call of ``fn()``: the self time
     of the CUDA kernels it launched (those whose name holds ``match``, if
-    given) over ``iters`` calls.  Returns ``(ms, kernels per call)``."""
+    given) over ``iters`` calls.  Returns ``(ms, kernels per call)``.
+
+    The profiler now and then drops kernel records, some or all of a
+    trace's; a trace with no kernel, or with a count that is not a whole
+    number per call, has, and is taken again (up to five times, the last
+    kept as it is)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    evs = [e for e in prof.key_averages()
-           if getattr(e, "device_type", None) == DeviceType.CUDA
-           and (match is None or match in e.key)]
-    return (sum(_dev_us(e) for e in evs) / 1e3 / iters,
-            sum(e.count for e in evs) / iters)
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        evs = [e for e in prof.key_averages()
+               if getattr(e, "device_type", None) == DeviceType.CUDA
+               and (match is None or match in e.key)]
+        n = sum(e.count for e in evs)
+        if n > 0 and n % iters == 0:
+            break
+    return sum(_dev_us(e) for e in evs) / 1e3 / iters, n / iters
 
 
 def int32_issue_per_s(dev) -> float:
@@ -191,8 +222,34 @@ def ptxas_report(log: str) -> list:
 
 
 # --------------------------------------------------------------------------- #
-def kernel_checks(dev, cfg) -> dict:
-    """Each kernel vs its plain version at the main path's shapes."""
+def gemm_shapes(cfg, moe_cfg) -> list:
+    """``(model, K, N, op)`` of every faulted weight matmul of the two serve
+    paths: llama3_8b's q/o, k/v, gate/up and down; qwen3_moe_235b's q,
+    k/v, o and router (its expert FFNs are clean)."""
+    d, f, kvd = cfg.d_model, cfg.d_ff, cfg.n_kv_heads * cfg.hd
+    md, mq = moe_cfg.d_model, moe_cfg.n_heads * moe_cfg.hd
+    return [("llama3_8b", d, cfg.n_heads * cfg.hd, "q/o"),
+            ("llama3_8b", d, kvd, "k/v"), ("llama3_8b", d, f, "gate/up"),
+            ("llama3_8b", f, d, "down"),
+            ("qwen3_moe_235b", md, mq, "q"),
+            ("qwen3_moe_235b", md, moe_cfg.n_kv_heads * moe_cfg.hd, "k/v"),
+            ("qwen3_moe_235b", mq, md, "o"),
+            ("qwen3_moe_235b", md, moe_cfg.moe.n_experts, "router")]
+
+
+def attention_shapes(cfg, B: int = 2, S: int = 16, max_len: int = 64):
+    """The int32 score / output shapes the qkt and sv injections see:
+    ``(B, KV, G, Sq, Sk)`` and ``(B, KV, G, Sq, hd)`` at prefill (Sq = Sk
+    = S) and decode (Sq = 1 against the ``max_len`` cache)."""
+    KV, G, hd = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.hd
+    return [((B, KV, G, S, S), "qkt prefill"), ((B, KV, G, S, hd),
+                                                  "sv prefill"),
+            ((B, KV, G, 1, max_len), "qkt decode"),
+            ((B, KV, G, 1, hd), "sv decode")]
+
+
+def kernel_checks(dev, cfg, moe_cfg) -> dict:
+    """Each kernel vs its plain version at the main paths' shapes."""
     import torch
     from repro_torch import kernels
     from repro_torch.kernels import _cuda, ops, ref
@@ -204,14 +261,11 @@ def kernel_checks(dev, cfg) -> dict:
 
     gen = torch.Generator(device=dev).manual_seed(1234)
     n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    d, f, kvd = cfg.d_model, cfg.d_ff, cfg.n_kv_heads * cfg.hd
-    gemm_kn = [(d, cfg.n_heads * cfg.hd, "q/o"), (d, kvd, "k/v"),
-               (d, f, "gate/up"), (f, d, "down")]
     ber, q = 1e-3, upset_probability(1e-3)
     rows = {"fused_aged_matmul": [], "systolic_matmul": [],
             "bitflip_words": [], "bitflip_draw": []}
     for M in (32, 2):
-        for K, N, what in gemm_kn:
+        for model, K, N, what in gemm_shapes(cfg, moe_cfg):
             a = torch.randint(-127, 128, (M, K), dtype=torch.int8,
                               device=dev, generator=gen)
             b = torch.randint(-127, 128, (K, N), dtype=torch.int8,
@@ -222,7 +276,7 @@ def kernel_checks(dev, cfg) -> dict:
                                      generator=gen, device=dev))
             bm, bn, _ = ops._resolve_blocks(M, N, K, 256, 256, 256)
             plan = _cuda.gemm_plan(M, N, K, n_sms)
-            shape = {"M": M, "K": K, "N": N, "op": what,
+            shape = {"M": M, "K": K, "N": N, "op": what, "model": model,
                      "plan": {"path": plan.path, "bm": plan.bm,
                               "bn": plan.bn, "splits": plan.splits,
                               "ctas": plan.ctas}}
@@ -326,10 +380,9 @@ def kernel_checks(dev, cfg) -> dict:
         out = bitflip_words(xf.reshape(rows_pad, 128), u, pos, q)
         return out.reshape(-1)[:n].reshape(x.shape)
 
-    for shape, what in (((2, 8, 4, 16, 16), "qkt prefill"),
-                        ((2, 8, 4, 16, 128), "sv prefill"),
-                        ((2, 8, 4, 1, 64), "qkt decode"),
-                        ((2, 8, 4, 1, 128), "sv decode")):
+    for model, (shape, what) in itertools.chain(
+            (("llama3_8b", a) for a in attention_shapes(cfg)),
+            (("qwen3_moe_235b", a) for a in attention_shapes(moe_cfg))):
         n = math.prod(shape)
         x = torch.randint(-2 ** 31, 2 ** 31 - 1, shape, dtype=torch.int32,
                           device=dev, generator=gen)
@@ -360,7 +413,8 @@ def kernel_checks(dev, cfg) -> dict:
         t_b, by = bound(8 * n, int_ops=int_ops, int_rate=int_rate)
         old_dev, old_kernels = device_ms(lambda: old_flow(x, key), iters=5)
         rows["bitflip_draw"].append(dict(
-            n=n, shape=list(shape), op=what, flips=flips, max_abs_err=err,
+            n=n, shape=list(shape), op=what, model=model, flips=flips,
+            max_abs_err=err,
             ms=cuda_time_ms(bk), dev_ms=dev_ms,
             inject_ms=cuda_time_ms(lambda: ops.inject_bitflips(x, ber, key)),
             plain_ms=cuda_time_ms(lambda: ref.bitflip_draw_ref(x, words, q),
@@ -408,8 +462,9 @@ def weight_quant_ms(params, layers) -> float:
     return cuda_time_ms(once, iters=3, warmup=1)
 
 
-def profile_generate(engine, prompts, want_gemm: int) -> dict:
-    """``torch.profiler`` over prefill + one decode step.
+def profile_generate(engine, prompts, want_gemm: int, **gen_kw) -> dict:
+    """``torch.profiler`` over prefill + one decode step (``generate`` of 2
+    tokens with ``gen_kw``).
 
     Device busy time is the sum of the CUDA kernels' self times (one
     stream, so they do not overlap); the share divides it by the host
@@ -423,13 +478,13 @@ def profile_generate(engine, prompts, want_gemm: int) -> dict:
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    engine.generate(prompts, 2)
+    engine.generate(prompts, 2, **gen_kw)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     for attempt in (1, 2):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            engine.generate(prompts, 2)
+            engine.generate(prompts, 2, **gen_kw)
             torch.cuda.synchronize()
         kernels = [e for e in prof.key_averages()
                    if getattr(e, "device_type", None) == DeviceType.CUDA]
@@ -458,6 +513,195 @@ def profile_generate(engine, prompts, want_gemm: int) -> dict:
             "gemm_device_ms": sum(_dev_us(e) for e in gemm) / 1e3,
             "attempts": attempt,
             "complete": sum(e.count for e in gemm) == want_gemm}
+
+
+def reduced_vs_cpu(small, dev, **gen_kw) -> dict:
+    """Tokens of the reduced model ``small`` on the card's kernel route
+    against the port on the CPU (plain versions), at BER 1e-3 on every
+    operator domain; fails unless they are equal."""
+    import numpy as np
+    import torch
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serve.engine import ServeEngine
+    p_cpu = init_params(small, seed=1, dtype=torch.float32, device="cpu")
+    p_gpu = _map(p_cpu, lambda t: t.to(dev))
+    prompts = SyntheticLM(vocab=small.vocab, seq_len=12,
+                          global_batch=2).batch_at(0).tokens
+    outs = {}
+    for name, p, d in (("cuda", p_gpu, dev), ("cpu", p_cpu, "cpu")):
+        outs[name] = ServeEngine(small, p, runtime=_Forced(1e-3),
+                                 max_len=32, use_systolic_kernel=True,
+                                 seed=5, device=d).generate(prompts, 6,
+                                                            **gen_kw)
+    got, want = outs["cuda"].tokens.tolist(), outs["cpu"].tokens.tolist()
+    check(np.array_equal(outs["cuda"].tokens, outs["cpu"].tokens),
+          f"reduced {small.name} {gen_kw}: card tokens {got} != CPU tokens "
+          f"{want}")
+    return {"cuda": got, "cpu": want}
+
+
+def host_syncs(fn) -> int:
+    """Host-device synchronisations made by ``fn()``, as counted by
+    PyTorch's sync debug mode (one warning per synchronising call)."""
+    import warnings
+    import torch
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchronizing CUDA operation" in str(w.message)
+               for w in caught)
+
+
+def decode_syncs(engine, prompts, **gen_kw) -> dict:
+    """Host syncs of ``generate`` at 2 and 8 tokens; fails unless they are
+    equal, i.e. unless a decode step makes none (``generate`` synchronises
+    only at its phase ends)."""
+    n = {k: host_syncs(lambda: engine.generate(prompts, k, **gen_kw))
+         for k in (2, 8)}
+    check(n[2] == n[8], f"decode steps synchronise with the host: host "
+          f"syncs of generate at 2 / 8 tokens {n[2]} / {n[8]}")
+    return {"generate_2_tokens": n[2], "generate_8_tokens": n[8]}
+
+
+def moe_phase(dev, cfg) -> dict:
+    """[6] The MoE serve path at published widths, ``MOE_LAYERS`` deep,
+    then reduced qwen3_moe_235b and arctic_480b on the card against the
+    CPU."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch import random as prandom
+    from repro_torch.configs import get_config
+    from repro_torch.core.fleet import FleetRuntime
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serve import steps
+    from repro_torch.serve.engine import ServeEngine
+
+    sample = {"temperature": 0.8, "top_k": 50}
+    runtime = FleetRuntime.for_model(cfg, device=dev)
+    runtime.set_age(years=9.0)
+    bers = runtime.op_bers()
+    check(len(bers) == 10 and "router" in bers
+          and all(math.isfinite(v) and v > 0 for v in bers.values()),
+          f"MoE fleet's admitted BERs {bers}")
+    print("[6] MoE fleet (FleetRuntime.for_model), age 9 y admitted BER: "
+          + ", ".join(f"{op} {v:.2e}" for op, v in bers.items()), flush=True)
+
+    L = MOE_LAYERS
+    cfg_run = dataclasses.replace(cfg, n_layers=L)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = init_params(cfg_run, seed=0, dtype=torch.bfloat16, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _leaves(params))
+    param_gb = sum(t.numel() * t.element_size() for t in _leaves(params)) / 1e9
+    print(f"    qwen3_moe_235b published widths (head_dim {cfg.hd}), {L} of "
+          f"{cfg.n_layers} layers, "
+          f"{n_params / 1e9:.2f} B params ({param_gb:.2f} GB, bf16 with a "
+          f"float32 router) initialised in {init_s:.1f} s", flush=True)
+    prompts = SyntheticLM(vocab=cfg.vocab, seq_len=16,
+                          global_batch=2).batch_at(0).tokens
+    ServeEngine(cfg_run, params, runtime=runtime, max_len=64,
+                use_systolic_kernel=True, device=dev).generate(prompts, 2,
+                                                               **sample)
+    engine = ServeEngine(cfg_run, params, runtime=runtime, max_len=64,
+                         use_systolic_kernel=True, device=dev)
+    n_steps = 8
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = engine.generate(prompts, n_steps, **sample)
+    gen_s = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    by_path = kernels.launch_counts_by_path()
+    tok = out.tokens
+    check(tok.shape == (2, n_steps), f"MoE tokens shape {tok.shape}")
+    check(bool(((tok >= 0) & (tok < cfg.vocab)).all()), "MoE token ids")
+    check(all(np.isfinite(v).all() for v in out.telemetry.values()),
+          "MoE logit taps not finite")
+    want_fused = 5 * L * n_steps       # q, k, v, o, router
+    want_flip = 2 * L * n_steps        # qkt, sv
+    check(counts["fused_aged_matmul"] == want_fused
+          and by_path["fused_aged_matmul"] == {"fast": want_fused,
+                                               "generic": 0},
+          f"MoE fused_aged_matmul launches {by_path} != {want_fused} fast")
+    check(counts["bitflip_draw"] == want_flip,
+          f"MoE bitflip_draw launches {counts} != {want_flip}")
+    check(counts["systolic_matmul"] == 0 and counts["bitflip_words"] == 0,
+          f"MoE path launched a three-pass kernel: {counts}")
+    full = np.concatenate([prompts, tok], axis=1)
+    score_s, nlls = [], []
+    for _ in range(2):          # the first call meets these shapes first
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        nlls.append(engine.score(full))
+        torch.cuda.synchronize()
+        score_s.append(time.perf_counter() - t0)
+    nll = nlls[0]
+    check(all(math.isfinite(v) and v > 0 for v in nlls), f"MoE score {nlls}")
+    peak = torch.cuda.max_memory_allocated(dev)
+    check(peak < MOE_PEAK_LIMIT, f"MoE peak memory {peak / 1e9:.2f} GB")
+    pf, dc = out.timings["prefill_s"], out.timings["decode_s"]
+    per_tok = dc / (n_steps - 1)
+    res = {"layers": L, "batch": 2, "prompt": 16, "n_steps": n_steps,
+           "temperature": sample["temperature"], "top_k": sample["top_k"],
+           "params_b": n_params / 1e9, "param_gb": param_gb,
+           "init_s": init_s, "bers_age9": bers, "generate_s": gen_s,
+           "prefill_s": pf, "decode_s_per_token": per_tok,
+           "tokens_per_s": 2 * n_steps / gen_s,
+           "max_memory_allocated_gb": peak / 1e9, "launches": counts,
+           "launches_by_path": by_path, "tokens": tok.tolist(),
+           "score_nll": nlls, "score_tokens": list(full.shape),
+           "score_ms": [t * 1e3 for t in score_s]}
+    print(f"    generate (T=0.8, top_k=50): prefill {pf * 1e3:.1f} ms, decode "
+          f"{per_tok * 1e3:.1f} ms/token, {res['tokens_per_s']:.2f} tokens/s,"
+          f" peak memory {peak / 1e9:.2f} GB; launches {counts}", flush=True)
+    print(f"    score of {full.shape[0]}x{full.shape[1]} tokens: NLL "
+          f"{nll:.4f} in {score_s[0] * 1e3:.1f} ms (again: {nlls[1]:.4f} in "
+          f"{score_s[1] * 1e3:.1f} ms)", flush=True)
+
+    # the sampler alone on this vocab: its Gumbel draw is int64 threefry
+    # tensor ops, as the reference draws it with XLA's
+    logits = torch.randn((2, cfg.vocab), device=dev, generator=torch.Generator(
+        device=dev).manual_seed(7)) * 3.0
+    key = prandom.PRNGKey(3)
+    draw = lambda: steps.sample_token(logits, key, 0.8, 50)
+    samp_dev, samp_kernels = device_ms(draw, iters=5)
+    res["sampler"] = {"ms": cuda_time_ms(draw, iters=5, warmup=1),
+                      "dev_ms": samp_dev, "kernels_per_token": samp_kernels}
+    res["profile"] = profile_generate(engine, prompts, 5 * L * 2, **sample)
+    prof = res["profile"]
+    print(f"    sample_token (B=2, vocab {cfg.vocab}): {samp_kernels:.0f} "
+          f"kernels, {samp_dev:.3f} ms of device time, "
+          f"{res['sampler']['ms']:.3f} ms a call; prefill + 1 decode step: "
+          f"{prof['wall_ms']:.1f} ms, device busy {prof['device_busy_ms']:.1f}"
+          f" ms ({100 * prof['device_busy_share']:.1f}%) over "
+          f"{prof['n_kernel_launches']} kernel launches "
+          f"({prof['threefry_chain_launches']} int64 threefry); top: "
+          + ", ".join(f"{o['name'][:40]} {o['device_ms']:.1f} ms"
+                      for o in prof["top"][:5]), flush=True)
+    res["host_syncs"] = decode_syncs(engine, prompts, **sample)
+    print(f"    host syncs of sampled generate at 2 / 8 tokens: "
+          f"{res['host_syncs']['generate_2_tokens']} / "
+          f"{res['host_syncs']['generate_8_tokens']} (none in a decode "
+          f"step)", flush=True)
+    del engine, params
+    torch.cuda.empty_cache()
+
+    res["reduced_vs_cpu"] = {}
+    for arch in ("qwen3_moe_235b", "arctic_480b"):
+        res["reduced_vs_cpu"][arch] = reduced_vs_cpu(
+            get_config(arch).reduced(), dev, temperature=0.8, top_k=8)
+    print("    reduced qwen3_moe_235b and arctic_480b at BER 1e-3, T=0.8, "
+          "top_k=8: card kernel route == CPU plain route tokens", flush=True)
+    return res
 
 
 def main(argv=None) -> int:
@@ -518,9 +762,12 @@ def main(argv=None) -> int:
               f"(store/load), {k.get('static_smem')} bytes static smem")
 
     cfg = get_config("llama3_8b")
+    # qwen3_moe_235b at its published widths: the reference config leaves
+    # head_dim unset (d_model // n_heads = 64); the released model's is 128
+    moe_cfg = dataclasses.replace(get_config("qwen3_moe_235b"), head_dim=128)
     # 3. kernels vs plain versions -----------------------------------------
     t0 = time.perf_counter()
-    rows = kernel_checks(dev, cfg)
+    rows = kernel_checks(dev, cfg, moe_cfg)
     report["kernel_checks"] = rows
     print(f"[3] kernels bit-exact vs plain versions at main-path shapes "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
@@ -529,7 +776,7 @@ def main(argv=None) -> int:
         for r in rs:
             yard = r.get("int_mm_ms", r["library_ms"])
             yard_dev = r.get("int_mm_dev_ms", r.get("library_dev_ms"))
-            where = r.get("op")
+            where = f"{r.get('model', '')[:5]} {r.get('op')}"
             dims = (f"M={r['M']} K={r['K']} N={r['N']}" if "M" in r
                     else f"R={r['R']}" if "R" in r else f"n={r['n']}")
             mode1 = (f" (mode 1 {r['dev_ms_mode1']:.4f})"
@@ -548,7 +795,8 @@ def main(argv=None) -> int:
               f"over {r['old_flow_kernels']:.0f} kernels", flush=True)
     for r in rows["fused_aged_matmul"]:
         p = r["plan"]
-        print(f"    plan M={r['M']} {r['op']:8s}: {p['path']} path, "
+        print(f"    plan M={r['M']} {r['model'][:5]} {r['op']:8s}: "
+              f"{p['path']} path, "
               f"{p['bm']}x{p['bn']} tile, {p['splits']} K splits, "
               f"{p['ctas']} CTAs", flush=True)
 
@@ -664,26 +912,16 @@ def main(argv=None) -> int:
           f"{7 * L * 2} launches (profile "
           f"{'complete' if prof['complete'] else 'INCOMPLETE'}, attempt "
           f"{prof['attempts']})", flush=True)
+    report["host_syncs"] = decode_syncs(engine, prompts)
+    print(f"    host syncs of generate at 2 / 8 tokens: "
+          f"{report['host_syncs']['generate_2_tokens']} / "
+          f"{report['host_syncs']['generate_8_tokens']} (none in a decode "
+          f"step)", flush=True)
     del engine, params
     torch.cuda.empty_cache()
 
     # reduced model: the card's kernel route vs the port on the CPU
-    small = cfg.reduced()
-    p_cpu = init_params(small, seed=1, dtype=torch.float32, device="cpu")
-    p_gpu = _map(p_cpu, lambda t: t.to(dev))
-    small_prompts = SyntheticLM(vocab=small.vocab, seq_len=12,
-                                global_batch=2).batch_at(0).tokens
-    outs = {}
-    for name, p, d in (("cuda", p_gpu, dev), ("cpu", p_cpu, "cpu")):
-        outs[name] = ServeEngine(small, p, runtime=_Forced(1e-3),
-                                 max_len=32, use_systolic_kernel=True,
-                                 seed=5, device=d).generate(small_prompts,
-                                                            6)
-    same = np.array_equal(outs["cuda"].tokens, outs["cpu"].tokens)
-    report["reduced_vs_cpu"] = {"cuda": outs["cuda"].tokens.tolist(),
-                                "cpu": outs["cpu"].tokens.tolist()}
-    check(same, f"reduced model: card tokens {outs['cuda'].tokens.tolist()} "
-          f"!= CPU tokens {outs['cpu'].tokens.tolist()}")
+    report["reduced_vs_cpu"] = reduced_vs_cpu(cfg.reduced(), dev)
     print("    reduced llama3_8b at BER 1e-3: card kernel route == CPU plain "
           "route tokens", flush=True)
 
@@ -712,23 +950,27 @@ def main(argv=None) -> int:
     print(f"[5] three-pass route, {L3} layers, 2 tokens: launches "
           f"{counts3}", flush=True)
     del params3
+    torch.cuda.empty_cache()
 
-    # 6. summary ----------------------------------------------------------
-    # the explicit-randoms bitflip_words is on no path any more: it stays
-    # the Pallas kernel's counterpart signature for signature, held against
+    # 6. MoE path ------------------------------------------------------------
+    report["moe"] = moe_phase(dev, moe_cfg)
+    moe_counts = report["moe"]["launches"]
+
+    # 7. summary ----------------------------------------------------------
+    # launches summed over the three paths' runs, each counted from 0; the
+    # explicit-randoms bitflip_words is on no path any more: it stays the
+    # Pallas kernel's counterpart signature for signature, held against
     # its plain version in [3], with 0 launches on the paths
-    launches = {"fused_aged_matmul": main_counts["fused_aged_matmul"],
-                "bitflip_draw": main_counts["bitflip_draw"],
-                "bitflip_words": main_counts["bitflip_words"],
-                "systolic_matmul": counts3["systolic_matmul"]}
+    launches = {name: main_counts[name] + counts3[name] + moe_counts[name]
+                for name in kernels.KERNEL_NAMES}
     # the representative shape of each kernel: the decode weight matmul
     # that dominates the fused route (gate/up, M = 2), the prefill gate/up
     # GEMM (M = 32, where torch._int_mm computes the same function) and
     # the prefill sv words
     pick = {"fused_aged_matmul": lambda r: r["M"] == 2
-            and r["op"] == "gate/up",
+            and r["op"] == "gate/up" and r["model"] == "llama3_8b",
             "systolic_matmul": lambda r: r["M"] == 32
-            and r["op"] == "gate/up",
+            and r["op"] == "gate/up" and r["model"] == "llama3_8b",
             "bitflip_draw": lambda r: r["n"] == 131072,
             "bitflip_words": lambda r: r["R"] == 1024}
     line = []
@@ -757,14 +999,15 @@ def main(argv=None) -> int:
 
 
 class _Forced:
-    """A runtime that admits one BER on every operator domain."""
+    """A runtime that admits one BER on every operator domain (the MoE
+    router's included)."""
     age_years = 9.0
 
     def __init__(self, ber: float):
         self.ber = ber
 
     def op_bers(self):
-        return {op: self.ber for op in TABLE2}
+        return {op: self.ber for op in (*TABLE2, "router")}
 
     def total_power(self) -> float:
         return 0.0

@@ -1,0 +1,9 @@
+"""StarCoder2-7B: GQA kv=4, RoPE, plain GELU MLP. [arXiv:2402.19173; hf]"""
+from . import ModelConfig
+
+CONFIG = ModelConfig(
+    name="starcoder2-7b", family="dense",
+    n_layers=32, d_model=4608, n_heads=36, n_kv_heads=4,
+    d_ff=18432, vocab=49152,
+    mlp="plain", norm="ln", pos="rope",
+)

@@ -1,11 +1,13 @@
 """Carry a reference (JAX) param tree, given as numpy arrays, into the
 port's tree.
 
-The reference stacks a dense decoder's layers on a leading ``groups``
-axis under the key ``b0_attn`` and scans over it; the port keeps one dict
-per layer in ``params["layers"]``.  Leaf layouts are unchanged (``wq (d, H, hd)``,
-``wo (H, hd, d)``, ``w_gate (d, f)``, ...), so the port's public functions
-see the reference's layouts.
+The reference stacks a decoder's layers on a leading ``groups`` axis
+under the key ``b0_attn`` and scans over it; the port keeps one dict per
+layer in ``params["layers"]``.  Leaf layouts are unchanged (``wq (d, H,
+hd)``, ``wo (H, hd, d)``, ``w_gate (d, f)``, experts ``(E, d, f)``, ...),
+so the port's public functions see the reference's layouts.  Every leaf
+takes ``dtype`` except the MoE router ``w_router``, which stays float32 as
+in the reference; a tied-embedding tree has no ``lm_head``.
 """
 from __future__ import annotations
 
@@ -23,21 +25,25 @@ def _tensor(x, dtype, device) -> torch.Tensor:
                            device=device)
 
 
-def _map(tree, fn):
+def _map(tree, fn, name=""):
     if isinstance(tree, dict):
-        return {k: _map(v, fn) for k, v in tree.items()}
-    return fn(tree)
+        return {k: _map(v, fn, k) for k, v in tree.items()}
+    return fn(tree, name)
 
 
 def params_from_reference(np_params: Dict[str, Any], cfg: ModelConfig, *,
                           dtype=torch.float32, device="cuda") -> Dict:
     """Reference tree (``jax.tree.map(np.asarray, params)``) -> port tree."""
     device = resolve_device(device)
-    leaf = lambda x: _tensor(x, dtype, device)
+
+    def leaf(x, name):
+        return _tensor(x, torch.float32 if name == "w_router" else dtype,
+                       device)
+
     out = {k: _map(np_params[k], leaf)
-           for k in ("embed", "final_norm", "lm_head")}
+           for k in ("embed", "final_norm", "lm_head") if k in np_params}
     groups = np_params["groups"]["b0_attn"]
-    layers = [_map(groups, lambda x, g=g: leaf(np.asarray(x)[g]))
+    layers = [_map(groups, lambda x, name, g=g: leaf(np.asarray(x)[g], name))
               for g in range(int(np.shape(groups["norm1"]["scale"])[0]))]
     if len(layers) != cfg.n_layers:
         raise ValueError(f"tree holds {len(layers)} layers, config "

@@ -4,7 +4,8 @@ profile subset of ``repro.core.fleet``).
 :class:`FleetRuntime` holds N devices x O operator voltage domains.  All
 O lifetime trajectories come from one batched :func:`simulate` call (lazy,
 cached) shared by every device; device ages are a vector and the age ->
-state lookup is one vectorised search.  :meth:`FleetRuntime.device`
+state lookup is one vectorised search.  :meth:`FleetRuntime.for_model`
+picks the operator domains of a model's family.  :meth:`FleetRuntime.device`
 returns the single-device view the serving engine consumes.  Traffic-
 driven aging (``apply_load``), mesh shards, resize and state round-trips
 are not ported yet.
@@ -21,7 +22,7 @@ from .artifacts import Calibration, load_calibration
 from .avs import simulate
 from .constants import DEFAULT_MAX_LOSS_PCT
 from .policy import FaultTolerantPolicy
-from .resilience import OPERATORS
+from .resilience import OPERATORS, default_curves, operators_for
 from .scenario import LifetimeTrajectory, Scenario
 
 SECONDS_PER_YEAR = 365.25 * 24 * 3600.0
@@ -68,6 +69,14 @@ class FleetRuntime:
         self._ages_s = np.zeros(self.n_devices, np.float64)
         self._traj: Optional[LifetimeTrajectory] = None
         self._snap: Optional[FleetState] = None
+
+    @classmethod
+    def for_model(cls, cfg, **kw) -> "FleetRuntime":
+        """Fleet with the architecture family's operator-domain set (an MoE
+        model adds its ``router`` domain) and those domains' default
+        resilience curves."""
+        ops = operators_for(cfg.family)
+        return cls(operators=ops, curves=default_curves(ops), **kw)
 
     def _ensure_trajs(self) -> LifetimeTrajectory:
         """(N, O, T) trajectories from one simulation over the O domains."""

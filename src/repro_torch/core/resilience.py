@@ -24,6 +24,22 @@ DEFAULT_BER50: Dict[str, float] = {
 DEFAULT_STEEPNESS = 5.0     # logistic slope in decades^-1
 DEFAULT_LMAX = 100.0        # accuracy collapses to chance at high BER [%]
 
+# Operator-domain sets per architecture family: the paper's 9 attention-LM
+# rows apply to dense/MoE/hybrid/encdec/vlm archs (MoE adds its router);
+# attention-free families degenerate to their projection set.
+FAMILY_OPERATORS: Dict[str, tuple] = {
+    "dense": OPERATORS,
+    "moe": OPERATORS + ("router",),
+    "hybrid": OPERATORS + ("r", "g"),              # rg-lru gates + local attn
+    "encdec": OPERATORS,
+    "vlm": OPERATORS,
+    "ssm": ("q", "k", "v", "g", "o", "up", "down", "r"),   # rwkv projections
+}
+
+
+def operators_for(family: str) -> tuple:
+    return FAMILY_OPERATORS.get(family, OPERATORS)
+
 
 @dataclasses.dataclass(frozen=True)
 class ResilienceCurve:

@@ -47,7 +47,7 @@ def make_flip_randoms(key: torch.Tensor, shape, device="cpu"):
     """Uniforms + bit positions for the explicit-randoms bitflip pass, over
     ``shape`` (the reference draws them over ``(rows_pad, 128)``)."""
     ku, kp = prandom.split(key)
-    u = prandom.uniform(ku, shape, device)
+    u = prandom.uniform(ku, shape, device=device)
     pos = prandom.randint(kp, shape, 0, 32, device)
     return u, pos
 

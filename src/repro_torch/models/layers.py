@@ -145,8 +145,29 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor,
     return (xf * torch.rsqrt(var + eps)).to(x.dtype) * scale
 
 
-def init_norm(d: int, dtype, device) -> Dict:
-    return {"scale": torch.ones((d,), dtype=dtype, device=device)}
+def layer_norm(x: torch.Tensor, scale: torch.Tensor,
+               bias: Optional[torch.Tensor] = None,
+               eps: float = 1e-5) -> torch.Tensor:
+    xf = x.to(torch.float32)
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mu).square().mean(dim=-1, keepdim=True)   # jnp.var's order
+    out = (xf - mu) * torch.rsqrt(var + eps) * scale
+    if bias is not None:
+        out = out + bias
+    return out.to(x.dtype)
+
+
+def norm(x: torch.Tensor, p: Dict, kind: str) -> torch.Tensor:
+    if kind == "rms":
+        return rms_norm(x, p["scale"])
+    return layer_norm(x, p["scale"], p.get("bias"))
+
+
+def init_norm(kind: str, d: int, dtype, device) -> Dict:
+    p = {"scale": torch.ones((d,), dtype=dtype, device=device)}
+    if kind == "ln":
+        p["bias"] = torch.zeros((d,), dtype=dtype, device=device)
+    return p
 
 
 # --------------------------------------------------------------------------- #
@@ -168,12 +189,19 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 
 # --------------------------------------------------------------------------- #
-def mlp_apply(x: torch.Tensor, p: Dict, fi: Optional[FaultConfig] = None,
-              salt=0) -> torch.Tensor:
-    """SwiGLU: ``down(silu(gate(x)) * up(x))``."""
-    g = op_linear(x, p["w_gate"], "gate", fi, salt)
-    u = op_linear(x, p["w_up"], "up", fi, salt)
-    return op_linear(F.silu(g) * u, p["w_down"], "down", fi, salt)
+def mlp_apply(x: torch.Tensor, p: Dict, variant: str,
+              fi: Optional[FaultConfig] = None, salt=0) -> torch.Tensor:
+    """SwiGLU ``down(silu(gate(x)) * up(x))`` (``gated``) or
+    ``down(gelu(up(x)))`` (``plain``).  ``jax.nn.gelu`` defaults to the
+    tanh approximation, so this GELU does too."""
+    if variant == "gated":
+        g = op_linear(x, p["w_gate"], "gate", fi, salt)
+        u = op_linear(x, p["w_up"], "up", fi, salt)
+        h = F.silu(g) * u
+    else:
+        h = F.gelu(op_linear(x, p["w_up"], "up", fi, salt),
+                   approximate="tanh")
+    return op_linear(h, p["w_down"], "down", fi, salt)
 
 
 def _normal(shape, scale: float, dtype, device, gen) -> torch.Tensor:
@@ -181,8 +209,11 @@ def _normal(shape, scale: float, dtype, device, gen) -> torch.Tensor:
                        generator=gen) * scale
 
 
-def mlp_init(d: int, f: int, dtype, device, gen) -> Dict:
+def mlp_init(d: int, f: int, variant: str, dtype, device, gen) -> Dict:
     s_in, s_out = d ** -0.5, f ** -0.5
-    return {"w_gate": _normal((d, f), s_in, dtype, device, gen),
-            "w_up": _normal((d, f), s_in, dtype, device, gen),
-            "w_down": _normal((f, d), s_out, dtype, device, gen)}
+    p = {}
+    if variant == "gated":
+        p["w_gate"] = _normal((d, f), s_in, dtype, device, gen)
+    p["w_up"] = _normal((d, f), s_in, dtype, device, gen)
+    p["w_down"] = _normal((f, d), s_out, dtype, device, gen)
+    return p

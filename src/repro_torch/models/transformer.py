@@ -1,12 +1,15 @@
-"""Dense decoder-only LM: init, forward, KV cache and decode step.
+"""Decoder-only LM (dense and MoE families): init, forward, KV cache and
+decode step.
 
 The port's param tree is a plain dict with one entry per layer
 (``params["layers"][i]``) instead of the reference's stacked ``groups``
 scanned by ``lax.scan``; the layers run in a Python loop with
 ``salt = layer index``, the reference's ``gidx * len(pattern) + i``.
-Weight layouts follow the reference (``wq (d, H, hd)``, ``wo (H, hd, d)``);
-:mod:`repro_torch.convert` carries a reference tree across.  The KV cache
-is updated in place during decode (the reference returns a new buffer).
+Weight layouts follow the reference (``wq (d, H, hd)``, ``wo (H, hd, d)``,
+experts ``(E, d, f)``); :mod:`repro_torch.convert` carries a reference
+tree across.  The KV cache is updated in place during decode (the
+reference returns a new buffer).  Sliding windows, prefix embeddings and
+the hybrid, SSM, enc-dec and VLM families are not ported yet.
 """
 from __future__ import annotations
 
@@ -18,60 +21,77 @@ from ..configs import ModelConfig
 from ..device import resolve_device
 from . import attention as attn_lib
 from .layers import (FaultConfig, _normal, apply_rope, init_norm, mlp_apply,
-                     mlp_init, op_einsum, rms_norm)
+                     mlp_init, norm, op_einsum, rms_norm)
+from .moe import moe_apply, moe_init
+
+UNPORTED_FAMILIES = ("hybrid", "ssm", "encdec", "vlm")
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    if (cfg.family, cfg.mlp, cfg.norm, cfg.pos) != ("dense", "gated", "rms",
-                                                    "rope"):
-        raise NotImplementedError(f"{cfg.name}: only dense RMSNorm/RoPE/"
-                                  "SwiGLU decoders are ported")
+    if cfg.family in UNPORTED_FAMILIES:
+        raise NotImplementedError(f"{cfg.name}: the {cfg.family} family is "
+                                  "not ported yet")
 
 
 def _attn_init(cfg: ModelConfig, dtype, device, gen) -> Dict:
     d, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
     s = d ** -0.5
-    return {"wq": _normal((d, H, hd), s, dtype, device, gen),
-            "wk": _normal((d, KV, hd), s, dtype, device, gen),
-            "wv": _normal((d, KV, hd), s, dtype, device, gen),
-            "wo": _normal((H, hd, d), (H * hd) ** -0.5, dtype, device, gen)}
+    p = {"wq": _normal((d, H, hd), s, dtype, device, gen),
+         "wk": _normal((d, KV, hd), s, dtype, device, gen),
+         "wv": _normal((d, KV, hd), s, dtype, device, gen),
+         "wo": _normal((H, hd, d), (H * hd) ** -0.5, dtype, device, gen)}
+    if cfg.qk_norm:
+        p["q_norm"] = torch.ones((hd,), dtype=dtype, device=device)
+        p["k_norm"] = torch.ones((hd,), dtype=dtype, device=device)
+    return p
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.bfloat16,
                 device="cuda") -> Dict:
     """Random params from a seeded ``torch.Generator`` on ``device``, with
     the reference's scales (``N(0,1) * d**-0.5`` projections, ``0.02``
-    embeddings)."""
+    embeddings) and tree (no ``lm_head`` under tied embeddings, a float32
+    MoE router)."""
     _check_supported(cfg)
     device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
-    d = cfg.d_model
+    d, f = cfg.d_model, cfg.d_ff
     params: Dict = {
         "embed": _normal((cfg.vocab, d), 0.02, dtype, device, gen),
-        "final_norm": init_norm(d, dtype, device),
-        "lm_head": _normal((d, cfg.vocab), d ** -0.5, dtype, device, gen),
-        "layers": [],
+        "final_norm": init_norm(cfg.norm, d, dtype, device),
     }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = _normal((d, cfg.vocab), d ** -0.5, dtype, device,
+                                    gen)
+    params["layers"] = []
     for _ in range(cfg.n_layers):
         params["layers"].append({
-            "norm1": init_norm(d, dtype, device),
-            "norm2": init_norm(d, dtype, device),
+            "norm1": init_norm(cfg.norm, d, dtype, device),
+            "norm2": init_norm(cfg.norm, d, dtype, device),
             "attn": _attn_init(cfg, dtype, device, gen),
-            "ffn": mlp_init(d, cfg.d_ff, dtype, device, gen)})
+            "ffn": (moe_init(d, f, cfg.moe, cfg.mlp, dtype, device, gen)
+                    if cfg.moe else
+                    mlp_init(d, f, cfg.mlp, dtype, device, gen))})
     return params
 
 
 # --------------------------------------------------------------------------- #
 def _attn_block(x, bp, cfg: ModelConfig, *, positions, cache=None,
-                cache_len: Optional[int] = None, fi=None, salt=0):
-    """Self-attention + FFN block.  With ``cache`` and one token: decode."""
-    h = rms_norm(x, bp["norm1"]["scale"])
+                cache_len: Optional[int] = None, fi=None, salt=0,
+                with_aux: bool = False):
+    """Self-attention + FFN block.  With ``cache`` and one token: decode.
+    Returns ``(x, new_cache, aux)``; ``aux`` is the MoE load-balance loss
+    when ``with_aux`` is set and the FFN is MoE, else ``None``."""
+    h = norm(x, bp["norm1"], cfg.norm)
     ap = bp["attn"]
     q = op_einsum("bsd,dhk->bshk", h, ap["wq"], "q", fi, salt)
     k = op_einsum("bsd,dhk->bshk", h, ap["wk"], "k", fi, salt)
     v = op_einsum("bsd,dhk->bshk", h, ap["wv"], "v", fi, salt)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    if cfg.qk_norm:
+        q, k = rms_norm(q, ap["q_norm"]), rms_norm(k, ap["k_norm"])
+    if cfg.pos == "rope":
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
 
     new_cache = None
     if cache is not None:
@@ -97,42 +117,63 @@ def _attn_block(x, bp, cfg: ModelConfig, *, positions, cache=None,
     else:
         out = attn_lib.full_attention(q, k, v, fi=fi, salt=salt)
     x = x + op_einsum("bshk,hkd->bsd", out, ap["wo"], "o", fi, salt)
-    h2 = rms_norm(x, bp["norm2"]["scale"])
-    return x + mlp_apply(h2, bp["ffn"], fi, salt), new_cache
+    h2 = norm(x, bp["norm2"], cfg.norm)
+    if cfg.moe:
+        y, aux = moe_apply(h2, bp["ffn"], cfg.moe, cfg.mlp, fi, salt,
+                           with_aux=with_aux)
+    else:
+        y, aux = mlp_apply(h2, bp["ffn"], cfg.mlp, fi, salt), None
+    return x + y, new_cache, aux
 
 
 def _run_blocks(x, params, cfg: ModelConfig, *, positions, states=None,
-                cache_len=None, fi=None):
+                cache_len=None, fi=None, with_aux: bool = False):
+    """-> ``(x, new_states, aux)``: ``aux`` is the float32 load-balance loss
+    summed over layers when ``with_aux`` is set, else ``None``.  It is
+    built on the device (no host copy), so the step stays free of
+    host-device synchronisation."""
     new_states: Optional[List] = [] if states is not None else None
+    aux_total = (torch.zeros((), dtype=torch.float32, device=x.device)
+                 if with_aux else None)
     for i, bp in enumerate(params["layers"]):
-        x, ns = _attn_block(x, bp, cfg, positions=positions,
-                            cache=None if states is None else states[i],
-                            cache_len=cache_len, fi=fi, salt=i)
+        x, ns, aux = _attn_block(x, bp, cfg, positions=positions,
+                                 cache=None if states is None else states[i],
+                                 cache_len=cache_len, fi=fi, salt=i,
+                                 with_aux=with_aux)
+        if aux is not None:
+            aux_total = aux_total + aux
         if new_states is not None:
             new_states.append(ns)
-    return x, new_states
+    return x, new_states, aux_total
 
 
-def embed_tokens(params, tokens):
-    return params["embed"][tokens]
+def embed_tokens(params, cfg: ModelConfig, tokens):
+    x = params["embed"][tokens]
+    if cfg.scale_embeds:
+        x = x * torch.full((), cfg.d_model ** 0.5, dtype=x.dtype,
+                           device=x.device)
+    return x
 
 
-def unembed(params, x):
-    return (x @ params["lm_head"]).to(torch.float32)
+def unembed(params, cfg: ModelConfig, x):
+    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    return (x @ w).to(torch.float32)
 
 
 def forward_logits(params, cfg: ModelConfig, tokens, *,
                    fi: Optional[FaultConfig] = None, states=None,
                    cache_len=None):
     """Full-sequence forward (prefill).  tokens: (B, S) int.  Returns
-    ``(logits (B, S, vocab) float32, new_states)``."""
+    ``(logits (B, S, vocab) float32, new_states, aux)``, ``aux`` the MoE
+    load-balance loss summed over layers (float32, 0 for dense models)."""
     _check_supported(cfg)
-    x = embed_tokens(params, tokens)
+    x = embed_tokens(params, cfg, tokens)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
-    x, new_states = _run_blocks(x, params, cfg, positions=positions,
-                                states=states, cache_len=cache_len, fi=fi)
-    x = rms_norm(x, params["final_norm"]["scale"])
-    return unembed(params, x), new_states
+    x, new_states, aux = _run_blocks(x, params, cfg, positions=positions,
+                                     states=states, cache_len=cache_len,
+                                     fi=fi, with_aux=True)
+    x = norm(x, params["final_norm"], cfg.norm)
+    return unembed(params, cfg, x), new_states, aux
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
@@ -146,11 +187,12 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 def decode_step(params, cfg: ModelConfig, token, cache, cache_len: int, *,
                 fi: Optional[FaultConfig] = None):
-    """One decode step.  token: (B, 1); ``cache_len`` includes this token."""
-    x = embed_tokens(params, token)
+    """One decode step.  token: (B, 1); ``cache_len`` includes this token.
+    The MoE load-balance loss is not computed: decode has no use for it."""
+    x = embed_tokens(params, cfg, token)
     positions = torch.full((1, 1), cache_len - 1, dtype=torch.int64,
                            device=x.device)
-    x, new_cache = _run_blocks(x, params, cfg, positions=positions,
-                               states=cache, cache_len=cache_len, fi=fi)
-    x = rms_norm(x, params["final_norm"]["scale"])
-    return unembed(params, x), new_cache
+    x, new_cache, _ = _run_blocks(x, params, cfg, positions=positions,
+                                  states=cache, cache_len=cache_len, fi=fi)
+    x = norm(x, params["final_norm"], cfg.norm)
+    return unembed(params, cfg, x), new_cache

@@ -2,15 +2,17 @@
 
 Bit-exact with ``jax.random`` under ``jax_threefry_partitionable=True``
 (the default of the jax the reference runs on): ``PRNGKey``, ``split``,
-``fold_in``, ``bits`` (uint32), ``uniform`` (float32) and ``randint``.
-``tests/test_torch_random.py`` holds every function against jax.
+``fold_in``, ``bits`` (uint32), ``uniform`` (float32), ``randint``, and
+``gumbel``/``categorical`` up to ``log``'s last bit.
+``tests/test_torch_random.py`` and ``tests/test_torch_sampling.py`` hold
+every function against jax.
 
 A key is a CPU ``int64`` tensor of shape ``(2,)`` holding the two uint32
 key words, like the raw ``uint32[2]`` keys of ``jax.random.PRNGKey``.  Keys
 stay on the host: deriving one is a handful of integer mixes on Python
 ints, so the per-layer ``fold_in`` chains of the serve loop cost no device
 launch and no synchronisation.  Only bulk draws (``bits``, ``uniform``,
-``randint``) are materialised, on the device the caller names.
+``randint``, ``gumbel``) are materialised, on the device the caller names.
 
 uint32 arithmetic is done in ``int64`` masked to 32 bits (CPU torch has
 few ``uint32`` ops).  The hash functions below take Python ints and
@@ -24,6 +26,7 @@ import math
 import torch
 
 M32 = 0xFFFFFFFF
+_TINY = torch.finfo(torch.float32).tiny
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 
 
@@ -116,9 +119,37 @@ def float_from_bits(b: torch.Tensor) -> torch.Tensor:
     return ((b >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
 
 
-def uniform(key: torch.Tensor, shape=(), device="cpu") -> torch.Tensor:
-    """``jax.random.uniform(key, shape, float32)`` on ``[0, 1)``."""
-    return float_from_bits(bits(key, shape, device))
+def uniform(key: torch.Tensor, shape=(), minval: float = 0.0,
+            maxval: float = 1.0, device="cpu") -> torch.Tensor:
+    """``jax.random.uniform(key, shape, float32, minval, maxval)``:
+    ``max(minval, floats * (maxval - minval) + minval)`` in float32, the
+    multiply-add rounded once, as XLA fuses it.  The float64 product of two
+    float32 values is exact, so only the sum rounds twice (to float64, then
+    float32), which can differ from one rounding only when the first lands
+    on a float32 midpoint; for ``[0, 1)`` and ``[tiny, 1)`` every step is
+    exact."""
+    # filled on the device: a host tensor copied over would make every
+    # sampled token wait for the device
+    lo = torch.full((), minval, dtype=torch.float32, device=device)
+    span = torch.full((), maxval, dtype=torch.float32, device=device) - lo
+    floats = float_from_bits(bits(key, shape, device))
+    fma = floats.to(torch.float64) * span.to(torch.float64) + lo.to(
+        torch.float64)
+    return torch.maximum(lo, fma.to(torch.float32))
+
+
+def gumbel(key: torch.Tensor, shape=(), device="cpu") -> torch.Tensor:
+    """``jax.random.gumbel(key, shape, float32)`` in its default ``low``
+    mode: ``-log(-log(u))`` of a uniform on ``[tiny, 1)``.  ``log`` may
+    differ from XLA's by an ulp."""
+    return -torch.log(-torch.log(uniform(key, shape, _TINY, 1.0, device)))
+
+
+def categorical(key: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
+    """``jax.random.categorical(key, logits, axis=-1)``: the Gumbel-max
+    trick, ``argmax(gumbel + logits)`` over the last axis."""
+    g = gumbel(key, tuple(logits.shape), logits.device)
+    return torch.argmax(g + logits, dim=-1)
 
 
 def randint(key: torch.Tensor, shape, minval: int, maxval: int,

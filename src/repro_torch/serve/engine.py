@@ -13,7 +13,8 @@ plain injection); ``use_systolic_kernel=True`` runs the weight matmuls
 through the fused CUDA kernel (``use_fused_kernel=True``) or the
 three-pass route (int8 GEMM kernel -> bitflip kernel, which draws its own
 threefry randoms), and the qkt/sv domains through the bitflip kernel.
-``FleetServeEngine`` and ``score`` are not ported yet.
+:meth:`ServeEngine.score` is the mean next-token NLL of a token batch
+under the same aged device.  ``FleetServeEngine`` is not ported yet.
 """
 from __future__ import annotations
 
@@ -27,7 +28,9 @@ from .. import random as prandom
 from ..configs import ModelConfig
 from ..core.fleet import FleetRuntime
 from ..device import resolve_device
+from ..models import transformer as tf
 from ..models.layers import FaultConfig
+from ..train.steps import softmax_xent
 from . import steps
 
 
@@ -76,21 +79,33 @@ class ServeEngine:
                            step=0, use_systolic_kernel=self.use_kernel,
                            fused=self.use_fused)
 
+    @staticmethod
+    def _temperature(greedy: bool, temperature: Optional[float]) -> float:
+        """Resolve the legacy ``greedy`` flag against ``temperature``."""
+        if temperature is None:
+            temperature = 0.0 if greedy else 1.0
+        return float(temperature)
+
+    def _tokens(self, tokens) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(tokens), dtype=torch.int64,
+                               device=self.device)
+
     @torch.no_grad()
     def generate(self, prompts, n_steps: int, *, greedy: bool = True,
                  temperature: Optional[float] = None,
                  top_k: Optional[int] = None) -> GenerateResult:
-        """prompts: (B, S) int.  Returns ``n_steps`` generated tokens."""
+        """prompts: (B, S) int.  Returns ``n_steps`` generated tokens.
+
+        ``temperature=0`` (or the legacy ``greedy=True``) is the exact
+        argmax; a positive temperature samples ``softmax(logits / T)``
+        restricted to the ``top_k`` highest logits when given."""
         fi = self._fault_config()
         self._key, call_key = prandom.split(self._key)
-        if temperature is None:
-            temperature = 0.0 if greedy else 1.0
-        prompts = torch.as_tensor(np.asarray(prompts), dtype=torch.int64,
-                                  device=self.device)
+        temperature = self._temperature(greedy, temperature)
         tokens, telemetry, timings = steps.generate(
-            self.params, self.cfg, prompts, fi, call_key,
+            self.params, self.cfg, self._tokens(prompts), fi, call_key,
             max_len=self.max_len, n_steps=int(n_steps),
-            temperature=float(temperature), top_k=top_k)
+            temperature=temperature, top_k=top_k)
         rt = self.runtime
         bers = rt.op_bers() if rt else {}
         return GenerateResult(
@@ -98,3 +113,14 @@ class ServeEngine:
             age_years=rt.age_years if rt else 0.0,
             power_w=rt.total_power() if rt else 0.0,
             telemetry=telemetry, timings=timings)
+
+    @torch.no_grad()
+    def score(self, tokens) -> float:
+        """Mean next-token NLL of a token batch (B, S) under the aged
+        device: one forward over ``tokens[:, :-1]`` against
+        ``tokens[:, 1:]``, with a fault config of its own."""
+        fi = self._fault_config()
+        tokens = self._tokens(tokens)
+        logits, _, _ = tf.forward_logits(self.params, self.cfg,
+                                         tokens[:, :-1], fi=fi)
+        return float(softmax_xent(logits, tokens[:, 1:]))

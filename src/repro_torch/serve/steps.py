@@ -1,4 +1,5 @@
-"""Serve steps: prefill, decode, sampling and the generation loop.
+"""Serve steps: prefill, decode, greedy / temperature / top-k sampling and
+the generation loop.
 
 :func:`generate` reproduces the reference's ``make_generate_fn`` key and
 fault-stream derivation exactly — ``fi.with_seeds()`` once per call, one
@@ -15,6 +16,7 @@ import torch
 
 from .. import random as prandom
 from ..configs import ModelConfig
+from ..device import true_div
 from ..models import transformer as tf
 from ..models.layers import FaultConfig
 from ..obs.taps import logit_taps
@@ -26,8 +28,8 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor,
     B, S = tokens.shape
     cache = tf.init_cache(cfg, B, max_len, dtype=params["embed"].dtype,
                           device=tokens.device)
-    logits, cache = tf.forward_logits(params, cfg, tokens, states=cache,
-                                      cache_len=S, fi=fi)
+    logits, cache, _ = tf.forward_logits(params, cfg, tokens, states=cache,
+                                         cache_len=S, fi=fi)
     return logits[:, -1], cache
 
 
@@ -42,12 +44,24 @@ def decode(params, cfg: ModelConfig, token: torch.Tensor, cache,
 def sample_token(logits: torch.Tensor, key: torch.Tensor,
                  temperature: float = 0.0,
                  top_k: Optional[int] = None) -> torch.Tensor:
-    """Greedy sampling (``temperature == 0``): exact argmax, first index on
-    ties.  ``key`` is consumed as in the reference but unused here."""
-    if temperature > 0 or top_k is not None:
-        raise NotImplementedError("temperature / top-k sampling needs "
-                                  "jax.random.categorical, not ported yet")
-    return torch.argmax(logits, dim=-1).to(torch.int32)
+    """Greedy / temperature / top-k sampling, as the reference's
+    ``sample_token``.
+
+    ``temperature == 0`` is the exact argmax (first index on ties), and
+    ``key`` goes unused.  A positive temperature masks all but the
+    ``top_k`` highest logits (when given) to ``-inf`` and draws
+    ``categorical(key, logits / max(T, 1e-6))`` — the Gumbel-max trick
+    over ``key``'s threefry uniforms, on the logits' device.
+    """
+    temperature = np.float32(temperature)        # jax's float32 scalar
+    if not temperature > 0:
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    if top_k is not None:
+        kth = torch.topk(logits, top_k, dim=-1).values[..., -1:]
+        logits = torch.where(logits < kth, -torch.inf, logits)
+    t = max(temperature, np.float32(1e-6))
+    return prandom.categorical(key, true_div(logits, float(t))).to(
+        torch.int32)
 
 
 def generate(params, cfg: ModelConfig, prompts: torch.Tensor,

@@ -24,10 +24,15 @@ def cuda_device():
     return torch.device("cuda")
 
 
-# the serve path's weight GEMMs (llama3_8b, B=2: M = 2 decode, 32 prefill)
+# the serve paths' weight GEMMs (B=2: M = 2 decode, 32 prefill): llama3_8b's
+# q/o, k/v, gate/up, down; qwen3_moe_235b's at its published head_dim 128
+# (q N = 8192, k/v N = 512, o K = 8192) and at the reference config's
+# derived head_dim 64 (k/v N = 256; q/o are llama's q/o shape), and its
+# router (N = 128 experts)
 MAIN = [(M, K, N) for M in (2, 32)
         for K, N in ((4096, 4096), (4096, 1024), (4096, 14336),
-                     (14336, 4096))]
+                     (14336, 4096), (4096, 8192), (4096, 512), (8192, 4096),
+                     (4096, 256), (4096, 128))]
 # fast path at its boundaries: M tiles of 16/32/64 rows, a long K split over
 # a narrow N, K and N just past a multiple of 128 (a short last stage, a
 # ragged column tile)
@@ -146,8 +151,8 @@ def _words(dev, n, seed, offset=0):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("ber", [0.0, 1e-3, 0.3])
-@pytest.mark.parametrize("n", [0, 1, 3, 127, 128, 4096, 8192, 131072,
-                               2 ** 20 + 5])
+@pytest.mark.parametrize("n", [0, 1, 3, 127, 128, 4096, 8192, 16384,
+                               32768, 131072, 262144, 2 ** 20 + 5])
 def test_cuda_bitflip_draw_matches_plain(cuda_device, n, ber):
     """Draw mode vs its plain version on the card, bit for bit: aligned
     bases (vector words plus a scalar tail) and a base one word past the
@@ -174,7 +179,9 @@ def test_cuda_inject_bitflips_is_one_launch(cuda_device):
     launch per call and nothing else of the port's kernels, equal to the
     same call on the CPU."""
     shapes = [(2, 8, 4, 1, 64), (2, 8, 4, 1, 128), (2, 8, 4, 16, 16),
-              (2, 8, 4, 16, 128)]
+              (2, 8, 4, 16, 128),                      # llama3_8b
+              (2, 4, 16, 1, 64), (2, 4, 16, 1, 128), (2, 4, 16, 16, 16),
+              (2, 4, 16, 16, 64), (2, 4, 16, 16, 128)]  # qwen3_moe_235b
     kernels.reset_launch_counts()
     for i, shape in enumerate(shapes):
         g = torch.Generator().manual_seed(i)
@@ -205,3 +212,39 @@ def test_cuda_inject_and_aged_linear_match_cpu(cuda_device):
         gpu = ops.aged_linear(x.to(cuda_device), w.to(cuda_device), ber=1e-3,
                               **kw)
         assert torch.equal(gpu.cpu(), cpu)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", [True, False], ids=["fused", "three_pass"])
+def test_cuda_router_aged_linear_matches_cpu(cuda_device, fused):
+    """qwen3_moe_235b's router at its full shape (M = 2 decode tokens,
+    K = 4096, N = 128 experts, a bf16 activation times the float32 router
+    cast to bf16, as the MoE layer calls it): the card equals the CPU bit
+    for bit on both kernel routes."""
+    g = torch.Generator().manual_seed(9)
+    x = torch.randn((2, 4096), generator=g).to(torch.bfloat16)
+    w = (torch.randn((4096, 128), generator=g) * 4096 ** -0.5).to(
+        torch.bfloat16)
+    kw = (dict(seed=-123) if fused
+          else dict(key=prandom.PRNGKey(123), fused=False))
+    cpu = ops.aged_linear(x, w, ber=1e-3, **kw)
+    gpu = ops.aged_linear(x.to(cuda_device), w.to(cuda_device), ber=1e-3,
+                          **kw)
+    assert gpu.dtype == torch.bfloat16 and torch.equal(gpu.cpu(), cpu)
+
+
+@pytest.mark.cuda
+def test_cuda_uniform_and_gumbel_draws(cuda_device):
+    """The sampler's draws on the card: uniforms on [tiny, 1) equal the
+    CPU's bit for bit (integer hashing and one exact multiply-add); the
+    Gumbel noise within 2 ulps of max(|g|, 1) (CUDA's and the CPU's log may
+    differ in the last bit)."""
+    key = prandom.PRNGKey(17)
+    tiny = torch.finfo(torch.float32).tiny
+    shape = (2, 151936)
+    u_gpu = prandom.uniform(key, shape, tiny, 1.0, device=cuda_device)
+    assert torch.equal(u_gpu.cpu(), prandom.uniform(key, shape, tiny, 1.0))
+    g_gpu = prandom.gumbel(key, shape, device=cuda_device).cpu().double()
+    g_cpu = prandom.gumbel(key, shape).double()
+    ulp = torch.finfo(torch.float32).eps * torch.clamp_min(g_cpu.abs(), 1.0)
+    assert bool(((g_gpu - g_cpu).abs() <= 2 * ulp).all())

@@ -1,7 +1,8 @@
 """The port's serving path (repro_torch.serve) vs the JAX reference on the
 CPU: reduced llama3_8b with the reference's params carried across by
 repro_torch.convert, the JAX ServeEngine on its Pallas kernel routes
-(interpret mode) against the port on the same routes (plain versions)."""
+(interpret mode) against the port on the same routes (plain versions);
+prefill logits of the reduced dense zoo."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -125,6 +126,32 @@ def test_prefill_logits_match_reference(model, fused):
     assert cache[0]["k"].shape == (2, 32, cfg.n_kv_heads, cfg.hd)
 
 
-def test_sampling_beyond_greedy_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        steps.sample_token(torch.zeros((1, 4)), prandom.PRNGKey(0), 1.0)
+DENSE_ZOO = ("deepseek_7b", "starcoder2_7b", "granite_20b",
+             "command_r_plus_104b")
+
+
+@pytest.mark.parametrize("fused", [True, False], ids=["fused", "three_pass"])
+@pytest.mark.parametrize("arch", DENSE_ZOO)
+def test_dense_zoo_prefill_logits_match_reference(arch, fused):
+    """Reduced dense zoo at BER 1e-3: MHA (deepseek_7b), LayerNorm + tanh
+    GELU (starcoder2_7b), MQA (granite_20b), tied embeddings under a
+    bias-free LayerNorm (command_r_plus_104b)."""
+    cfg_j, cfg = jax_get_config(arch).reduced(), get_config(arch).reduced()
+    params_j = jax_tf.init_params(cfg_j, jax.random.PRNGKey(2),
+                                  dtype=jnp.float32)
+    params = params_from_reference(jax.tree.map(np.asarray, params_j), cfg,
+                                   device="cpu")
+    assert ("lm_head" in params) == (not cfg.tie_embeddings)
+    prompts = SyntheticLM(vocab=cfg.vocab, seq_len=8,
+                          global_batch=2).batch_at(0).tokens
+    bers = {op: 1e-3 for op in OPS}
+    jfi = JaxFaultConfig(bers={op: jnp.float32(b) for op, b in bers.items()},
+                         key=jax.random.PRNGKey(12), step=jnp.int32(0),
+                         use_systolic_kernel=True, fused=fused).with_seeds()
+    pfi = FaultConfig(bers=bers, key=prandom.PRNGKey(12),
+                      use_systolic_kernel=True, fused=fused).with_seeds()
+    want, _ = jax_steps.make_prefill_fn(cfg_j, 32)(
+        params_j, jnp.asarray(prompts), jfi)
+    got, _ = steps.prefill(params, cfg, torch.as_tensor(prompts), pfi, 32)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=LOGIT_ATOL)
