@@ -24,7 +24,10 @@ Phases (any failure exits non-zero):
    ``b`` so the weight is read from device memory as in serving, beside
    the bound (bytes, int8 tensor-core operations or INT32 instructions);
    the bitflip draw mode also beside the flow it replaced (pad, threefry
-   draws, explicit pass);
+   draws, explicit pass); then both lane modes at the fleet's shapes (4
+   lanes: every llama3_8b weight GEMM at M = 4 x 32 and 4 x 2, the qkt/sv
+   words x 4) at per-lane BERs with one lane at 0, bit-exact against their
+   plain lane versions and against 4 single-lane launches;
 4. the main path: ``evaluate_policy`` (Table I/II), a ``FleetRuntime``
    aged 9 years, and ``ServeEngine(llama3_8b full width, bf16 random
    params, use_systolic_kernel=True).generate`` of 8 tokens for B=2 on the
@@ -39,7 +42,16 @@ Phases (any failure exits non-zero):
 5. a short three-pass generation (``use_fused_kernel=False``) that must
    launch ``systolic_matmul`` on its fast path and one draw-mode bitflip
    per faulted matmul;
-6. the MoE path: qwen3_moe_235b at its published widths (head_dim 128,
+6. the fleet path on [4]'s params: ``FleetServeEngine`` over a
+   ``FleetRuntime`` of 4 devices aged 0/3/6/9.5 years (floored at 1e-3)
+   serving ``(4, 2, 16)`` prompts, 8 greedy tokens, in one lane-batched
+   forward per step: exactly 7 lane-mode GEMM and 2 lane-mode draw
+   launches per layer and forward (not 4x), every lane's tokens equal to
+   its single-lane replay (timed: the lane loop), prefill logits within
+   one bf16 ulp of the replay's, no host-device synchronisation in a
+   decode step, a profiled step, timings beside [4]'s, and a reduced
+   llama3_8b fleet on the card against the CPU;
+7. the MoE path: qwen3_moe_235b at its published widths (head_dim 128,
    which the reference config leaves to derive as d_model // n_heads =
    64; 12 of 94 layers, bf16 random params) on ``FleetRuntime.for_model``
    aged 9 years (10 operator domains, the router's included), ``generate``
@@ -52,8 +64,8 @@ Phases (any failure exits non-zero):
    plus the generated tokens; then reduced qwen3_moe_235b and
    arctic_480b sampled (T=0.8, top_k=8) at BER 1e-3 on the card's kernel
    route against the port on the CPU;
-7. a ``{"kernels": [...]}`` line (launches summed over the runs of [4],
-   [5] and [6]), the ``nvidia-smi`` line, and as the last line
+8. a ``{"kernels": [...]}`` line (launches summed over the runs of [4],
+   [5], [6] and [7]), the ``nvidia-smi`` line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
 Details go to ``chiprun_out/chip_smoke.json``.  The port never calls
@@ -82,6 +94,10 @@ MOE_PEAK_LIMIT = 76e9         # bytes: the MoE phase must leave 4 GB of the card
 # 128 experts ~4.83 GB), so 12 of 94 layers plus embed/lm_head (~62 GB)
 # is the most that leaves the card headroom under MOE_PEAK_LIMIT
 MOE_LAYERS = 12
+# the fleet of [6]: the serving example's ages (years), floored at 1e-3
+FLEET_AGES = (1e-3, 3.0, 6.0, 9.5)
+# per-lane BERs of the lane-mode checks in [3]: one lane at 0
+LANE_BERS = (1e-3, 0.0, 3e-3, 1e-2)
 TABLE2 = {                     # paper Table II: op -> (V_final, dvp, dvn, saving %)
     "q": (0.90, 73.1, 46.1, 17.0), "k": (0.94, 79.0, 52.1, 14.3),
     "v": (0.90, 73.1, 46.1, 17.0), "qkt": (0.90, 73.1, 46.1, 17.0),
@@ -91,8 +107,10 @@ TABLE2 = {                     # paper Table II: op -> (V_final, dvp, dvn, savin
 }
 JAX_KERNELS = {
     "fused_aged_matmul": "src/repro/kernels/fused_aged_matmul.py:208",
+    "fused_aged_matmul_lanes": "src/repro/kernels/fused_aged_matmul.py:208",
     "bitflip_words": "src/repro/kernels/bitflip.py:49",
     "bitflip_draw": "src/repro/kernels/bitflip.py:49",
+    "bitflip_draw_lanes": "src/repro/kernels/bitflip.py:49",
     "systolic_matmul": "src/repro/kernels/systolic_matmul.py:64",
 }
 SOURCE = "src/repro_torch/kernels/csrc/aged_kernels.cu"
@@ -222,15 +240,21 @@ def ptxas_report(log: str) -> list:
 
 
 # --------------------------------------------------------------------------- #
+def llama_gemm_shapes(cfg) -> list:
+    """``(model, K, N, op)`` of llama3_8b's faulted weight matmuls: q/o,
+    k/v, gate/up and down."""
+    d, f, kvd = cfg.d_model, cfg.d_ff, cfg.n_kv_heads * cfg.hd
+    return [("llama3_8b", d, cfg.n_heads * cfg.hd, "q/o"),
+            ("llama3_8b", d, kvd, "k/v"), ("llama3_8b", d, f, "gate/up"),
+            ("llama3_8b", f, d, "down")]
+
+
 def gemm_shapes(cfg, moe_cfg) -> list:
     """``(model, K, N, op)`` of every faulted weight matmul of the two serve
     paths: llama3_8b's q/o, k/v, gate/up and down; qwen3_moe_235b's q,
     k/v, o and router (its expert FFNs are clean)."""
-    d, f, kvd = cfg.d_model, cfg.d_ff, cfg.n_kv_heads * cfg.hd
     md, mq = moe_cfg.d_model, moe_cfg.n_heads * moe_cfg.hd
-    return [("llama3_8b", d, cfg.n_heads * cfg.hd, "q/o"),
-            ("llama3_8b", d, kvd, "k/v"), ("llama3_8b", d, f, "gate/up"),
-            ("llama3_8b", f, d, "down"),
+    return llama_gemm_shapes(cfg) + [
             ("qwen3_moe_235b", md, mq, "q"),
             ("qwen3_moe_235b", md, moe_cfg.n_kv_heads * moe_cfg.hd, "k/v"),
             ("qwen3_moe_235b", mq, md, "o"),
@@ -309,6 +333,8 @@ def kernel_checks(dev, cfg, moe_cfg) -> dict:
                   f"systolic_matmul {shape}: max |err| {sys_err}")
             by_path = kernels.launch_counts_by_path()
             check(by_path == {"fused_aged_matmul": {"fast": 2, "generic": 0},
+                              "fused_aged_matmul_lanes": {"fast": 0,
+                                                          "generic": 0},
                               "systolic_matmul": {"fast": 1, "generic": 0}},
                   f"GEMM launches off the fast path at {shape}: {by_path}")
 
@@ -426,6 +452,125 @@ def kernel_checks(dev, cfg, moe_cfg) -> dict:
             bytes_bound_ms=8 * n / HBM_BYTES_PER_S * 1e3,
             int_bound_ms=int_ops / int_rate * 1e3, int32_issue_per_s=int_rate,
             library_ms=None))
+    return rows
+
+
+def lane_kernel_checks(dev, cfg) -> dict:
+    """Both lane modes at the fleet's shapes: every llama3_8b weight GEMM
+    with 4 lanes of B = 2 folded (M = 4 x 32 prefill, 4 x 2 decode rows)
+    and the qkt/sv words of 4 lanes, at per-lane BERs with one lane at 0;
+    bit-exact against the plain lane version and against 4 single-lane
+    launches, timed beside the bound and the 4 single-lane launches."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch import random as prandom
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.bitflip import bitflip_draw, bitflip_draw_lanes
+    from repro_torch.kernels.fused_aged_matmul import (
+        fused_aged_matmul, fused_aged_matmul_lanes, upset_probability)
+
+    L = len(LANE_BERS)
+    int_rate = int32_issue_per_s(dev)
+    gen = torch.Generator(device=dev).manual_seed(4321)
+    rows = {"fused_aged_matmul_lanes": [], "bitflip_draw_lanes": []}
+    for Ml in (32, 2):
+        for model, K, N, what in llama_gemm_shapes(cfg):
+            M = L * Ml
+            a = torch.randint(-127, 128, (M, K), dtype=torch.int8,
+                              device=dev, generator=gen)
+            b = torch.randint(-127, 128, (K, N), dtype=torch.int8,
+                              device=dev, generator=gen)
+            xs = torch.rand((M, 1), device=dev, generator=gen) * 0.01 + 1e-3
+            ws = torch.rand((1, N), device=dev, generator=gen) * 0.01 + 1e-3
+            seeds = [int(v) for v in torch.randint(
+                -2 ** 31, 2 ** 31 - 1, (L,), generator=gen, device=dev)]
+            bm, bn, _ = ops._resolve_blocks(Ml, N, K, 256, 256, 256)
+            bs = itertools.cycle([b] + [b.clone() for _ in range(
+                -(-120_000_000 // b.numel()) - 1)])
+            nb = lambda: next(bs)
+            part = lambda t, l: t[l * Ml:(l + 1) * Ml]
+            lanes = lambda b_, xs_, ws_: fused_aged_matmul_lanes(
+                a, b_, xs_, ws_, LANE_BERS, seeds, lanes=L, bm=bm, bn=bn)
+            singles = lambda b_, xs_, ws_: [fused_aged_matmul(
+                part(a, l), b_, None if xs_ is None else part(xs_, l), ws_,
+                LANE_BERS[l], seeds[l], bm=bm, bn=bn) for l in range(L)]
+            kernels.reset_launch_counts()
+            got = {"float32": lanes(b, xs, ws), "int32": lanes(b, None, None)}
+            counts = kernels.launch_counts_by_path()["fused_aged_matmul_lanes"]
+            err = 0.0
+            for kind, (xs_, ws_) in (("float32", (xs, ws)),
+                                     ("int32", (None, None))):
+                plain = ref.fused_aged_matmul_lanes_ref(
+                    a, b, xs_, ws_, LANE_BERS, seeds, lanes=L, bm=bm, bn=bn)
+                one = torch.cat(singles(b, xs_, ws_))
+                torch.cuda.synchronize()
+                err = max(err, max_abs_err(got[kind], plain))
+                check(torch.equal(got[kind], plain)
+                      and torch.equal(got[kind], one),
+                      f"fused_aged_matmul_lanes M={Ml}x{L} K={K} N={N} "
+                      f"{kind}: max |err| {max_abs_err(got[kind], plain)}, "
+                      f"== single-lane launches "
+                      f"{torch.equal(got[kind], one)}")
+            check(counts == {"fast": 2, "generic": 0},
+                  f"lane GEMM launches off the fast path: {counts}")
+            clean = ref.systolic_matmul_ref(a, b)
+            check(torch.equal(part(got["int32"], 1), part(clean, 1)),
+                  "the BER-0 lane was upset")
+            flips = int((got["int32"] != clean).sum())
+            check(flips > 0 or M * N < 1e4, f"no lane upsets at M={M} N={N}")
+            fk = lambda: lanes(nb(), xs, ws)
+            f4 = lambda: singles(nb(), xs, ws)
+            dev_ms, per_call = device_ms(fk, match="int8_gemm")
+            check(per_call == 1, f"lane GEMM kernels per call {per_call}")
+            t_b, by = bound(M * K + K * N + 4 * (M + N) + 4 * M * N,
+                            2.0 * M * K * N)
+            rows["fused_aged_matmul_lanes"].append(dict(
+                M=M, lanes=L, M_lane=Ml, K=K, N=N, op=what, model=model,
+                bers=list(LANE_BERS), flips=flips, max_abs_err=err,
+                ms=cuda_time_ms(fk), dev_ms=dev_ms,
+                singles_dev_ms=device_ms(f4, match="int8_gemm")[0],
+                plain_ms=cuda_time_ms(lambda: ref.fused_aged_matmul_lanes_ref(
+                    a, b, xs, ws, LANE_BERS, seeds, lanes=L, bm=bm, bn=bn),
+                    iters=3, warmup=1),
+                bound_ms=t_b, bound_by=by, library_ms=None))
+    qs = [upset_probability(x) for x in LANE_BERS]
+    for shape, what in attention_shapes(cfg):
+        n = math.prod(shape)
+        x = torch.randint(-2 ** 31, 2 ** 31 - 1, (L,) + shape,
+                          dtype=torch.int32, device=dev, generator=gen)
+        words = [ops.flip_key_words(k)
+                 for k in prandom.split(prandom.PRNGKey(n), L)]
+        kernels.reset_launch_counts()
+        out = bitflip_draw_lanes(x, words, qs)
+        launches = kernels.launch_counts()["bitflip_draw_lanes"]
+        plain = ref.bitflip_draw_lanes_ref(x, words, qs)
+        one = torch.stack([bitflip_draw(x[l], words[l], qs[l])
+                           for l in range(L)])
+        torch.cuda.synchronize()
+        err = max_abs_err(out, plain)
+        check(torch.equal(out, plain) and torch.equal(out, one),
+              f"bitflip_draw_lanes {shape} x {L}: max |err| {err}, == "
+              f"single-lane launches {torch.equal(out, one)}")
+        check(launches == 1, f"bitflip_draw_lanes launches {launches}")
+        check(torch.equal(out[1], x[1]), "the BER-0 lane was flipped")
+        flips = int((out != x).sum())
+        check(flips > 0, f"bitflip_draw_lanes {shape}: no flips")
+        bk = lambda: bitflip_draw_lanes(x, words, qs)
+        dev_ms, per_call = device_ms(bk, match="bitflip_draw")
+        check(per_call == 1, f"bitflip_draw_lanes kernels per call "
+              f"{per_call}")
+        int_ops = THREEFRY_INT_OPS * (L * n + flips)
+        t_b, by = bound(8 * L * n, int_ops=int_ops, int_rate=int_rate)
+        rows["bitflip_draw_lanes"].append(dict(
+            n=L * n, lanes=L, n_lane=n, shape=list(shape), op=what,
+            model="llama3_8b", flips=flips, max_abs_err=err,
+            ms=cuda_time_ms(bk), dev_ms=dev_ms,
+            singles_dev_ms=device_ms(lambda: [bitflip_draw(
+                x[l], words[l], qs[l]) for l in range(L)],
+                match="bitflip_draw")[0],
+            plain_ms=cuda_time_ms(lambda: ref.bitflip_draw_lanes_ref(
+                x, words, qs), iters=3, warmup=1),
+            bound_ms=t_b, bound_by=by, library_ms=None))
     return rows
 
 
@@ -569,8 +714,240 @@ def decode_syncs(engine, prompts, **gen_kw) -> dict:
     return {"generate_2_tokens": n[2], "generate_8_tokens": n[8]}
 
 
+class _ForcedFleet:
+    """A fleet whose lanes admit one BER each on every operator domain."""
+
+    def __init__(self, bers):
+        self.operators = tuple(TABLE2)
+        self.n_devices = len(bers)
+        self._bers = bers
+        self.ages_years = [9.0] * len(bers)
+
+    def op_ber_array(self):
+        import numpy as np
+        return np.repeat(np.asarray(self._bers, np.float32)[:, None],
+                         len(self.operators), axis=1)
+
+    def fleet_power(self):
+        import numpy as np
+        return np.zeros(self.n_devices)
+
+
+def reduced_fleet_vs_cpu(small, dev) -> dict:
+    """Tokens of a 3-lane reduced-model fleet (BERs 1e-3 / 0 / 3e-3) on
+    the card's kernel route against the port on the CPU (plain
+    versions); fails unless they are equal."""
+    import numpy as np
+    import torch
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serve.engine import FleetServeEngine
+    p_cpu = init_params(small, seed=1, dtype=torch.float32, device="cpu")
+    p_gpu = _map(p_cpu, lambda t: t.to(dev))
+    prompts = SyntheticLM(vocab=small.vocab, seq_len=12,
+                          global_batch=6).batch_at(0).tokens
+    fleet = _ForcedFleet([1e-3, 0.0, 3e-3])
+    outs = {name: FleetServeEngine(small, p, fleet, max_len=32,
+                                   use_systolic_kernel=True, seed=5,
+                                   device=d).generate(prompts, 6).tokens
+            for name, p, d in (("cuda", p_gpu, dev), ("cpu", p_cpu, "cpu"))}
+    check(np.array_equal(outs["cuda"], outs["cpu"]),
+          f"reduced {small.name} fleet: card tokens {outs['cuda'].tolist()} "
+          f"!= CPU tokens {outs['cpu'].tolist()}")
+    return {k: v.tolist() for k, v in outs.items()}
+
+
+def row_mean_rounding(dev, d: int) -> dict:
+    """Rows of a float32 mean of squares (the RMS norm's statistic) that
+    round differently when the same rows are reduced 2, 8 or 32 at a time
+    than 128 at a time, for a plain float32 reduction and for the norms'
+    float64-accumulated one (``models/layers.py::_row_mean``, which must
+    give none: the fleet's folded rows rely on it)."""
+    import torch
+    from repro_torch.models.layers import _row_mean
+    x = torch.randn((128, d), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(11))
+    sq = x.square()
+    count = {}
+    for name, fn in (("float32", lambda t: t.mean(dim=-1, keepdim=True)),
+                     ("float64", _row_mean)):
+        full = fn(sq)
+        count[name] = sum(int((fn(sq[:k]) != full[:k]).sum())
+                          for k in (2, 8, 32))
+    check(count["float64"] == 0, f"float64-accumulated row means depend on "
+          f"the row count: {count['float64']} rows differ")
+    return {"rows_compared": 2 + 8 + 32,
+            "float32_rows_differing": count["float32"],
+            "float64_rows_differing": count["float64"]}
+
+
+def fleet_phase(dev, cfg, params, single) -> dict:
+    """[6] ``FleetServeEngine`` over a 4-device fleet aged ``FLEET_AGES``,
+    at [4]'s full width and depth on [4]'s params: one lane-batched
+    forward per step, held against each lane's single-lane replay; then a
+    reduced llama3_8b fleet on the card against the CPU."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch import random as prandom
+    from repro_torch.core.fleet import FleetRuntime
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import ops
+    from repro_torch.serve import steps
+    from repro_torch.serve.engine import FleetServeEngine
+
+    N, B, S, n_steps = len(FLEET_AGES), 2, 16, 8
+    L = cfg.n_layers
+    fleet = FleetRuntime(n_devices=N, device=dev)
+    for i, age in enumerate(FLEET_AGES):
+        fleet.set_age(years=age, device=i)
+    bers = fleet.op_ber_array()
+    check(bool(np.isfinite(bers).all() and (bers >= 0).all()
+               and (bers[1:] > 0).all()), f"fleet BERs {bers}")
+    print(f"[6] fleet of {N} llama3_8b devices aged "
+          f"{', '.join(f'{a:g}' for a in FLEET_AGES)} y: admitted BER "
+          f"(q / o / down per lane) " + "; ".join(
+              f"{bers[i, 0]:.2e} / {bers[i, 5]:.2e} / {bers[i, 8]:.2e}"
+              for i in range(N)), flush=True)
+    prompts = SyntheticLM(vocab=cfg.vocab, seq_len=S,
+                          global_batch=N * B).batch_at(0).tokens.reshape(
+                              N, B, S)
+    make = lambda: FleetServeEngine(cfg, params, fleet, max_len=64,
+                                    use_systolic_kernel=True, device=dev)
+    make().generate(prompts, 2)                 # warm-up of the fleet shapes
+    engine = make()
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = engine.generate(prompts, n_steps)
+    gen_s = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    by_path = kernels.launch_counts_by_path()
+    tok = out.tokens
+    check(tok.shape == (N, B, n_steps), f"fleet tokens shape {tok.shape}")
+    check(bool(((tok >= 0) & (tok < cfg.vocab)).all()), "fleet token ids")
+    check(all(v.shape == (N, n_steps) and np.isfinite(v).all()
+              for v in out.telemetry.values()), "fleet logit taps")
+    want_fused, want_flip = 7 * L * n_steps, 2 * L * n_steps
+    check(counts["fused_aged_matmul_lanes"] == want_fused
+          and by_path["fused_aged_matmul_lanes"] == {"fast": want_fused,
+                                                     "generic": 0},
+          f"fleet lane GEMM launches {by_path} != {want_fused} fast")
+    check(counts["bitflip_draw_lanes"] == want_flip,
+          f"fleet lane draw launches {counts} != {want_flip}")
+    check(all(counts[k] == 0 for k in ("fused_aged_matmul", "bitflip_draw",
+                                       "bitflip_words", "systolic_matmul")),
+          f"the fleet launched a single-lane or three-pass kernel: {counts}")
+
+    # each lane's single-lane replay: the engine's key schedule, sliced
+    _, call_key = prandom.split(prandom.PRNGKey(0))
+    fi = engine._fleet_fault_config(call_key)
+    keys = prandom.split(prandom.fold_in(call_key, 1), N)
+    lane_prompts = [torch.as_tensor(prompts[i], device=dev) for i in range(N)]
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    replay = [steps.generate(params, cfg, lane_prompts[i], fi.lane(i),
+                             keys[i], max_len=64, n_steps=n_steps)[0]
+              for i in range(N)]
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    loop_counts = kernels.launch_counts()
+    check(loop_counts["fused_aged_matmul"] == N * want_fused,
+          f"replay launches {loop_counts}")
+    # prefill logits, fleet against replay: every faulted op is exact per
+    # lane; the clean bf16 unembed matmul (transformer.unembed) may round
+    # differently at 4 x 2 rows than at 2, by at most one bf16 ulp of the
+    # logit (2**-7 relative to its magnitude)
+    folded = torch.as_tensor(prompts.reshape(N * B, S), device=dev)
+    lf = steps.prefill(params, cfg, folded, fi.with_seeds(), 64)[0]
+    lr = torch.cat([steps.prefill(params, cfg, lane_prompts[i],
+                                  fi.lane(i).with_seeds(), 64)[0]
+                    for i in range(N)])
+    d = (lf - lr).abs()
+    logit_diff = float(d.max())
+    within = bool((d <= 2.0 ** -7 * torch.maximum(lf.abs(), lr.abs())).all())
+    diverged = [(i, b, t) for i in range(N) for b in range(B)
+                for t in range(n_steps) if tok[i, b, t] != replay[i][b, t]]
+    first = diverged[0] if diverged else None
+    check(first is None, f"fleet lane {first and first[0]} row "
+          f"{first and first[1]} diverges from its single-lane replay at "
+          f"token {first and first[2]}; prefill logits differ by up to "
+          f"{logit_diff:.3g} (within one bf16 ulp: {within})")
+    check(within, f"fleet prefill logits differ from the replay's by "
+          f"{logit_diff:.3g}, more than one bf16 ulp")
+    pf, dc = out.timings["prefill_s"], out.timings["decode_s"]
+    per_tok = dc / (n_steps - 1)
+    res = {"lanes": N, "ages_years": list(FLEET_AGES), "layers": L,
+           "batch_per_lane": B, "prompt": S, "n_steps": n_steps,
+           "bers": bers.tolist(), "operators": list(fleet.operators),
+           "generate_s": gen_s, "prefill_s": pf,
+           "decode_s_per_token": per_tok,
+           "tokens_per_s": N * B * n_steps / gen_s,
+           "replay_loop_s": loop_s,
+           "replay_tokens_per_s": N * B * n_steps / loop_s,
+           "single": {k: single[k] for k in ("prefill_s",
+                                             "decode_s_per_token",
+                                             "tokens_per_s", "generate_s")},
+           "launches": counts, "launches_by_path": by_path,
+           "replay_launches": loop_counts, "tokens": tok.tolist(),
+           "prefill_logit_max_abs_diff": logit_diff,
+           "power_w": out.power_w.tolist()}
+    print(f"    fleet generate ({N} lanes x B={B}, 8 greedy tokens): prefill "
+          f"{pf * 1e3:.1f} ms, decode {per_tok * 1e3:.1f} ms/token, "
+          f"{res['tokens_per_s']:.2f} tokens/s; single device [4]: prefill "
+          f"{single['prefill_s'] * 1e3:.1f} ms, decode "
+          f"{single['decode_s_per_token'] * 1e3:.1f} ms/token, "
+          f"{single['tokens_per_s']:.2f} tokens/s; replay loop of {N} "
+          f"single-lane generates {loop_s:.2f} s ({gen_s:.2f} s fleet)",
+          flush=True)
+    print(f"    launches per forward: {counts['fused_aged_matmul_lanes'] // n_steps}"
+          f" lane GEMM (fast path), {counts['bitflip_draw_lanes'] // n_steps}"
+          f" lane draw; every lane == its single-lane replay; prefill "
+          f"logits within {logit_diff:.3g}", flush=True)
+    res["profile"] = profile_generate(engine, prompts, 7 * L * 2)
+    prof = res["profile"]
+    check(prof["threefry_chain_launches"] == 0,
+          f"threefry elementwise kernels in the fleet step: "
+          f"{prof['threefry_chain_kernels']}")
+    print(f"    prefill + 1 decode step: {prof['wall_ms']:.1f} ms, device "
+          f"busy {prof['device_busy_ms']:.1f} ms "
+          f"({100 * prof['device_busy_share']:.1f}%) over "
+          f"{prof['n_kernel_launches']} kernel launches; lane GEMM "
+          f"{prof['gemm_device_ms']:.2f} ms over {prof['gemm_launches']}",
+          flush=True)
+    res["host_syncs"] = decode_syncs(engine, prompts)
+    print(f"    host syncs of fleet generate at 2 / 8 tokens: "
+          f"{res['host_syncs']['generate_2_tokens']} / "
+          f"{res['host_syncs']['generate_8_tokens']} (none in a decode "
+          f"step)", flush=True)
+    # host cost of the lanes' key and seed derivation in one forward: the
+    # folds FaultConfig makes for every faulted op of every layer
+    t0 = time.perf_counter()
+    fs = fi.with_seeds().for_step(1)
+    for salt in range(L):
+        for op in ("q", "k", "v", "o", "gate", "up", "down"):
+            fs.seed_for(op, salt)
+        for op in ("qkt", "sv"):
+            [ops.flip_key_words(k) for k in fs.key_for(op, salt)]
+    res["lane_key_derivation_ms_per_forward"] = \
+        (time.perf_counter() - t0) * 1e3
+    res["row_means"] = row_mean_rounding(dev, cfg.d_model)
+    print(f"    row means of d_model = {cfg.d_model}: float32 reductions "
+          f"round {res['row_means']['float32_rows_differing']} of "
+          f"{res['row_means']['rows_compared']} rows differently beside "
+          f"other row counts; the norms' float64-accumulated means "
+          f"{res['row_means']['float64_rows_differing']}", flush=True)
+    res["reduced_vs_cpu"] = reduced_fleet_vs_cpu(cfg.reduced(), dev)
+    print(f"    lane seed/key derivation {res['lane_key_derivation_ms_per_forward']:.1f}"
+          f" ms of host time a forward; reduced llama3_8b fleet (3 lanes, "
+          f"BER 1e-3 / 0 / 3e-3): card kernel route == CPU plain route "
+          f"tokens", flush=True)
+    return res
+
+
 def moe_phase(dev, cfg) -> dict:
-    """[6] The MoE serve path at published widths, ``MOE_LAYERS`` deep,
+    """[7] The MoE serve path at published widths, ``MOE_LAYERS`` deep,
     then reduced qwen3_moe_235b and arctic_480b on the card against the
     CPU."""
     import numpy as np
@@ -591,7 +968,7 @@ def moe_phase(dev, cfg) -> dict:
     check(len(bers) == 10 and "router" in bers
           and all(math.isfinite(v) and v > 0 for v in bers.values()),
           f"MoE fleet's admitted BERs {bers}")
-    print("[6] MoE fleet (FleetRuntime.for_model), age 9 y admitted BER: "
+    print("[7] MoE fleet (FleetRuntime.for_model), age 9 y admitted BER: "
           + ", ".join(f"{op} {v:.2e}" for op, v in bers.items()), flush=True)
 
     L = MOE_LAYERS
@@ -768,11 +1145,14 @@ def main(argv=None) -> int:
     # 3. kernels vs plain versions -----------------------------------------
     t0 = time.perf_counter()
     rows = kernel_checks(dev, cfg, moe_cfg)
+    rows.update(lane_kernel_checks(dev, cfg))
     report["kernel_checks"] = rows
     print(f"[3] kernels bit-exact vs plain versions at main-path shapes "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
     fmt = lambda v: "n/a" if v is None else f"{v:.4f}"
     for name, rs in rows.items():
+        if name.endswith("_lanes"):
+            continue                 # printed below, beside 4 single lanes
         for r in rs:
             yard = r.get("int_mm_ms", r["library_ms"])
             yard_dev = r.get("int_mm_dev_ms", r.get("library_dev_ms"))
@@ -786,6 +1166,16 @@ def main(argv=None) -> int:
                   f"plain {r['plain_ms']:.4f}  bound {r['bound_ms']:.4f} "
                   f"({r['bound_by']})  _int_mm {fmt(yard)}, dev "
                   f"{fmt(yard_dev)}")
+    for name in ("fused_aged_matmul_lanes", "bitflip_draw_lanes"):
+        for r in rows[name]:
+            dims = (f"M={r['lanes']}x{r['M_lane']} K={r['K']} N={r['N']}"
+                    if "M" in r else f"n={r['lanes']}x{r['n_lane']}")
+            print(f"    {name:23s} {dims:24s} {r['op']:12s} dev "
+                  f"{r['dev_ms'] * 1e3:.2f} us (4 single-lane launches "
+                  f"{r['singles_dev_ms'] * 1e3:.2f} us) bound "
+                  f"{r['bound_ms'] * 1e3:.2f} us ({r['bound_by']}); wrapper "
+                  f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms",
+                  flush=True)
     for r in rows["bitflip_draw"]:
         print(f"    bitflip_draw n={r['n']:<7d} {r['op']:12s} inject_bitflips "
               f"{r['inject_ms']:.4f} ms; dev {r['dev_ms'] * 1e3:.2f} us vs "
@@ -917,8 +1307,7 @@ def main(argv=None) -> int:
           f"{report['host_syncs']['generate_2_tokens']} / "
           f"{report['host_syncs']['generate_8_tokens']} (none in a decode "
           f"step)", flush=True)
-    del engine, params
-    torch.cuda.empty_cache()
+    del engine
 
     # reduced model: the card's kernel route vs the port on the CPU
     report["reduced_vs_cpu"] = reduced_vs_cpu(cfg.reduced(), dev)
@@ -952,29 +1341,39 @@ def main(argv=None) -> int:
     del params3
     torch.cuda.empty_cache()
 
-    # 6. MoE path ------------------------------------------------------------
+    # 6. fleet path, on [4]'s params ----------------------------------------
+    report["fleet"] = fleet_phase(dev, cfg_run, params, serve)
+    fleet_counts = report["fleet"]["launches"]
+    del params
+    torch.cuda.empty_cache()
+
+    # 7. MoE path ------------------------------------------------------------
     report["moe"] = moe_phase(dev, moe_cfg)
     moe_counts = report["moe"]["launches"]
 
-    # 7. summary ----------------------------------------------------------
-    # launches summed over the three paths' runs, each counted from 0; the
+    # 8. summary ----------------------------------------------------------
+    # launches summed over the four paths' runs, each counted from 0; the
     # explicit-randoms bitflip_words is on no path any more: it stays the
     # Pallas kernel's counterpart signature for signature, held against
     # its plain version in [3], with 0 launches on the paths
-    launches = {name: main_counts[name] + counts3[name] + moe_counts[name]
-                for name in kernels.KERNEL_NAMES}
+    launches = {name: main_counts[name] + counts3[name] + fleet_counts[name]
+                + moe_counts[name] for name in kernels.KERNEL_NAMES}
     # the representative shape of each kernel: the decode weight matmul
-    # that dominates the fused route (gate/up, M = 2), the prefill gate/up
-    # GEMM (M = 32, where torch._int_mm computes the same function) and
-    # the prefill sv words
+    # that dominates the fused route (gate/up, M = 2; 4 x 2 in lane mode),
+    # the prefill gate/up GEMM (M = 32, where torch._int_mm computes the
+    # same function) and the prefill sv words (x 4 in lane mode)
     pick = {"fused_aged_matmul": lambda r: r["M"] == 2
             and r["op"] == "gate/up" and r["model"] == "llama3_8b",
+            "fused_aged_matmul_lanes": lambda r: r["M"] == 8
+            and r["op"] == "gate/up",
             "systolic_matmul": lambda r: r["M"] == 32
             and r["op"] == "gate/up" and r["model"] == "llama3_8b",
             "bitflip_draw": lambda r: r["n"] == 131072,
+            "bitflip_draw_lanes": lambda r: r["n"] == 4 * 131072,
             "bitflip_words": lambda r: r["R"] == 1024}
     line = []
-    for name in ("fused_aged_matmul", "bitflip_draw", "bitflip_words",
+    for name in ("fused_aged_matmul", "fused_aged_matmul_lanes",
+                 "bitflip_draw", "bitflip_draw_lanes", "bitflip_words",
                  "systolic_matmul"):
         r = next(r for r in rows[name] if pick[name](r))
         line.append({

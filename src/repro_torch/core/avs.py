@@ -8,7 +8,9 @@ delay exceeds the policy's ``delay_max``.  The reference's per-step
 ``max_boosts_per_step`` iterations: a lane leaves the loop for good once
 its condition fails (its state no longer changes), so the fixed bound
 gives the same voltages, with no host synchronisation on the device.
-One mission profile per call, batched over the ``delay_max`` thresholds.
+The reference's ``vmap`` over the flattened scenario batch becomes a batch
+axis: every scenario leaf and threshold is broadcast to the joint batch,
+each element with its own stress rates and time grid.
 """
 from __future__ import annotations
 
@@ -24,7 +26,7 @@ from .aging import AgingParams
 from .constants import (DUTY_FACTOR, LIFETIME_S, T_AMB, T_CLK, TOGGLE_RATE,
                         TRANSITION_TIME, V_MAX, V_NOM, V_STEP)
 from .delay import DelayPolynomial
-from .scenario import SCENARIO_FIELDS, LifetimeTrajectory, Scenario
+from .scenario import LifetimeTrajectory, Scenario
 
 _F32 = torch.float32
 
@@ -55,7 +57,8 @@ def _log10(x) -> torch.Tensor:
 
 
 def _logspace(start, stop, num: int, device) -> torch.Tensor:
-    """``jnp.logspace(log10(start), log10(stop), num, dtype=float32)``.
+    """``jnp.logspace(log10(start), log10(stop), num, dtype=float32)`` along
+    a last axis, for scalar or ``(B, 1)`` bounds.
 
     jnp's linspace is ``start * (1 - s) + stop * s`` with ``s = i / (num -
     1)``, then the exact endpoint; ``10 ** lin`` is taken in float64 and
@@ -66,26 +69,24 @@ def _logspace(start, stop, num: int, device) -> torch.Tensor:
     stop = _log10(torch.as_tensor(stop, dtype=_F32, device=device))
     div = num - 1
     step = true_div(torch.arange(div, dtype=_F32, device=device), div)
-    lin = torch.cat([start * (1 - step) + stop * step, stop[None]])
+    lin = start * (1 - step) + stop * step
+    lin = torch.cat([lin, stop.reshape(lin.shape[:-1] + (1,))], dim=-1)
     return torch.pow(10.0, lin.to(torch.float64)).to(_F32)
 
 
 def simulate(params: AgingParams, poly: DelayPolynomial,
              scenarios: Scenario, delay_max=None, *, recovery: bool = True,
              avs_enabled: bool = True, device="cuda") -> LifetimeTrajectory:
-    """Simulate one mission profile's lifetime for a batch of thresholds.
+    """Simulate the lifetimes of a broadcastable batch of scenarios.
 
     ``delay_max`` (default: the scenario's clock — classical AVS) may have
     any shape; the result's ``batch_shape`` is its broadcast against the
-    scenario's (single-element) leaves.  As in the reference, a batched
+    scenario's batch shape, and every element of that batch runs its own
+    mission profile on its own time grid.  As in the reference, a batched
     call does its scalar arithmetic on float32 leaves and an unbatched one
     on Python floats.
     """
     dev = resolve_device(device)
-    if any(torch.as_tensor(getattr(scenarios, f)).numel() != 1
-           for f in SCENARIO_FIELDS):
-        raise NotImplementedError("one mission profile per call; scenario "
-                                  "batches are not ported")
     if delay_max is None:
         delay_max = scenarios.t_clk
     dmax = torch.as_tensor(delay_max, dtype=_F32)
@@ -93,29 +94,37 @@ def simulate(params: AgingParams, poly: DelayPolynomial,
                                          tuple(dmax.shape)))
 
     def leaf(name):
+        """Python float (unbatched), else float32 ``(B, 1)``."""
         v = getattr(scenarios, name)
-        if batch or isinstance(v, torch.Tensor):
-            return torch.as_tensor(v, dtype=_F32).reshape(()).to(dev)
-        return float(v)
+        if not batch:
+            return (torch.as_tensor(v, dtype=_F32).reshape(()).to(dev)
+                    if isinstance(v, torch.Tensor) else float(v))
+        v = torch.as_tensor(np.asarray(v) if not isinstance(
+            v, torch.Tensor) else v, dtype=_F32)
+        return torch.broadcast_to(v, batch).reshape(-1, 1).to(dev)
 
     params, poly = params.to(dev), poly.to(dev)
     rates = aging.stress_rates(
         params, duty=leaf("duty"), toggle=leaf("toggle"),
         t_clk=leaf("t_clk"), transition_time=leaf("transition_time"),
-        recovery=recovery)
+        recovery=recovery)                          # (6,) or (B, 6)
     tgrid = _logspace(leaf("t_start"), leaf("lifetime_s"),
-                      scenarios.n_steps, dev)
-    dts = torch.diff(tgrid, prepend=torch.zeros(1, dtype=_F32, device=dev))
-    t_amb, v_step = leaf("t_amb"), leaf("v_step")
-    v_ceiling = leaf("v_max") - 1e-6
+                      scenarios.n_steps, dev)       # (T,) or (B, T)
+    zero = torch.zeros(tgrid.shape[:-1] + (1,), dtype=_F32, device=dev)
+    dts = torch.diff(tgrid, dim=-1, prepend=zero)
+    t_amb = leaf("t_amb")
+    flat = lambda x: x.reshape(-1) if isinstance(x, torch.Tensor) else x
+    v_step, v_ceiling = flat(leaf("v_step")), flat(leaf("v_max")) - 1e-6
     flat_dmax = torch.broadcast_to(dmax, batch).reshape(-1).to(dev)
     B = flat_dmax.shape[0]
 
     dv = torch.zeros((B, aging.N_POP), dtype=_F32, device=dev)
-    v = torch.as_tensor(leaf("v_init"), dtype=_F32, device=dev).expand(B)
+    v = torch.as_tensor(flat(leaf("v_init")), dtype=_F32,
+                        device=dev).expand(B)
     out = {k: [] for k in ("V", "delay", "dvp", "dvn", "dv")}
     for i in range(scenarios.n_steps):
-        dv = aging.update_state(params, dv, v[:, None], rates, dts[i], t_amb)
+        dv = aging.update_state(params, dv, v[:, None], rates,
+                                dts[..., i:i + 1], t_amb)
         dvp, dvn = aging.totals(dv)
         dp_v, dn_v = dvp * 1e-3, dvn * 1e-3
         delay = poly(dp_v, dn_v, v)
@@ -131,7 +140,7 @@ def simulate(params: AgingParams, poly: DelayPolynomial,
             for k, vals in out.items()}
     T = scenarios.n_steps
     return LifetimeTrajectory(
-        t=np.broadcast_to(tgrid.cpu().numpy(), batch + (T,)),
+        t=np.broadcast_to(tgrid.cpu().numpy(), (B, T)).reshape(batch + (T,)),
         V=host["V"].reshape(batch + (T,)),
         delay=host["delay"].reshape(batch + (T,)),
         dvp=host["dvp"].reshape(batch + (T,)),

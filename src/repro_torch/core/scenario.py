@@ -2,10 +2,10 @@
 ``repro.core.scenario`` that ``simulate`` and ``FleetRuntime`` use).
 
 A :class:`Scenario` bundles every knob of one lifetime simulation.  Leaves
-are Python floats or float32 tensors; the port simulates ONE mission
-profile per call (every leaf has a single element), batched over the
-delay thresholds — per-device profile batches wait for the heterogeneous
-fleet slice.
+are Python floats, numpy arrays or float32 tensors, and may carry batch
+dimensions that broadcast against each other: a ``(N,)``-batched scenario
+is N mission profiles (per-device duty, temperature, budget, horizon),
+which :func:`repro_torch.core.avs.simulate` runs in one batched call.
 """
 from __future__ import annotations
 
@@ -28,7 +28,7 @@ SCENARIO_FIELDS = (
 
 @dataclasses.dataclass(frozen=True)
 class Scenario:
-    """One mission profile."""
+    """One mission profile (or a broadcastable batch of them)."""
     t_clk: Any = T_CLK                  # clock period [s]
     v_init: Any = V_NOM                 # initial supply [V]
     v_step: Any = V_STEP                # AVS increment [V]

@@ -10,7 +10,10 @@ synchronise, and raise if the launch was refused.
 
 The int8 GEMM runs on a plan made here (:func:`gemm_plan`): the fast
 tensor-core path with split-K for shapes it takes, the generic masked path
-for the rest.
+for the rest.  The upset GEMM and the draw-mode bitflip take per-lane
+parameters (seeds or keys, and upset probabilities) for up to
+:data:`MAX_LANES` lanes a launch, copied by value into the launch's
+parameters: a single device is one lane.
 """
 from __future__ import annotations
 
@@ -39,6 +42,7 @@ FAST, GENERIC = "fast", "generic"
 _PATH_CODE = {GENERIC: 0, FAST: 1}
 FAST_BK = 128        # K depth of one stage of the fast path's copy ring
 GENERIC_TILE = (32, 128, 64)   # (bm, bn, bk) of the generic path
+MAX_LANES = 32       # lanes one launch takes (kMaxLanes in the source)
 
 _lib = None
 _lock = threading.Lock()
@@ -91,9 +95,12 @@ def library() -> ctypes.CDLL:
         if _lib is None:
             lib = ctypes.CDLL(build()["path"])
             vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+            pu32 = ctypes.POINTER(ctypes.c_uint32)
+            pf32 = ctypes.POINTER(ctypes.c_float)
             lib.aged_int8_gemm.argtypes = [
-                vp, vp, vp, vp, vp, ci, ci, ci, ci, ctypes.c_uint32,
-                ctypes.c_float, ci, ci, ci,        # ... lbm, lbn, grid_n
+                vp, vp, vp, vp, vp, ci, ci, ci, ci,  # ... M, N, K, mode
+                ci, pu32, pf32,                    # lanes, seeds, qs
+                ci, ci, ci,                        # lbm, lbn, grid_n
                 ci, ci, ci, ci,                    # path, bm, bn, splits
                 vp, ll, vp, ll,                    # workspace and tickets
                 vp]
@@ -101,9 +108,7 @@ def library() -> ctypes.CDLL:
             lib.aged_bitflip.argtypes = [vp, vp, vp, ctypes.c_float, vp, ll,
                                          vp]
             lib.aged_bitflip.restype = ci
-            u32 = ctypes.c_uint32
-            lib.aged_bitflip_draw.argtypes = [vp, vp, ll, u32, u32, u32, u32,
-                                              ctypes.c_float, vp]
+            lib.aged_bitflip_draw.argtypes = [vp, vp, ll, ci, pu32, pf32, vp]
             lib.aged_bitflip_draw.restype = ci
             lib.aged_error_string.argtypes = [ci]
             lib.aged_error_string.restype = ctypes.c_char_p
@@ -119,6 +124,15 @@ def _check(code: int, what: str) -> None:
 
 def _ptr(t):
     return None if t is None else t.data_ptr()
+
+
+def _u32s(values):
+    return (ctypes.c_uint32 * len(values))(*(int(v) & 0xFFFFFFFF
+                                             for v in values))
+
+
+def _f32s(values):
+    return (ctypes.c_float * len(values))(*(float(v) for v in values))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -223,12 +237,15 @@ def _workspace(device: torch.device, stream: int, plan: GemmPlan):
 
 
 def launch_gemm(a: torch.Tensor, b: torch.Tensor, out: torch.Tensor, *,
-                mode: int, xs=None, ws=None, seed: int = 0, q: float = 0.0,
+                mode: int, xs=None, ws=None, seeds=(0,), qs=(0.0,),
                 lbm: int = 1, lbn: int = 1, grid_n: int = 1) -> str:
     """int8 GEMM into ``out`` (int32, or float32 for the dequant mode), on
     :func:`gemm_plan`'s plan.
 
-    Returns the path the plan took (:data:`FAST` or :data:`GENERIC`).
+    ``seeds`` and ``qs`` hold one value per lane (at most
+    :data:`MAX_LANES`); lane ``l`` owns rows ``[l * M_l, (l + 1) * M_l)`` of
+    ``a`` with ``M_l = M / lanes``.  Returns the path the plan took
+    (:data:`FAST` or :data:`GENERIC`).
     """
     M, K = a.shape
     N = b.shape[1]
@@ -241,7 +258,7 @@ def launch_gemm(a: torch.Tensor, b: torch.Tensor, out: torch.Tensor, *,
             parts, tickets = _workspace(a.device, stream, plan)
         code = library().aged_int8_gemm(
             _ptr(a), _ptr(b), _ptr(xs), _ptr(ws), _ptr(out), M, N, K, mode,
-            int(seed) & 0xFFFFFFFF, float(q), lbm, lbn, grid_n,
+            len(seeds), _u32s(seeds), _f32s(qs), lbm, lbn, grid_n,
             _PATH_CODE[plan.path], plan.bm, plan.bn, plan.splits,
             _ptr(parts), 0 if parts is None else parts.numel(),
             _ptr(tickets), 0 if tickets is None else tickets.numel(), stream)
@@ -257,10 +274,14 @@ def launch_bitflip(x, u, pos, q: float, out) -> None:
     _check(code, "bitflip")
 
 
-def launch_bitflip_draw(x, key_words, q: float, out) -> None:
+def launch_bitflip_draw(x, key_words, qs, out) -> None:
+    """Draw-mode bitflip over ``len(qs)`` lanes (at most
+    :data:`MAX_LANES`) of ``x.numel() / lanes`` words each; ``key_words``
+    holds each lane's four key words."""
+    lanes = len(qs)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         code = library().aged_bitflip_draw(
-            _ptr(x), _ptr(out), x.numel(),
-            *(int(k) & 0xFFFFFFFF for k in key_words), float(q), stream)
+            _ptr(x), _ptr(out), x.numel() // lanes, lanes,
+            _u32s([w for k in key_words for w in k]), _f32s(qs), stream)
     _check(code, "bitflip draw")

@@ -17,6 +17,10 @@ positions ``pos`` with threefry outside the kernel, over a zero-padded
   every faulted matmul on the three-pass route).  It is bound by its
   integer work (up to two threefry hashes a word), not by its 8 bytes a
   word.
+* :func:`bitflip_draw_lanes` is its lane mode: ``(L, n)`` words, lane
+  ``l`` drawing word ``i`` of its own words from its own keys at its own
+  ``q`` — the reference's injection under ``jax.vmap`` — in one launch
+  for up to :data:`repro_torch.kernels._cuda.MAX_LANES` lanes.
 """
 from __future__ import annotations
 
@@ -61,6 +65,25 @@ def bitflip_words(x: torch.Tensor, u: torch.Tensor, pos: torch.Tensor,
     return out
 
 
+def _draw(counter, x, key_words, qs) -> torch.Tensor:
+    """The draw-mode kernel on the card over ``len(qs)`` lanes of ``x``,
+    :data:`_cuda.MAX_LANES` lanes a launch, each counted on ``counter``."""
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
+    if not x.is_contiguous():
+        raise ValueError("x must be contiguous")
+    out = torch.empty_like(x)
+    if out.numel() == 0:
+        return out
+    flat, flat_out = x.reshape(len(qs), -1), out.reshape(len(qs), -1)
+    for l0 in range(0, len(qs), _cuda.MAX_LANES):
+        l1 = min(len(qs), l0 + _cuda.MAX_LANES)
+        _cuda.launch_bitflip_draw(flat[l0:l1], key_words[l0:l1], qs[l0:l1],
+                                  flat_out[l0:l1])
+        counter.launches += 1
+    return out
+
+
 def bitflip_draw(x: torch.Tensor, key_words, q: float) -> torch.Tensor:
     """Flip bit ``pos_i`` of word ``i`` of ``x`` where ``u_i < q``, with
     ``u_i`` word ``i`` of a uniform draw keyed ``key_words[:2]`` and
@@ -78,17 +101,28 @@ def bitflip_draw(x: torch.Tensor, key_words, q: float) -> torch.Tensor:
         raise ValueError(f"need four key words, got {len(key_words)}")
     if x.device.type == "cpu":
         return ref.bitflip_draw_ref(x, key_words, q)
-    if x.device.type != "cuda":
-        raise ValueError(f"no kernel for device {x.device}")
-    if not x.is_contiguous():
-        raise ValueError("x must be contiguous")
-    out = torch.empty_like(x)
-    if out.numel() == 0:
-        return out
-    _cuda.launch_bitflip_draw(x, key_words, q, out)
-    bitflip_draw.launches += 1
-    return out
+    return _draw(bitflip_draw, x, [tuple(key_words)], [q])
+
+
+def bitflip_draw_lanes(x: torch.Tensor, key_words, qs) -> torch.Tensor:
+    """Lane mode of :func:`bitflip_draw`: ``x`` is int32 ``(L, ...)``, and
+    lane ``l`` flips its words ``x[l]`` (row-major, indexed from 0 within
+    the lane) with the four key words ``key_words[l]`` at ``qs[l]``.
+    CPU tensors take the plain lane version; CUDA tensors launch the
+    kernel once per :data:`repro_torch.kernels._cuda.MAX_LANES` lanes."""
+    from . import ref
+    if x.dtype != torch.int32:
+        raise TypeError(f"need int32 words, got {x.dtype}")
+    key_words, qs = [tuple(k) for k in key_words], tuple(qs)
+    if x.dim() < 1 or len(qs) != x.shape[0] or len(key_words) != len(qs) \
+            or any(len(k) != 4 for k in key_words):
+        raise ValueError(f"need four key words and a q for each of the "
+                         f"{x.shape[0] if x.dim() else 0} lanes of x")
+    if x.device.type == "cpu":
+        return ref.bitflip_draw_lanes_ref(x, key_words, qs)
+    return _draw(bitflip_draw_lanes, x, key_words, qs)
 
 
 bitflip_words.launches = 0
 bitflip_draw.launches = 0
+bitflip_draw_lanes.launches = 0

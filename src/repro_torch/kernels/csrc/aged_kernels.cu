@@ -54,6 +54,17 @@
 //    fetched before the main loop: neither the int32 accumulator nor a random
 //    bit reaches device memory on the fused route (split partials are int32
 //    sums, not results).
+// Lane mode (the counterpart of Pallas's batching rule for pallas_call under
+// jax.vmap, which the fleet serving engine relies on): `a` is (L * M_l, K), lane
+// l owning rows [l * M_l, (l + 1) * M_l), and `b` is shared, so one launch
+// streams the weight once for all L lanes and stays bound by its bytes.  Each
+// row draws from its lane's seed at its lane's q, over its LANE-LOCAL row
+// r % M_l in the logical tiling the wrapper resolves for M_l: what vmap of the
+// Pallas kernel computes.  A 16-row CTA tile straddles lanes at decode
+// (M_l = 2), so the lane is looked up per row, not per CTA.  The seeds and qs
+// of up to kMaxLanes lanes travel by value in the kernel's parameters (a
+// __grid_constant__ struct), so no host-to-device copy joins a launch; a
+// single device is the lane mode with L = 1.
 // What is left off the bound is a fixed cost of a few microseconds per launch
 // (launch, the first round trip to device memory, the ticket, the flush): it
 // weighs on the small q/o and k/v shapes, not on gate/up and down (PERF.md
@@ -97,7 +108,31 @@ __device__ __forceinline__ int flip_word(int v, uint32_t bits, float q) {
                : v;
 }
 
-// Word (r, col) at its flush, drawn from its logical tile's stream.
+// The most lanes one launch takes; a larger fleet takes ceil(L / kMaxLanes).
+constexpr int kMaxLanes = 32;
+
+// Per-lane upset parameters of a GEMM launch: lane l owns rows
+// [l * rows, (l + 1) * rows) and draws from seed[l] at q[l].
+struct Lanes {
+  int rows;
+  uint32_t seed[kMaxLanes];
+  float q[kMaxLanes];
+};
+
+// Row r's lane: its seed and q, and r's row within the lane.
+struct LaneRow {
+  uint32_t seed;
+  float q;
+  int row;
+};
+
+__device__ __forceinline__ LaneRow lane_row(const Lanes& lanes, int r) {
+  const int lane = r / lanes.rows;
+  return {lanes.seed[lane], lanes.q[lane], r - lane * lanes.rows};
+}
+
+// Word (r, col) of a lane at its flush (r the lane-local row), drawn from
+// its logical tile's stream.
 __device__ __forceinline__ int upset_word(int v, int r, int col, uint32_t seed,
                                           float q, int lbm, int lbn,
                                           int grid_n) {
@@ -138,8 +173,9 @@ template <int MODE>
 __global__ void __launch_bounds__(THREADS)
 int8_gemm_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
                  const float* __restrict__ xs, const float* __restrict__ ws,
-                 void* __restrict__ out, int M, int N, int K, uint32_t seed,
-                 float q, int lbm, int lbn, int grid_n) {
+                 void* __restrict__ out, int M, int N, int K,
+                 const __grid_constant__ Lanes lanes, int lbm, int lbn,
+                 int grid_n) {
   // As[r][j]: a[m0+r][k0+4j .. k0+4j+3]; Bs[j][c]: b[k0+4j .. +3][n0+c],
   // both packed four K-consecutive int8 to a word for __dp4a.
   __shared__ uint32_t As[BM][BK / 4];
@@ -207,12 +243,14 @@ int8_gemm_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
   for (int i = 0; i < TM; ++i) {
     const int r = m0 + ty * TM + i;
     if (r >= M) continue;
+    const LaneRow lr = lane_row(lanes, r);
 #pragma unroll
     for (int c = 0; c < TN; ++c) {
       const int col = n0 + tx * TN + c;
       if (col >= N) continue;
       int v = acc[i][c];
-      if (MODE != kPlain) v = upset_word(v, r, col, seed, q, lbm, lbn, grid_n);
+      if (MODE != kPlain)
+        v = upset_word(v, lr.row, col, lr.seed, lr.q, lbm, lbn, grid_n);
       const size_t idx = static_cast<size_t>(r) * N + col;
       if (MODE == kUpsetDequant) {
         static_cast<float*>(out)[idx] =
@@ -389,8 +427,8 @@ int8_gemm_tc_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
                     const float* __restrict__ xs, const float* __restrict__ ws,
                     void* __restrict__ out, int2* __restrict__ partials,
                     int* __restrict__ tickets, int M, int N, int K, int splits,
-                    int mode, uint32_t seed, float q, int lbm, int lbn,
-                    int grid_n) {
+                    int mode, const __grid_constant__ Lanes lanes, int lbm,
+                    int lbn, int grid_n) {
   extern __shared__ __align__(128) uint8_t smem[];
   __shared__ int last;
   const int owner = threadIdx.x % T::OWNERS, wk = threadIdx.x / T::OWNERS;
@@ -521,22 +559,27 @@ int8_gemm_tc_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
       v[j] = sum[i][j].x;
       v[4 + j] = sum[i][j].y;
     }
-    if (mode != kPlain && lbn % 8 == 0) {
-      // the eight columns share a logical tile: one stream constant, and
-      // word offsets off0 .. off0 + 7
-      const uint32_t sc = stream_constant(
-          seed, static_cast<uint32_t>(r / lbm) * static_cast<uint32_t>(grid_n) +
-                    static_cast<uint32_t>(c0 / lbn));
-      const uint32_t off0 =
-          static_cast<uint32_t>(r % lbm) * static_cast<uint32_t>(lbn) +
-          static_cast<uint32_t>(c0 % lbn);
+    if (mode != kPlain) {
+      const LaneRow lr = lane_row(lanes, r);
+      if (lbn % 8 == 0) {
+        // the eight columns share a logical tile of the row's lane: one
+        // stream constant, and word offsets off0 .. off0 + 7
+        const uint32_t sc = stream_constant(
+            lr.seed,
+            static_cast<uint32_t>(lr.row / lbm) * static_cast<uint32_t>(grid_n) +
+                static_cast<uint32_t>(c0 / lbn));
+        const uint32_t off0 =
+            static_cast<uint32_t>(lr.row % lbm) * static_cast<uint32_t>(lbn) +
+            static_cast<uint32_t>(c0 % lbn);
 #pragma unroll
-      for (int u = 0; u < 8; ++u)
-        v[u] = flip_word(v[u], fmix32((off0 + u) * 0x9E3779B9u ^ sc), q);
-    } else if (mode != kPlain) {
+        for (int u = 0; u < 8; ++u)
+          v[u] = flip_word(v[u], fmix32((off0 + u) * 0x9E3779B9u ^ sc), lr.q);
+      } else {
 #pragma unroll
-      for (int u = 0; u < 8; ++u)
-        v[u] = upset_word(v[u], r, c0 + u, seed, q, lbm, lbn, grid_n);
+        for (int u = 0; u < 8; ++u)
+          v[u] = upset_word(v[u], lr.row, c0 + u, lr.seed, lr.q, lbm, lbn,
+                            grid_n);
+      }
     }
     const size_t idx = static_cast<size_t>(r) * N + c0;
     if (mode == kUpsetDequant) {
@@ -557,14 +600,15 @@ int8_gemm_tc_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
 
 using LaunchFn = cudaError_t (*)(const int8_t*, const int8_t*, const float*,
                                  const float*, void*, int2*, int*, int, int,
-                                 int, int, int, uint32_t, float, int, int, int,
+                                 int, int, int, const Lanes&, int, int, int,
                                  cudaStream_t);
 
 template <class T>
 cudaError_t launch(const int8_t* a, const int8_t* b, const float* xs,
                    const float* ws, void* out, int2* partials, int* tickets,
-                   int M, int N, int K, int splits, int mode, uint32_t seed,
-                   float q, int lbm, int lbn, int grid_n, cudaStream_t s) {
+                   int M, int N, int K, int splits, int mode,
+                   const Lanes& lanes, int lbm, int lbn, int grid_n,
+                   cudaStream_t s) {
   // above 48 KB a kernel must opt in to its dynamic shared memory, once per
   // device
   static bool opted_in[64] = {};
@@ -580,8 +624,8 @@ cudaError_t launch(const int8_t* a, const int8_t* b, const float* xs,
   }
   const dim3 grid((N + T::BN - 1) / T::BN, (M + T::BM - 1) / T::BM, splits);
   int8_gemm_tc_kernel<T><<<grid, T::THREADS, T::SMEM, s>>>(
-      a, b, xs, ws, out, partials, tickets, M, N, K, splits, mode, seed, q,
-      lbm, lbn, grid_n);
+      a, b, xs, ws, out, partials, tickets, M, N, K, splits, mode, lanes, lbm,
+      lbn, grid_n);
   return cudaGetLastError();
 }
 
@@ -638,8 +682,20 @@ __global__ void bitflip_kernel(const int* __restrict__ x,
 // and out share their alignment mod 16 (a scalar head of at most 3 words up to
 // x's 16-byte boundary, a tail of at most 3), and four scalar words otherwise.
 // Blocks of 64 threads spread even the decode shapes (4096 words) over 16 SMs.
+//
+// Lane mode (the counterpart of the reference's inject_bitflips under
+// jax.vmap): x is (L, n) lane-major, and lane l (grid y) draws word i of its
+// own n words, the lane-local index, from its own keys at its own q, so each
+// lane gets exactly the draws of its own single-lane injection, in one launch
+// for the fleet.  The keys and qs of up to kMaxLanes lanes travel by value.
+// A lane's base is x + l * n, so its 16-byte head is found per lane.
 struct DrawKeys {
   uint32_t u0, u1, l0, l1;
+};
+
+struct DrawLanes {
+  DrawKeys keys[kMaxLanes];
+  float q[kMaxLanes];
 };
 
 __device__ __forceinline__ void threefry_round(uint32_t& x0, uint32_t& x1,
@@ -685,13 +741,25 @@ __device__ __forceinline__ int draw_flip(int v, long long i, const DrawKeys& k,
   return flip_bit(v, u, p, q);
 }
 
-// Thread g takes the vector words [head + 4g, head + 4g + 4) for g < nvec, and
-// the scalar words 4g .. 4g + 3 of the rest, [0, head) followed by
-// [head + 4 nvec, n).
-__global__ void bitflip_draw_kernel(const int* __restrict__ x,
-                                    int* __restrict__ out, long long n,
-                                    long long head, long long nvec, DrawKeys k,
-                                    float q) {
+// In lane blockIdx.y, thread g takes the vector words [head + 4g, head + 4g +
+// 4) for g < nvec, and the scalar words 4g .. 4g + 3 of the rest, [0, head)
+// followed by [head + 4 nvec, n).
+__global__ void bitflip_draw_kernel(const int* __restrict__ x_all,
+                                    int* __restrict__ out_all, long long n,
+                                    bool vector,
+                                    const __grid_constant__ DrawLanes lanes) {
+  const int lane = blockIdx.y;
+  const int* __restrict__ x = x_all + lane * n;
+  int* __restrict__ out = out_all + lane * n;
+  const DrawKeys& k = lanes.keys[lane];
+  const float q = lanes.q[lane];
+  long long head = n, nvec = 0;
+  if (vector) {
+    head = static_cast<long long>(
+               (16u - (reinterpret_cast<uintptr_t>(x) & 15u)) & 15u) / 4;
+    if (head > n) head = n;
+    nvec = (n - head) / 4;
+  }
   const long long g = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
   if (g < nvec) {
     const long long i = head + 4 * g;
@@ -715,22 +783,22 @@ __global__ void bitflip_draw_kernel(const int* __restrict__ x,
 
 cudaError_t launch_generic(const int8_t* a, const int8_t* b, const float* xs,
                            const float* ws, void* out, int M, int N, int K,
-                           int mode, uint32_t seed, float q, int lbm, int lbn,
+                           int mode, const Lanes& lanes, int lbm, int lbn,
                            int grid_n, cudaStream_t s) {
   using namespace generic;
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
   switch (mode) {
     case kPlain:
       int8_gemm_kernel<kPlain><<<grid, THREADS, 0, s>>>(
-          a, b, xs, ws, out, M, N, K, seed, q, lbm, lbn, grid_n);
+          a, b, xs, ws, out, M, N, K, lanes, lbm, lbn, grid_n);
       break;
     case kUpset:
       int8_gemm_kernel<kUpset><<<grid, THREADS, 0, s>>>(
-          a, b, xs, ws, out, M, N, K, seed, q, lbm, lbn, grid_n);
+          a, b, xs, ws, out, M, N, K, lanes, lbm, lbn, grid_n);
       break;
     default:
       int8_gemm_kernel<kUpsetDequant><<<grid, THREADS, 0, s>>>(
-          a, b, xs, ws, out, M, N, K, seed, q, lbm, lbn, grid_n);
+          a, b, xs, ws, out, M, N, K, lanes, lbm, lbn, grid_n);
   }
   return cudaGetLastError();
 }
@@ -742,16 +810,29 @@ extern "C" {
 // The plan (path, bm, bn, splits) comes from the host
 // (_cuda.py::gemm_plan) and is checked here; `partials` must hold ceil(M/bm) * ceil(N/bn) * splits *
 // bm * bn int32 and `tickets` ceil(M/bm) * ceil(N/bn) zeroed int32 when splits
-// > 1.  Returns the cudaError_t of the launch (0 on success).
+// > 1.  `seeds` and `qs` are host arrays of `lanes` values (1 <= lanes <=
+// kMaxLanes, M a multiple of lanes; read by the upset modes only), copied into
+// the launch's parameters.  Returns the cudaError_t of the launch (0 on
+// success).
 int aged_int8_gemm(const void* a, const void* b, const void* xs, const void* ws,
-                   void* out, int M, int N, int K, int mode, uint32_t seed,
-                   float q, int lbm, int lbn, int grid_n, int path, int bm,
-                   int bn, int splits, void* partials, long long partial_words,
-                   void* tickets, long long n_tickets, void* stream) {
+                   void* out, int M, int N, int K, int mode, int lanes,
+                   const uint32_t* seeds, const float* qs, int lbm, int lbn,
+                   int grid_n, int path, int bm, int bn, int splits,
+                   void* partials, long long partial_words, void* tickets,
+                   long long n_tickets, void* stream) {
   const int invalid = static_cast<int>(cudaErrorInvalidValue);
   if (M <= 0 || N <= 0 || K < 0 || lbm <= 0 || lbn <= 0 || mode < kPlain ||
-      mode > kUpsetDequant || (mode == kUpsetDequant && (!xs || !ws)))
+      mode > kUpsetDequant || (mode == kUpsetDequant && (!xs || !ws)) ||
+      lanes < 1 || lanes > kMaxLanes || M % lanes ||
+      (mode != kPlain && (!seeds || !qs)))
     return invalid;
+  Lanes ln{};
+  ln.rows = M / lanes;
+  if (mode != kPlain)
+    for (int l = 0; l < lanes; ++l) {
+      ln.seed[l] = seeds[l];
+      ln.q[l] = qs[l];
+    }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* a8 = static_cast<const int8_t*>(a);
   const auto* b8 = static_cast<const int8_t*>(b);
@@ -760,7 +841,7 @@ int aged_int8_gemm(const void* a, const void* b, const void* xs, const void* ws,
   if (path == kGeneric) {
     if (bm != generic::BM || bn != generic::BN || splits != 1) return invalid;
     return static_cast<int>(launch_generic(a8, b8, xsf, wsf, out, M, N, K, mode,
-                                           seed, q, lbm, lbn, grid_n, s));
+                                           ln, lbm, lbn, grid_n, s));
   }
   if (path != kFast) return invalid;
   const long long kblocks = (K + tc::BK - 1) / tc::BK;
@@ -781,7 +862,7 @@ int aged_int8_gemm(const void* a, const void* b, const void* xs, const void* ws,
       return static_cast<int>(c.fn(a8, b8, xsf, wsf, out,
                                    static_cast<int2*>(partials),
                                    static_cast<int*>(tickets), M, N, K, splits,
-                                   mode, seed, q, lbm, lbn, grid_n, s));
+                                   mode, ln, lbm, lbn, grid_n, s));
   return invalid;
 }
 
@@ -797,31 +878,34 @@ int aged_bitflip(const void* x, const void* u, const void* pos, float q,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The injection in one launch over the n live words of x (any 4-byte aligned
-// base), with the keys of the uniforms (ku0, ku1) and of the positions
-// (kl0, kl1).
-int aged_bitflip_draw(const void* x, void* out, long long n, uint32_t ku0,
-                      uint32_t ku1, uint32_t kl0, uint32_t kl1, float q,
-                      void* stream) {
+// The injection in one launch over `lanes` lanes of n live words each (x and
+// out (lanes, n), any 4-byte aligned base), lane l with the keys of its
+// uniforms (keys[4l], keys[4l+1]) and of its positions (keys[4l+2],
+// keys[4l+3]) and its q, qs[l]: host arrays, copied into the launch's
+// parameters.
+int aged_bitflip_draw(const void* x, void* out, long long n, int lanes,
+                      const uint32_t* keys, const float* qs, void* stream) {
   const uintptr_t xa = reinterpret_cast<uintptr_t>(x);
   const uintptr_t oa = reinterpret_cast<uintptr_t>(out);
-  if (n <= 0 || ((xa | oa) & 3u))
+  if (n <= 0 || ((xa | oa) & 3u) || lanes < 1 || lanes > kMaxLanes || !keys ||
+      !qs)
     return static_cast<int>(cudaErrorInvalidValue);
-  long long head = n, nvec = 0;
-  if (((xa ^ oa) & 15u) == 0) {
-    head = static_cast<long long>((16u - (xa & 15u)) & 15u) / 4;
-    if (head > n) head = n;
-    nvec = (n - head) / 4;
+  DrawLanes dl{};
+  for (int l = 0; l < lanes; ++l) {
+    dl.keys[l] = DrawKeys{keys[4 * l], keys[4 * l + 1], keys[4 * l + 2],
+                          keys[4 * l + 3]};
+    dl.q[l] = qs[l];
   }
-  const long long scalar_threads = (n - 4 * nvec + 3) / 4;
-  const long long threads = nvec > scalar_threads ? nvec : scalar_threads;
+  // every lane's thread g takes four words: vector words, or scalar ones
+  // of its head and tail, which need no more threads than that
+  const long long threads = (n + 3) / 4;
   constexpr int kBlock = 64;
   const long long blocks = (threads + kBlock - 1) / kBlock;
   if (blocks > 0x7FFFFFFFLL) return static_cast<int>(cudaErrorInvalidValue);
-  bitflip_draw_kernel<<<static_cast<unsigned>(blocks), kBlock, 0,
+  bitflip_draw_kernel<<<dim3(static_cast<unsigned>(blocks), lanes), kBlock, 0,
                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(x), static_cast<int*>(out), n, head, nvec,
-      DrawKeys{ku0, ku1, kl0, kl1}, q);
+      static_cast<const int*>(x), static_cast<int*>(out), n,
+      ((xa ^ oa) & 15u) == 0, dl);
   return static_cast<int>(cudaGetLastError());
 }
 

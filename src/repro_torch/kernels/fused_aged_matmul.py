@@ -18,7 +18,9 @@ the last split's partial; other shapes take the generic masked path
 note is in the source.  The TPU path's on-core PRNG has no counterpart:
 the stream below is the reference's interpret-mode stream, so kernel and
 plain version (:func:`repro_torch.kernels.ref.fused_aged_matmul_ref`)
-agree bit for bit.
+agree bit for bit.  :func:`fused_aged_matmul_lanes` is the lane mode the
+fleet serving engine launches: the rows of several devices against one
+weight, each lane with its own seed and BER.
 
 The stream functions take Python ints and ``int64`` tensors holding uint32
 values alike (see :mod:`repro_torch.random` for the masking convention).
@@ -110,6 +112,49 @@ def _check_int8_operands(a: torch.Tensor, b: torch.Tensor) -> None:
         raise ValueError("dimensions must fit in int32")
 
 
+def _check_scales(a, b, xs, ws):
+    """Both scales or neither, shaped ``(M, 1)`` / ``(1, N)``, as
+    contiguous float32."""
+    if (xs is None) != (ws is None):
+        raise ValueError("pass both scales or neither")
+    if xs is None:
+        return None, None
+    M, N = a.shape[0], b.shape[1]
+    if tuple(xs.shape) != (M, 1) or tuple(ws.shape) != (1, N):
+        raise ValueError(f"scales {tuple(xs.shape)}, {tuple(ws.shape)} "
+                         f"do not fit ({M}, {N})")
+    return (xs.to(torch.float32).contiguous(),
+            ws.to(torch.float32).contiguous())
+
+
+def _launch(counter, a, b, xs, ws, seeds, qs, bm, bn) -> torch.Tensor:
+    """The upset GEMM on the card for ``len(seeds)`` lanes of ``a``'s rows,
+    :data:`_cuda.MAX_LANES` lanes a launch, each launch counted on
+    ``counter``."""
+    if a.device.type != "cuda":
+        raise ValueError(f"no kernel for device {a.device}")
+    dequant = xs is not None
+    M, N = a.shape[0], b.shape[1]
+    out = torch.empty((M, N), device=a.device,
+                      dtype=torch.float32 if dequant else torch.int32)
+    if out.numel() == 0:
+        return out
+    if dequant and (xs.device != a.device or ws.device != a.device):
+        raise ValueError("scales must be on the operands' device")
+    rows = M // len(seeds)
+    for l0 in range(0, len(seeds), _cuda.MAX_LANES):
+        l1 = min(len(seeds), l0 + _cuda.MAX_LANES)
+        r = slice(l0 * rows, l1 * rows)
+        path = _cuda.launch_gemm(
+            a[r], b, out[r],
+            mode=_cuda.GEMM_UPSET_DEQUANT if dequant else _cuda.GEMM_UPSET,
+            xs=xs[r] if dequant else None, ws=ws, seeds=seeds[l0:l1],
+            qs=qs[l0:l1], lbm=bm, lbn=bn, grid_n=-(-N // bn))
+        counter.launches += 1
+        counter.launches_by_path[path] += 1
+    return out
+
+
 def fused_aged_matmul(a: torch.Tensor, b: torch.Tensor, xs=None, ws=None,
                       ber=0.0, seed=0, *, bm: int = 256,
                       bn: int = 256) -> torch.Tensor:
@@ -123,37 +168,45 @@ def fused_aged_matmul(a: torch.Tensor, b: torch.Tensor, xs=None, ws=None,
     """
     from . import ref
     _check_int8_operands(a, b)
-    if (xs is None) != (ws is None):
-        raise ValueError("pass both scales or neither")
-    M, N = a.shape[0], b.shape[1]
-    if xs is not None:
-        if tuple(xs.shape) != (M, 1) or tuple(ws.shape) != (1, N):
-            raise ValueError(f"scales {tuple(xs.shape)}, {tuple(ws.shape)} "
-                             f"do not fit ({M}, {N})")
-        xs = xs.to(torch.float32).contiguous()
-        ws = ws.to(torch.float32).contiguous()
+    xs, ws = _check_scales(a, b, xs, ws)
     if a.device.type == "cpu":
         return ref.fused_aged_matmul_ref(a, b, xs, ws, ber, seed, bm=bm,
                                          bn=bn)
-    if a.device.type != "cuda":
-        raise ValueError(f"no kernel for device {a.device}")
-    dequant = xs is not None
-    out = torch.empty((M, N), device=a.device,
-                      dtype=torch.float32 if dequant else torch.int32)
-    if out.numel() == 0:
-        return out
-    if dequant and (xs.device != a.device or ws.device != a.device):
-        raise ValueError("scales must be on the operands' device")
-    path = _cuda.launch_gemm(a, b, out,
-                             mode=(_cuda.GEMM_UPSET_DEQUANT if dequant
-                                   else _cuda.GEMM_UPSET),
-                             xs=xs, ws=ws, seed=seed,
-                             q=upset_probability(ber), lbm=bm, lbn=bn,
-                             grid_n=-(-N // bn))
-    fused_aged_matmul.launches += 1
-    fused_aged_matmul.launches_by_path[path] += 1
-    return out
+    return _launch(fused_aged_matmul, a, b, xs, ws, [seed],
+                   [upset_probability(ber)], bm, bn)
+
+
+def fused_aged_matmul_lanes(a: torch.Tensor, b: torch.Tensor, xs=None,
+                            ws=None, bers=(), seeds=(), *, lanes: int,
+                            bm: int = 256, bn: int = 256) -> torch.Tensor:
+    """Lane mode: ``lanes`` independent upset GEMMs against one shared
+    ``b``, read once for all of them.
+
+    ``a`` is ``(lanes * M_l, K)``, lane ``l`` owning rows ``[l * M_l,
+    (l + 1) * M_l)``; lane ``l`` upsets its words at ``bers[l]`` from the
+    stream of ``seeds[l]`` over its lane-local rows, in the logical
+    ``(bm, bn)`` tiling resolved for ``M_l`` — what ``jax.vmap`` of the
+    Pallas kernel computes lane by lane.  CPU tensors take the plain lane
+    version; CUDA tensors launch the kernel once per
+    :data:`repro_torch.kernels._cuda.MAX_LANES` lanes.
+    """
+    from . import ref
+    _check_int8_operands(a, b)
+    xs, ws = _check_scales(a, b, xs, ws)
+    bers, seeds = tuple(bers), tuple(seeds)
+    if lanes < 1 or a.shape[0] % lanes or len(bers) != lanes \
+            or len(seeds) != lanes:
+        raise ValueError(f"{lanes} lanes need a multiple of {lanes} rows "
+                         f"and {lanes} BERs and seeds, got {a.shape[0]} "
+                         f"rows, {len(bers)} BERs, {len(seeds)} seeds")
+    if a.device.type == "cpu":
+        return ref.fused_aged_matmul_lanes_ref(a, b, xs, ws, bers, seeds,
+                                               lanes=lanes, bm=bm, bn=bn)
+    return _launch(fused_aged_matmul_lanes, a, b, xs, ws, seeds,
+                   [upset_probability(x) for x in bers], bm, bn)
 
 
 fused_aged_matmul.launches = 0
 fused_aged_matmul.launches_by_path = {_cuda.FAST: 0, _cuda.GENERIC: 0}
+fused_aged_matmul_lanes.launches = 0
+fused_aged_matmul_lanes.launches_by_path = {_cuda.FAST: 0, _cuda.GENERIC: 0}

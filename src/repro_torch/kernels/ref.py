@@ -1,5 +1,6 @@
 """Plain PyTorch versions of the kernels (the ``repro.kernels.ref``
-counterparts, and the bitflip pass's draw mode).
+counterparts, the bitflip pass's draw mode, and the lane modes: each the
+single-lane version applied to every lane's slice).
 
 The wrappers take them for CPU tensors; ``chip_smoke.py`` and the
 ``cuda``-marked tests hold each CUDA kernel against them on the card.
@@ -44,6 +45,13 @@ def bitflip_draw_ref(x: torch.Tensor, key_words, q: float) -> torch.Tensor:
     return bitflip_words_ref(x.reshape(-1), u, pos, q).reshape(x.shape)
 
 
+def bitflip_draw_lanes_ref(x: torch.Tensor, key_words, qs) -> torch.Tensor:
+    """The single-lane draw on each lane ``x[l]``, with its own key words
+    and ``q``."""
+    return torch.stack([bitflip_draw_ref(x[l], key_words[l], qs[l])
+                        for l in range(x.shape[0])]).reshape(x.shape)
+
+
 def fused_aged_matmul_ref(a: torch.Tensor, b: torch.Tensor, xs, ws, ber,
                           seed, *, bm: int = 256,
                           bn: int = 256) -> torch.Tensor:
@@ -57,3 +65,15 @@ def fused_aged_matmul_ref(a: torch.Tensor, b: torch.Tensor, xs, ws, ber,
         return acc
     return acc.to(torch.float32) * xs.to(torch.float32) \
         * ws.to(torch.float32)
+
+
+def fused_aged_matmul_lanes_ref(a: torch.Tensor, b: torch.Tensor, xs, ws,
+                                bers, seeds, *, lanes: int, bm: int = 256,
+                                bn: int = 256) -> torch.Tensor:
+    """The single-lane plain version on each lane's ``M / lanes`` rows of
+    ``a`` (and ``xs``), with the lane's BER and seed."""
+    rows = a.shape[0] // lanes
+    part = lambda t, l: None if t is None else t[l * rows:(l + 1) * rows]
+    return torch.cat([fused_aged_matmul_ref(part(a, l), b, part(xs, l), ws,
+                                            bers[l], seeds[l], bm=bm, bn=bn)
+                      for l in range(lanes)])

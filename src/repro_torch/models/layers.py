@@ -4,8 +4,12 @@ Every matmul flows through :func:`op_linear` / :func:`op_batched_matmul`,
 tagged with its operator-domain name (the paper's Table II rows).  With a
 :class:`FaultConfig` attached, the op runs the way the paper's accelerator
 runs it — int8 systolic matmul plus bit upsets at that operator's admitted
-BER; without one it is a clean dense op.  Scalar BERs only: the per-shard
-``(S,)`` routes of the reference come with mesh serving.
+BER; without one it is a clean dense op.  A lane config (one
+:class:`FaultConfig` for N devices, the counterpart of the reference's
+config with batched leaves under ``jax.vmap``) runs N devices' rows,
+folded lane-major into the batch, through one call of each op, each lane at
+its own BERs and streams.  The per-shard ``(S,)`` routes of the reference
+come with mesh serving.
 """
 from __future__ import annotations
 
@@ -30,6 +34,12 @@ class FaultConfig:
     folded into every stream.  The fused kernel route takes seeds
     (:meth:`seed_for`); the three-pass and activation routes take keys
     (:meth:`key_for`) — the same derivations as the reference.
+
+    A lane config serves N devices: ``key`` is ``(N, 2)``, ``bers`` maps
+    operator -> N floats and ``seeds`` operator -> N ints, and
+    :meth:`key_for` / :meth:`seed_for` give one key or seed per lane, each
+    derived exactly as the reference derives it for that lane alone.
+    :meth:`lane` slices one lane's single-device config out.
     """
     bers: Dict[str, float]
     key: torch.Tensor
@@ -38,30 +48,64 @@ class FaultConfig:
     use_systolic_kernel: bool = True
     fused: bool = True
 
-    def ber_for(self, op: str) -> float:
-        return self.bers.get(op, 0.0)
+    @property
+    def lanes(self) -> Optional[int]:
+        """Number of lanes of a lane config; ``None`` for one device."""
+        return self.key.shape[0] if self.key.dim() == 2 else None
+
+    def ber_for(self, op: str):
+        """The op's BER: a float, or a tuple of one per lane."""
+        if self.lanes is None:
+            return self.bers.get(op, 0.0)
+        return tuple(self.bers.get(op, (0.0,) * self.lanes))
 
     def for_step(self, step: int) -> "FaultConfig":
         return dataclasses.replace(self, step=int(step))
 
+    def _lane_keys(self):
+        return [self.key] if self.lanes is None else list(self.key)
+
+    def _per_lane(self, values: list):
+        return values[0] if self.lanes is None else tuple(values)
+
     def with_seeds(self) -> "FaultConfig":
         """Precompute the per-operator int32 stream bases."""
-        seeds = {op: kops.seed_from_key(prandom.fold_in(self.key,
-                                                        _op_salt(op)))
-                 for op in self.bers}
+        seeds = {op: self._per_lane([
+            kops.seed_from_key(prandom.fold_in(k, _op_salt(op)))
+            for k in self._lane_keys()]) for op in self.bers}
         return dataclasses.replace(self, seeds=seeds)
 
     def key_for(self, op: str, salt) -> torch.Tensor:
-        k = prandom.fold_in(self.key, _op_salt(op))
-        k = prandom.fold_in(k, salt)
-        return prandom.fold_in(k, self.step)
+        """The op's key at ``salt`` and this step: ``(2,)``, or ``(N, 2)``
+        for a lane config."""
+        keys = []
+        for k in self._lane_keys():
+            k = prandom.fold_in(k, _op_salt(op))
+            k = prandom.fold_in(k, salt)
+            keys.append(prandom.fold_in(k, self.step))
+        return keys[0] if self.lanes is None else torch.stack(keys)
 
-    def seed_for(self, op: str, salt) -> int:
-        """int32 seed for the fused kernel's per-tile streams."""
-        base = (self.seeds or {}).get(op)
-        if base is None:
-            base = kops.seed_from_key(prandom.fold_in(self.key, _op_salt(op)))
-        return kops.fold_seed(base, salt, self.step)
+    def seed_for(self, op: str, salt):
+        """int32 seed for the fused kernel's per-tile streams (a tuple of
+        one per lane for a lane config)."""
+        bases = (self.seeds or {}).get(op)
+        if bases is None:
+            bases = self._per_lane([
+                kops.seed_from_key(prandom.fold_in(k, _op_salt(op)))
+                for k in self._lane_keys()])
+        if self.lanes is None:
+            return kops.fold_seed(bases, salt, self.step)
+        return tuple(kops.fold_seed(b, salt, self.step) for b in bases)
+
+    def lane(self, i: int) -> "FaultConfig":
+        """Lane ``i``'s single-device config (the reference's
+        ``jax.tree.map(lambda x: x[i], fi)``)."""
+        if self.lanes is None:
+            raise ValueError("not a lane config")
+        pick = lambda d: None if d is None else {
+            op: v[i] for op, v in d.items()}
+        return dataclasses.replace(self, bers=pick(self.bers),
+                                   key=self.key[i], seeds=pick(self.seeds))
 
 
 _OP_IDS = {op: i for i, op in enumerate(
@@ -81,9 +125,10 @@ def op_linear(x: torch.Tensor, w: torch.Tensor, op: str,
     ber = fi.ber_for(op)
     if fi.fused and fi.use_systolic_kernel:
         return kops.aged_linear(x, w, ber=ber, seed=fi.seed_for(op, salt),
-                                use_kernel=True, fused=True)
+                                use_kernel=True, fused=True, lanes=fi.lanes)
     return kops.aged_linear(x, w, ber=ber, key=fi.key_for(op, salt),
-                            use_kernel=fi.use_systolic_kernel, fused=False)
+                            use_kernel=fi.use_systolic_kernel, fused=False,
+                            lanes=fi.lanes)
 
 
 def op_einsum(spec: str, x: torch.Tensor, w: torch.Tensor, op: str,
@@ -123,25 +168,37 @@ def op_batched_matmul(a: torch.Tensor, b: torch.Tensor, op: str,
                       salt=0) -> torch.Tensor:
     """Activation x activation matmul (QK^T / SV domains) over leading batch
     dims, int8-quantised with accumulator upsets when faulted: the bitflip
-    kernel pass on the kernel route, its plain version otherwise."""
+    kernel pass on the kernel route, its plain version otherwise.  Under a
+    lane config the leading axis folds the lanes, so each lane's words are
+    contiguous, lane-major, as the lane-mode injection takes them."""
     if fi is None:
         return a @ b
     aq, ascale = kops.quantize_int8(a, axis=-1)
     bq, bscale = kops.quantize_int8(b, axis=-2)
     acc = _exact_int_matmul(aq, bq)
     ber = fi.ber_for(op)
-    if fi.use_systolic_kernel:
-        acc = kops.inject_bitflips(acc, ber, fi.key_for(op, salt))
-    else:
-        acc = kops.inject_bitflips_ref(acc, ber, fi.key_for(op, salt))
+    inject = (kops.inject_bitflips if fi.use_systolic_kernel
+              else kops.inject_bitflips_ref)
+    acc = inject(acc, ber, fi.key_for(op, salt), lanes=fi.lanes)
     return (acc.to(torch.float32) * ascale * bscale).to(a.dtype)
 
 
 # --------------------------------------------------------------------------- #
+def _row_mean(x: torch.Tensor) -> torch.Tensor:
+    """float32 mean over the last axis, accumulated in float64.
+
+    CUDA's reduce kernels choose their summation order by the number of
+    rows, so a float32 sum could round differently for a row served alone
+    and the same row in a lane-batched forward; summed in float64, its
+    float32 rounding no longer depends on the order (nor on the device).
+    """
+    return x.to(torch.float64).mean(dim=-1, keepdim=True).to(torch.float32)
+
+
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
              eps: float = 1e-6) -> torch.Tensor:
     xf = x.to(torch.float32)
-    var = xf.square().mean(dim=-1, keepdim=True)
+    var = _row_mean(xf.square())
     return (xf * torch.rsqrt(var + eps)).to(x.dtype) * scale
 
 
@@ -149,8 +206,8 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor,
                bias: Optional[torch.Tensor] = None,
                eps: float = 1e-5) -> torch.Tensor:
     xf = x.to(torch.float32)
-    mu = xf.mean(dim=-1, keepdim=True)
-    var = (xf - mu).square().mean(dim=-1, keepdim=True)   # jnp.var's order
+    mu = _row_mean(xf)
+    var = _row_mean((xf - mu).square())                   # jnp.var's order
     out = (xf - mu) * torch.rsqrt(var + eps) * scale
     if bias is not None:
         out = out + bias

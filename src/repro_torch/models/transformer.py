@@ -8,7 +8,10 @@ scanned by ``lax.scan``; the layers run in a Python loop with
 Weight layouts follow the reference (``wq (d, H, hd)``, ``wo (H, hd, d)``,
 experts ``(E, d, f)``); :mod:`repro_torch.convert` carries a reference
 tree across.  The KV cache is updated in place during decode (the
-reference returns a new buffer).  Sliding windows, prefix embeddings and
+reference returns a new buffer).  Under a lane config (N devices'
+:class:`FaultConfig`) the batch axis folds the lanes lane-major: a
+``(N * B, S)`` forward is N devices' ``(B, S)`` forwards, each at its own
+BERs, in one pass over the weights.  Sliding windows, prefix embeddings and
 the hybrid, SSM, enc-dec and VLM families are not ported yet.
 """
 from __future__ import annotations
@@ -31,6 +34,18 @@ def _check_supported(cfg: ModelConfig) -> None:
     if cfg.family in UNPORTED_FAMILIES:
         raise NotImplementedError(f"{cfg.name}: the {cfg.family} family is "
                                   "not ported yet")
+
+
+def check_lane_support(cfg: ModelConfig) -> None:
+    """Refuse a lane config where folding lanes into the batch would change
+    the computation: the MoE dispatch sizes its expert buffers from the
+    tokens it sees (``moe._capacity``), which under the reference's
+    ``vmap`` are one lane's."""
+    if cfg.moe:
+        raise NotImplementedError(
+            f"{cfg.name}: serving an MoE model on a fleet needs a lane-aware "
+            "expert dispatch (moe._capacity counts one lane's tokens), which "
+            "is not ported yet (ROADMAP §A: the MoE fleet)")
 
 
 def _attn_init(cfg: ModelConfig, dtype, device, gen) -> Dict:
@@ -132,6 +147,8 @@ def _run_blocks(x, params, cfg: ModelConfig, *, positions, states=None,
     summed over layers when ``with_aux`` is set, else ``None``.  It is
     built on the device (no host copy), so the step stays free of
     host-device synchronisation."""
+    if fi is not None and fi.lanes is not None:
+        check_lane_support(cfg)
     new_states: Optional[List] = [] if states is not None else None
     aux_total = (torch.zeros((), dtype=torch.float32, device=x.device)
                  if with_aux else None)

@@ -1,2 +1,3 @@
-"""Serving: the static-batch aging-aware engine and its steps."""
-from .engine import GenerateResult, ServeEngine  # noqa: F401
+"""Serving: the static-batch aging-aware engines and their steps."""
+from .engine import (FleetGenerateResult, FleetServeEngine,  # noqa: F401
+                     GenerateResult, ServeEngine)

@@ -14,12 +14,20 @@ through the fused CUDA kernel (``use_fused_kernel=True``) or the
 three-pass route (int8 GEMM kernel -> bitflip kernel, which draws its own
 threefry randoms), and the qkt/sv domains through the bitflip kernel.
 :meth:`ServeEngine.score` is the mean next-token NLL of a token batch
-under the same aged device.  ``FleetServeEngine`` is not ported yet.
+under the same aged device.
+
+:class:`FleetServeEngine` serves every device of a :class:`FleetRuntime`
+at once — the reference's ``vmap`` of the generation function over fleet
+lanes — as one lane-batched forward per step: the lanes fold into the
+batch axis lane-major, each faulted op makes one launch for all lanes (the
+lane modes of the fused GEMM and of the draw-mode bitflip) and reads each
+weight once, and every lane runs at its own row of the fleet's BER matrix
+with its own fault and sampling streams.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -124,3 +132,108 @@ class ServeEngine:
         logits, _, _ = tf.forward_logits(self.params, self.cfg,
                                          tokens[:, :-1], fi=fi)
         return float(softmax_xent(logits, tokens[:, 1:]))
+
+
+@dataclasses.dataclass
+class FleetGenerateResult:
+    tokens: np.ndarray           # (N, B, steps) generated ids per lane
+    bers: np.ndarray             # (N, O) per-operator BER served per lane
+    operators: Tuple[str, ...]   # column order of ``bers``
+    ages_years: np.ndarray       # (N,)
+    power_w: np.ndarray          # (N,)
+    # per-lane serving-health series {name: (N, steps)} (logit taps)
+    telemetry: Optional[Dict[str, np.ndarray]] = None
+    # host-clock phase times of the call: {"prefill_s", "decode_s"}
+    timings: Optional[Dict[str, float]] = None
+
+
+class FleetServeEngine:
+    """Serve the whole fleet in one lane-batched forward per step.
+
+    Device ``i`` of the :class:`FleetRuntime` is lane ``i``: it generates
+    its slice of the prompt batch at its own policy-admitted per-operator
+    BERs (row ``i`` of ``fleet.op_ber_array()``), with fault and sampling
+    streams of its own, exactly as the reference's vmapped dispatch.
+    Defaults are the reference's (``use_systolic_kernel=False``,
+    ``use_fused_kernel=True``, greedy).
+    """
+
+    def __init__(self, cfg: ModelConfig, params, fleet: FleetRuntime, *,
+                 max_len: int = 512, use_systolic_kernel: bool = False,
+                 use_fused_kernel: bool = True, seed: int = 0, router=None,
+                 loads=None, device="cuda"):
+        """``router`` / ``loads`` (ageing the fleet under routed traffic
+        first) need ``FleetRuntime.apply_load``, which is not ported; a
+        shard-granular fleet cannot be built (``FleetRuntime`` refuses
+        ``n_shards > 1``).  ``params`` must already live on ``device``."""
+        if router is not None or loads is not None:
+            raise NotImplementedError("router= / loads= need "
+                                      "FleetRuntime.apply_load and the "
+                                      "scheduler, which are not ported yet")
+        tf.check_lane_support(cfg)
+        self.device = resolve_device(device)
+        if params["embed"].device.type != self.device.type:
+            raise ValueError(f"params live on {params['embed'].device}, the "
+                             f"engine on {self.device}")
+        self.cfg = cfg
+        self.params = params
+        self.fleet = fleet
+        self.max_len = max_len
+        self.use_kernel = use_systolic_kernel
+        self.use_fused = use_fused_kernel
+        self._key = prandom.PRNGKey(seed)
+
+    @property
+    def n_devices(self) -> int:
+        return self.fleet.n_devices
+
+    def _fleet_fault_config(self, call_key: torch.Tensor) -> FaultConfig:
+        """The lane config: each lane's BERs from the fleet's (N, O)
+        matrix, and a key of its own, ``split(call_key, N)[i]``."""
+        ber = self.fleet.op_ber_array()
+        bers = {op: tuple(float(b) for b in ber[:, i])
+                for i, op in enumerate(self.fleet.operators)}
+        return FaultConfig(bers=bers,
+                           key=prandom.split(call_key, self.n_devices),
+                           step=0, use_systolic_kernel=self.use_kernel,
+                           fused=self.use_fused)
+
+    def _shard(self, prompts) -> torch.Tensor:
+        """``(N, B, S)`` per-lane prompts pass through; a flat ``(N * B,
+        S)`` batch is split over the lanes.  Dispatch is by rank: a flat
+        ``(N, S)`` batch is one prompt per lane."""
+        N = self.n_devices
+        x = torch.as_tensor(np.asarray(prompts), dtype=torch.int64)
+        if x.dim() == 3:
+            if x.shape[0] != N:
+                raise ValueError(f"prompts lane dim {x.shape[0]} != fleet "
+                                 f"size {N}")
+            return x
+        if x.dim() != 2 or x.shape[0] % N:
+            raise ValueError(f"prompts must be (N, B, S) per lane or a flat "
+                             f"(N * B, S) batch for N = {N}, got "
+                             f"{tuple(x.shape)}")
+        return x.reshape(N, x.shape[0] // N, x.shape[1])
+
+    @torch.no_grad()
+    def generate(self, prompts, n_steps: int, *, temperature: float = 0.0,
+                 top_k: Optional[int] = None) -> FleetGenerateResult:
+        """prompts: ``(N, B, S)`` per lane, or ``(N * B, S)`` sharded over
+        the lanes.  Returns each lane's ``n_steps`` tokens and the
+        ``(N, O)`` BER matrix served."""
+        N = self.n_devices
+        self._key, call_key = prandom.split(self._key)
+        prompts = self._shard(prompts)
+        fi = self._fleet_fault_config(call_key)
+        keys = prandom.split(prandom.fold_in(call_key, 1), N)
+        tokens, telemetry, timings = steps.generate(
+            self.params, self.cfg,
+            prompts.reshape(-1, prompts.shape[-1]).to(self.device), fi, keys,
+            max_len=self.max_len, n_steps=int(n_steps),
+            temperature=float(temperature), top_k=top_k, lanes=N)
+        return FleetGenerateResult(
+            tokens=tokens, bers=self.fleet.op_ber_array(),
+            operators=self.fleet.operators,
+            ages_years=np.asarray(self.fleet.ages_years),
+            power_w=self.fleet.fleet_power(), telemetry=telemetry,
+            timings=timings)

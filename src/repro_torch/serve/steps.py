@@ -4,7 +4,10 @@ the generation loop.
 :func:`generate` reproduces the reference's ``make_generate_fn`` key and
 fault-stream derivation exactly — ``fi.with_seeds()`` once per call, one
 ``split`` of the sampling key per token, ``fi.for_step(t)`` for decode step
-``t`` — as a Python loop of eager steps (no compiled scan).
+``t`` — as a Python loop of eager steps (no compiled scan).  With
+``lanes=N`` it is the reference's generation under ``jax.vmap`` over N
+devices: the lanes fold into the batch axis of one forward per step, and
+each lane keeps its own sampling-key chain.
 """
 from __future__ import annotations
 
@@ -42,8 +45,8 @@ def decode(params, cfg: ModelConfig, token: torch.Tensor, cache,
 
 
 def sample_token(logits: torch.Tensor, key: torch.Tensor,
-                 temperature: float = 0.0,
-                 top_k: Optional[int] = None) -> torch.Tensor:
+                 temperature: float = 0.0, top_k: Optional[int] = None, *,
+                 lanes: Optional[int] = None) -> torch.Tensor:
     """Greedy / temperature / top-k sampling, as the reference's
     ``sample_token``.
 
@@ -51,7 +54,9 @@ def sample_token(logits: torch.Tensor, key: torch.Tensor,
     ``key`` goes unused.  A positive temperature masks all but the
     ``top_k`` highest logits (when given) to ``-inf`` and draws
     ``categorical(key, logits / max(T, 1e-6))`` — the Gumbel-max trick
-    over ``key``'s threefry uniforms, on the logits' device.
+    over ``key``'s threefry uniforms, on the logits' device.  With
+    ``lanes=N`` the rows fold N lanes lane-major, ``key`` is ``(N, 2)``,
+    and each lane's rows draw from its own key.
     """
     temperature = np.float32(temperature)        # jax's float32 scalar
     if not temperature > 0:
@@ -60,19 +65,35 @@ def sample_token(logits: torch.Tensor, key: torch.Tensor,
         kth = torch.topk(logits, top_k, dim=-1).values[..., -1:]
         logits = torch.where(logits < kth, -torch.inf, logits)
     t = max(temperature, np.float32(1e-6))
-    return prandom.categorical(key, true_div(logits, float(t))).to(
-        torch.int32)
+    scaled = true_div(logits, float(t))
+    if lanes is None:
+        return prandom.categorical(key, scaled).to(torch.int32)
+    return torch.cat([prandom.categorical(k, rows) for k, rows in
+                      zip(key, scaled.chunk(lanes))]).to(torch.int32)
+
+
+def _split_keys(key: torch.Tensor, lanes: Optional[int]):
+    """``split`` of one key, or of each lane's: -> (next keys, subkeys)."""
+    if lanes is None:
+        return tuple(prandom.split(key))
+    pairs = [prandom.split(k) for k in key]
+    return (torch.stack([p[0] for p in pairs]),
+            torch.stack([p[1] for p in pairs]))
 
 
 def generate(params, cfg: ModelConfig, prompts: torch.Tensor,
              fi: Optional[FaultConfig], key: torch.Tensor, *,
              max_len: int, n_steps: int, temperature: float = 0.0,
-             top_k: Optional[int] = None) -> Tuple[np.ndarray, Dict, Dict]:
+             top_k: Optional[int] = None,
+             lanes: Optional[int] = None) -> Tuple[np.ndarray, Dict, Dict]:
     """Prefill + ``n_steps - 1`` decode steps + sampling.
 
     Returns ``(tokens (B, n_steps), telemetry {name: (n_steps,)}, timings
     {"prefill_s", "decode_s"})``; the timings are host clock, each phase
-    ended by a device synchronisation.
+    ended by a device synchronisation.  With ``lanes=N``, ``prompts`` is
+    ``(N * B, S)`` lane-major, ``fi`` a lane config, ``key`` the lanes'
+    ``(N, 2)`` sampling keys, and the result ``(tokens (N, B, n_steps),
+    telemetry {name: (N, n_steps)}, timings)``.
     """
     S = prompts.shape[1]
     if fi is not None:
@@ -81,20 +102,22 @@ def generate(params, cfg: ModelConfig, prompts: torch.Tensor,
             else (lambda: None))
     t0 = time.perf_counter()
     logits, cache = prefill(params, cfg, prompts, fi, max_len)
-    key, sub = prandom.split(key)
-    tok = sample_token(logits, sub, temperature, top_k)
-    toks, taps = [tok], [logit_taps(logits)]
+    key, sub = _split_keys(key, lanes)
+    tok = sample_token(logits, sub, temperature, top_k, lanes=lanes)
+    toks, taps = [tok], [logit_taps(logits, lanes)]
     sync()
     t1 = time.perf_counter()
     for t in range(1, n_steps):
         fi_t = None if fi is None else fi.for_step(t)
         logits, cache = decode(params, cfg, tok[:, None], cache, S + t, fi_t)
-        key, sub = prandom.split(key)
-        tok = sample_token(logits, sub, temperature, top_k)
+        key, sub = _split_keys(key, lanes)
+        tok = sample_token(logits, sub, temperature, top_k, lanes=lanes)
         toks.append(tok)
-        taps.append(logit_taps(logits))
-    tokens = torch.stack(toks, dim=1).cpu().numpy()
+        taps.append(logit_taps(logits, lanes))
+    tokens = torch.stack(toks, dim=-1).cpu().numpy()
     t2 = time.perf_counter()
-    series = {k: torch.stack([tp[k] for tp in taps]).cpu().numpy()
+    series = {k: torch.stack([tp[k] for tp in taps], dim=-1).cpu().numpy()
               for k in taps[0]}
+    if lanes is not None:
+        tokens = tokens.reshape(lanes, -1, n_steps)
     return tokens, series, {"prefill_s": t1 - t0, "decode_s": t2 - t1}

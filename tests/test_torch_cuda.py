@@ -13,7 +13,8 @@ from repro_torch import kernels
 from repro_torch import random as prandom
 from repro_torch.kernels import _cuda, ops, ref
 from repro_torch.kernels import fused_aged_matmul as pfam
-from repro_torch.kernels.bitflip import bitflip_draw, bitflip_words
+from repro_torch.kernels.bitflip import (bitflip_draw, bitflip_draw_lanes,
+                                         bitflip_words)
 from repro_torch.kernels.systolic_matmul import systolic_matmul
 
 
@@ -71,8 +72,10 @@ def test_cuda_gemm_kernels_match_plain(cuda_device, M, K, N, ber):
         assert got.dtype == want.dtype and torch.equal(got, want)
     torch.cuda.synchronize()
     assert kernels.launch_counts() == {"fused_aged_matmul": 2,
+                                       "fused_aged_matmul_lanes": 0,
                                        "bitflip_words": 0,
                                        "bitflip_draw": 0,
+                                       "bitflip_draw_lanes": 0,
                                        "systolic_matmul": 1}
 
 
@@ -99,6 +102,7 @@ def test_cuda_gemm_launch_paths_match_shapes(cuda_device):
     torch.cuda.synchronize()
     assert kernels.launch_counts_by_path() == {
         "fused_aged_matmul": want,
+        "fused_aged_matmul_lanes": {"fast": 0, "generic": 0},
         "systolic_matmul": {"fast": want["fast"],
                             "generic": want["generic"] + 1}}
 
@@ -191,8 +195,10 @@ def test_cuda_inject_bitflips_is_one_launch(cuda_device):
         got = ops.inject_bitflips(x.to(cuda_device), 1e-3, key)
         assert torch.equal(got.cpu(), ops.inject_bitflips(x, 1e-3, key))
     assert kernels.launch_counts() == {"fused_aged_matmul": 0,
+                                       "fused_aged_matmul_lanes": 0,
                                        "bitflip_words": 0,
                                        "bitflip_draw": len(shapes),
+                                       "bitflip_draw_lanes": 0,
                                        "systolic_matmul": 0}
 
 
@@ -248,3 +254,104 @@ def test_cuda_uniform_and_gumbel_draws(cuda_device):
     g_cpu = prandom.gumbel(key, shape).double()
     ulp = torch.finfo(torch.float32).eps * torch.clamp_min(g_cpu.abs(), 1.0)
     assert bool(((g_gpu - g_cpu).abs() <= 2 * ulp).all())
+
+
+# --------------------------------------------------------------------------- #
+# lane modes (the fleet's lane-batched forward)
+# --------------------------------------------------------------------------- #
+LANE_COUNTS = [1, 3, 33]     # 33: more than one launch's worth of lanes
+
+
+def _lane_params(L, seed):
+    """Per-lane BERs (lane 1 at 0) and int32 seeds."""
+    g = torch.Generator().manual_seed(seed)
+    bers = [0.0 if l == 1 else float(10 ** (-3 + l % 3)) * 1e-1
+            for l in range(L)]
+    seeds = [int(s) for s in torch.randint(-2 ** 31, 2 ** 31 - 1, (L,),
+                                           generator=g)]
+    return bers, seeds
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", LANE_COUNTS)
+@pytest.mark.parametrize("Ml,K,N", [(2, 4096, 1024), (32, 4096, 4096),
+                                    (2, 96, 130), (5, 256, 512)])
+def test_cuda_fused_lanes_match_plain_and_single_lanes(cuda_device, L, Ml,
+                                                       K, N):
+    """The fused GEMM's lane mode, int32 and dequantised, equals its plain
+    lane version and L single-lane launches bit for bit, in
+    ceil(L / MAX_LANES) launches (fast path, or the generic one for the
+    ragged shape)."""
+    a, b, xs, ws = _operands(cuda_device, L * Ml, K, N, L + Ml + K)
+    bers, seeds = _lane_params(L, Ml)
+    bm, bn, _ = ops._resolve_blocks(Ml, N, K, 256, 256, 256)
+    for xs_, ws_ in ((None, None), (xs, ws)):
+        kernels.reset_launch_counts()
+        got = pfam.fused_aged_matmul_lanes(a, b, xs_, ws_, bers, seeds,
+                                           lanes=L, bm=bm, bn=bn)
+        launches = kernels.launch_counts()["fused_aged_matmul_lanes"]
+        want = ref.fused_aged_matmul_lanes_ref(a, b, xs_, ws_, bers, seeds,
+                                               lanes=L, bm=bm, bn=bn)
+        singles = torch.cat([pfam.fused_aged_matmul(
+            a[l * Ml:(l + 1) * Ml], b,
+            None if xs_ is None else xs_[l * Ml:(l + 1) * Ml], ws_, bers[l],
+            seeds[l], bm=bm, bn=bn) for l in range(L)])
+        torch.cuda.synchronize()
+        assert torch.equal(got, want) and torch.equal(got, singles)
+        assert launches == -(-L // _cuda.MAX_LANES)
+    clean = ref.systolic_matmul_ref(a, b)
+    up = pfam.fused_aged_matmul_lanes(a, b, None, None, bers, seeds, lanes=L,
+                                      bm=bm, bn=bn)
+    if L > 1:
+        assert torch.equal(up[Ml:2 * Ml], clean[Ml:2 * Ml])   # BER 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", LANE_COUNTS)
+@pytest.mark.parametrize("n", [1, 7, 4096, 8195])
+def test_cuda_draw_lanes_match_plain_and_single_lanes(cuda_device, L, n):
+    """The draw mode's lanes: each lane's words drawn from its own keys over
+    its own word indices, equal to the plain lane version and to L
+    single-lane launches, at aligned and misaligned bases (n = 7 and 8195
+    put each lane's 16-byte head elsewhere), in ceil(L / MAX_LANES)
+    launches."""
+    bers, _ = _lane_params(L, n)
+    qs = [pfam.upset_probability(b * 100) for b in bers]
+    words = [ops.flip_key_words(k)
+             for k in prandom.split(prandom.PRNGKey(n), L)]
+    for offset in (0, 1):
+        x = _words(cuda_device, L * n, n + offset, offset).reshape(L, n)
+        kernels.reset_launch_counts()
+        got = bitflip_draw_lanes(x, words, qs)
+        launches = kernels.launch_counts()["bitflip_draw_lanes"]
+        want = ref.bitflip_draw_lanes_ref(x, words, qs)
+        singles = torch.stack([bitflip_draw(x[l].contiguous(), words[l],
+                                            qs[l]) for l in range(L)])
+        torch.cuda.synchronize()
+        assert torch.equal(got, want) and torch.equal(got, singles)
+        assert launches == -(-L // _cuda.MAX_LANES)
+        if L > 1:
+            assert torch.equal(got[1], x[1])                   # BER 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", [True, False], ids=["fused", "three_pass"])
+def test_cuda_lane_aged_linear_matches_cpu(cuda_device, fused):
+    """A lane-folded ``aged_linear`` (3 lanes of 2 x 4 rows) on the card
+    equals the CPU bit for bit on both kernel routes, one lane-mode launch
+    per call."""
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn((6, 4, 256), generator=g)
+    w = torch.randn((256, 384), generator=g)
+    bers = [1e-3, 0.0, 3e-3]
+    kw = (dict(seed=[4, -5, 6]) if fused else
+          dict(key=prandom.split(prandom.PRNGKey(7), 3), fused=False))
+    cpu = ops.aged_linear(x, w, ber=bers, lanes=3, **kw)
+    kernels.reset_launch_counts()
+    gpu = ops.aged_linear(x.to(cuda_device), w.to(cuda_device), ber=bers,
+                          lanes=3, **kw)
+    counts = kernels.launch_counts()
+    assert torch.equal(gpu.cpu(), cpu)
+    assert counts["fused_aged_matmul_lanes" if fused
+                  else "bitflip_draw_lanes"] == 1
+    assert counts["fused_aged_matmul"] == counts["bitflip_draw"] == 0

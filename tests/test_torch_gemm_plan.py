@@ -5,8 +5,11 @@ CPU: every serve-path shape takes the fast path with at least one CTA per
 SM of an H100 (132), ragged shapes take the generic path, the K splits
 cover ``[0, K)`` once in whole stages, and adding the int32 partials of
 those splits with wraparound gives the reference's accumulator — the
-split-K reduction the kernel does with its ticket.
+split-K reduction the kernel does with its ticket.  The fleet's lane mode
+folds 4 lanes of B = 2 into M = 8 (decode) and 4 x 32 = 128 (prefill)
+rows; its plan is the folded M's, its streams the lanes' own.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -28,6 +31,10 @@ EDGES = [(2, 14336, 1024), (16, 4096, 1024), (17, 4096, 1024),
          (65, 4096, 1024), (2, 4112, 1040), (33, 4112, 1040), (1, 16, 16)]
 RAGGED = [(33, 96, 130), (7, 5, 3), (300, 257, 513), (2, 4097, 1025),
           (32, 4096, 1025)]
+# llama3_8b's weight GEMMs with 4 lanes of B = 2 folded: decode and prefill
+LANES = [(M, K, N) for M in (8, 128)
+         for K, N in ((4096, 4096), (4096, 1024), (4096, 14336),
+                      (14336, 4096))]
 
 
 def _wrap32(x: torch.Tensor) -> torch.Tensor:
@@ -51,6 +58,34 @@ def test_plan_fills_every_sm_on_the_fast_path(M, K, N):
     assert plan.grid[0] * plan.grid[1] * plan.grid[2] == plan.ctas
     # one M tile: every weight byte is streamed by one CTA only
     assert plan.grid[1] == 1 and plan.bm == (16 if M <= 16 else 32)
+
+
+# (bm, bn, splits) at M = 128: two 64-row tiles, K split until every SM
+# has a CTA (gate/up's 224 tiles need none)
+PREFILL_128 = {(4096, 4096): (64, 64, 2), (4096, 1024): (64, 64, 5),
+               (4096, 14336): (64, 128, 1), (14336, 4096): (64, 64, 2)}
+
+
+@pytest.mark.parametrize("M,K,N", LANES)
+def test_plan_for_lane_folded_rows(M, K, N):
+    """Eight folded decode rows take one lane's plan (the 16-row tile, the
+    same grid as M = 2); 128 prefill rows take two 64-row tiles.  Both fill
+    every SM, and the workspace holds every split's partial of every
+    tile."""
+    plan = gemm_plan(M, N, K, H100_SMS)
+    assert plan.path == "fast" and plan.ctas >= H100_SMS
+    if M == 8:
+        one = gemm_plan(2, N, K, H100_SMS)
+        assert (plan.bm, plan.bn, plan.splits) == (one.bm, one.bn,
+                                                    one.splits) == \
+            (16, one.bn, one.splits)
+        assert plan.grid == one.grid
+    else:
+        assert (plan.bm, plan.bn, plan.splits) == PREFILL_128[(K, N)]
+        assert plan.grid[1] == 2
+    assert plan.workspace_words == (plan.tiles * plan.splits * plan.bm
+                                    * plan.bn if plan.splits > 1 else 0)
+    assert plan.n_tickets == (plan.tiles if plan.splits > 1 else 0)
 
 
 @pytest.mark.parametrize("M,K,N", RAGGED)
@@ -142,6 +177,38 @@ def test_split_k_then_one_epilogue_matches_the_pallas_kernel():
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+def test_lane_split_k_then_lane_epilogue_matches_vmapped_pallas():
+    """The lane mode's order at M = 128 (4 lanes of 32 rows, two 64-row CTA
+    tiles, K split): sum the folded rows' split partials, then upset each
+    word with its lane's seed and BER over its lane-local row — equal to
+    ``jax.vmap`` of the fused Pallas kernel, lane by lane."""
+    L, Ml, K, N = 4, 32, 512, 128
+    bers = np.asarray([1e-2, 0.0, 3e-2, 1e-3], np.float32)
+    seeds = np.asarray([5, -9, 77, 2 ** 30], np.int32)
+    rng = np.random.default_rng(12)
+    a = rng.integers(-128, 128, (L, Ml, K), dtype=np.int8)
+    b = rng.integers(-128, 128, (K, N), dtype=np.int8)
+    xs = rng.random((L, Ml, 1), dtype=np.float32) + 0.5
+    ws = rng.random((1, N), dtype=np.float32) + 0.5
+    plan = gemm_plan(L * Ml, N, K, H100_SMS)
+    assert (plan.bm, plan.grid[1]) == (64, 2) and plan.splits > 1
+    acc = _split_sum(torch.from_numpy(a.reshape(L * Ml, K)),
+                     torch.from_numpy(b), plan)
+    lanes = []
+    for l in range(L):
+        bits = pfam.tile_counter_bits(Ml, N, int(seeds[l]), bm=32, bn=128)
+        up = pfam.upset_words(acc[l * Ml:(l + 1) * Ml], bits,
+                              pfam.upset_probability(float(bers[l])))
+        lanes.append(up.to(torch.float32) * torch.from_numpy(xs[l])
+                     * torch.from_numpy(ws))
+    want = np.asarray(jax.vmap(
+        lambda a_l, xs_l, ber, seed: jops.fused_aged_matmul(
+            a_l, jnp.asarray(b), xs_l, jnp.asarray(ws), ber=ber, seed=seed,
+            interpret=True))(jnp.asarray(a), jnp.asarray(xs),
+                             jnp.asarray(bers), jnp.asarray(seeds)))
+    np.testing.assert_array_equal(torch.stack(lanes).numpy(), want)
+
+
 def test_cpu_gemm_wrappers_count_no_path():
     """On the CPU the wrappers take their plain versions: no launch, on
     either path."""
@@ -150,6 +217,9 @@ def test_cpu_gemm_wrappers_count_no_path():
     b = torch.ones((32, 16), dtype=torch.int8)
     systolic_matmul(a, b)
     pfam.fused_aged_matmul(a, b, None, None, 1e-3, 1)
+    pfam.fused_aged_matmul_lanes(a, b, None, None, [1e-3, 0.0], [1, 2],
+                                 lanes=2)
     assert kernels.launch_counts_by_path() == {
         "fused_aged_matmul": {"fast": 0, "generic": 0},
+        "fused_aged_matmul_lanes": {"fast": 0, "generic": 0},
         "systolic_matmul": {"fast": 0, "generic": 0}}
