@@ -27,7 +27,8 @@ Phases (any failure exits non-zero):
    draws, explicit pass); then both lane modes at the fleet's shapes (4
    lanes: every llama3_8b weight GEMM at M = 4 x 32 and 4 x 2, the qkt/sv
    words x 4) at per-lane BERs with one lane at 0, bit-exact against their
-   plain lane versions and against 4 single-lane launches;
+   plain lane versions and against 4 single-lane launches, and the same
+   for qwen3_moe_235b's q/k/v/o/router GEMMs and qkt/sv words;
 4. the main path: ``evaluate_policy`` (Table I/II), a ``FleetRuntime``
    aged 9 years, and ``ServeEngine(llama3_8b full width, bf16 random
    params, use_systolic_kernel=True).generate`` of 8 tokens for B=2 on the
@@ -63,9 +64,26 @@ Phases (any failure exits non-zero):
    ops), a profiled prefill + decode step, and ``score`` of the prompts
    plus the generated tokens; then reduced qwen3_moe_235b and
    arctic_480b sampled (T=0.8, top_k=8) at BER 1e-3 on the card's kernel
-   route against the port on the CPU;
-8. a ``{"kernels": [...]}`` line (launches summed over the runs of [4],
-   [5], [6] and [7]), the ``nvidia-smi`` line, and as the last line
+   route against the port on the CPU (after [8], which shares [7]'s params);
+8. the MoE fleet on [7]'s params: ``FleetServeEngine`` over
+   ``FleetRuntime.for_model(n_devices=4)`` aged 0/3/6/9.5 years serving
+   ``(4, 2, 16)`` prompts, 8 tokens at T=0.8, top_k=50, in one
+   lane-batched forward per step (the lane-aware expert dispatch): exactly
+   5 lane-mode GEMM and 2 lane-mode draw launches per layer and forward,
+   as many ``aten::bmm`` calls a step as one device (the expert weights
+   read once a forward for all lanes), every lane's tokens equal to its
+   single-lane replay unless the expert ``bmm`` rounding probe shows
+   cuBLAS rounding a row by the batch's row count, peak memory under
+   76 GB, no host-device synchronisation in a decode step, the expert
+   ``bmm`` chain's device time beside [7]'s, the lanes' sampler cost, and
+   reduced qwen3_moe_235b / arctic_480b fleets on the card against the
+   CPU;
+9. the paper's tables on the card: ``repro_torch.benchmarks``'
+   ``table1_aging``, ``table2_policy`` and ``fig5_curves`` with every
+   PASS/FAIL check, and ``repro_torch.examples.lifetime_study``'s sweep,
+   each timed;
+10. a ``{"kernels": [...]}`` line (launches summed over the runs of [4],
+   [5], [6], [7] and [8]), the ``nvidia-smi`` line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
 Details go to ``chiprun_out/chip_smoke.json``.  The port never calls
@@ -254,7 +272,7 @@ def gemm_shapes(cfg, moe_cfg) -> list:
     paths: llama3_8b's q/o, k/v, gate/up and down; qwen3_moe_235b's q,
     k/v, o and router (its expert FFNs are clean)."""
     md, mq = moe_cfg.d_model, moe_cfg.n_heads * moe_cfg.hd
-    return llama_gemm_shapes(cfg) + [
+    return (llama_gemm_shapes(cfg) if cfg is not None else []) + [
             ("qwen3_moe_235b", md, mq, "q"),
             ("qwen3_moe_235b", md, moe_cfg.n_kv_heads * moe_cfg.hd, "k/v"),
             ("qwen3_moe_235b", mq, md, "o"),
@@ -455,12 +473,20 @@ def kernel_checks(dev, cfg, moe_cfg) -> dict:
     return rows
 
 
-def lane_kernel_checks(dev, cfg) -> dict:
-    """Both lane modes at the fleet's shapes: every llama3_8b weight GEMM
-    with 4 lanes of B = 2 folded (M = 4 x 32 prefill, 4 x 2 decode rows)
-    and the qkt/sv words of 4 lanes, at per-lane BERs with one lane at 0;
-    bit-exact against the plain lane version and against 4 single-lane
-    launches, timed beside the bound and the 4 single-lane launches."""
+def moe_gemm_shapes(moe_cfg) -> list:
+    """``(model, K, N, op)`` of qwen3_moe_235b's faulted weight matmuls: q,
+    k/v, o and the router."""
+    return [row for row in gemm_shapes(None, moe_cfg)
+            if row[0] == "qwen3_moe_235b"]
+
+
+def lane_kernel_checks(dev, cfg, moe_cfg) -> dict:
+    """Both lane modes at the two fleets' shapes: every llama3_8b and
+    qwen3_moe_235b weight GEMM with 4 lanes of B = 2 folded (M = 4 x 32
+    prefill, 4 x 2 decode rows) and the qkt/sv words of 4 lanes, at
+    per-lane BERs with one lane at 0; bit-exact against the plain lane
+    version and against 4 single-lane launches, timed beside the bound and
+    the 4 single-lane launches."""
     import torch
     from repro_torch import kernels
     from repro_torch import random as prandom
@@ -474,7 +500,8 @@ def lane_kernel_checks(dev, cfg) -> dict:
     gen = torch.Generator(device=dev).manual_seed(4321)
     rows = {"fused_aged_matmul_lanes": [], "bitflip_draw_lanes": []}
     for Ml in (32, 2):
-        for model, K, N, what in llama_gemm_shapes(cfg):
+        for model, K, N, what in (llama_gemm_shapes(cfg)
+                                  + moe_gemm_shapes(moe_cfg)):
             M = L * Ml
             a = torch.randint(-127, 128, (M, K), dtype=torch.int8,
                               device=dev, generator=gen)
@@ -534,7 +561,9 @@ def lane_kernel_checks(dev, cfg) -> dict:
                     iters=3, warmup=1),
                 bound_ms=t_b, bound_by=by, library_ms=None))
     qs = [upset_probability(x) for x in LANE_BERS]
-    for shape, what in attention_shapes(cfg):
+    for model, (shape, what) in itertools.chain(
+            (("llama3_8b", a) for a in attention_shapes(cfg)),
+            (("qwen3_moe_235b", a) for a in attention_shapes(moe_cfg))):
         n = math.prod(shape)
         x = torch.randint(-2 ** 31, 2 ** 31 - 1, (L,) + shape,
                           dtype=torch.int32, device=dev, generator=gen)
@@ -563,7 +592,7 @@ def lane_kernel_checks(dev, cfg) -> dict:
         t_b, by = bound(8 * L * n, int_ops=int_ops, int_rate=int_rate)
         rows["bitflip_draw_lanes"].append(dict(
             n=L * n, lanes=L, n_lane=n, shape=list(shape), op=what,
-            model="llama3_8b", flips=flips, max_abs_err=err,
+            model=model, flips=flips, max_abs_err=err,
             ms=cuda_time_ms(bk), dev_ms=dev_ms,
             singles_dev_ms=device_ms(lambda: [bitflip_draw(
                 x[l], words[l], qs[l]) for l in range(L)],
@@ -636,6 +665,8 @@ def profile_generate(engine, prompts, want_gemm: int, **gen_kw) -> dict:
         gemm = [e for e in kernels if "int8_gemm" in e.key]
         if sum(e.count for e in gemm) == want_gemm:
             break
+    bmm_calls = sum(e.count for e in prof.key_averages()
+                    if e.key == "aten::bmm")
     busy = sum(_dev_us(e) for e in kernels) / 1e3
     top = sorted(kernels, key=_dev_us, reverse=True)[:12]
     ours = {e.key: {"device_ms_per_launch": _dev_us(e) / 1e3 / e.count,
@@ -656,7 +687,7 @@ def profile_generate(engine, prompts, want_gemm: int, **gen_kw) -> dict:
             "threefry_chain_kernels": [e.key[:160] for e in chain],
             "gemm_launches": sum(e.count for e in gemm),
             "gemm_device_ms": sum(_dev_us(e) for e in gemm) / 1e3,
-            "attempts": attempt,
+            "bmm_calls": bmm_calls, "attempts": attempt,
             "complete": sum(e.count for e in gemm) == want_gemm}
 
 
@@ -717,8 +748,8 @@ def decode_syncs(engine, prompts, **gen_kw) -> dict:
 class _ForcedFleet:
     """A fleet whose lanes admit one BER each on every operator domain."""
 
-    def __init__(self, bers):
-        self.operators = tuple(TABLE2)
+    def __init__(self, bers, operators=tuple(TABLE2)):
+        self.operators = tuple(operators)
         self.n_devices = len(bers)
         self._bers = bers
         self.ages_years = [9.0] * len(bers)
@@ -733,10 +764,12 @@ class _ForcedFleet:
         return np.zeros(self.n_devices)
 
 
-def reduced_fleet_vs_cpu(small, dev) -> dict:
-    """Tokens of a 3-lane reduced-model fleet (BERs 1e-3 / 0 / 3e-3) on
-    the card's kernel route against the port on the CPU (plain
-    versions); fails unless they are equal."""
+def reduced_fleet_vs_cpu(small, dev, **gen_kw) -> dict:
+    """Tokens of a 3-lane reduced-model fleet (BERs 1e-3 / 0 / 3e-3 on
+    every domain, an MoE router's included) on the card's kernel route
+    against the port on the CPU (plain versions), generated with
+    ``gen_kw``; fails unless they are equal."""
+    from repro_torch.core.resilience import operators_for
     import numpy as np
     import torch
     from repro_torch.data import SyntheticLM
@@ -746,10 +779,11 @@ def reduced_fleet_vs_cpu(small, dev) -> dict:
     p_gpu = _map(p_cpu, lambda t: t.to(dev))
     prompts = SyntheticLM(vocab=small.vocab, seq_len=12,
                           global_batch=6).batch_at(0).tokens
-    fleet = _ForcedFleet([1e-3, 0.0, 3e-3])
+    fleet = _ForcedFleet([1e-3, 0.0, 3e-3], operators_for(small.family))
     outs = {name: FleetServeEngine(small, p, fleet, max_len=32,
                                    use_systolic_kernel=True, seed=5,
-                                   device=d).generate(prompts, 6).tokens
+                                   device=d).generate(prompts, 6,
+                                                      **gen_kw).tokens
             for name, p, d in (("cuda", p_gpu, dev), ("cpu", p_cpu, "cpu"))}
     check(np.array_equal(outs["cuda"], outs["cpu"]),
           f"reduced {small.name} fleet: card tokens {outs['cuda'].tolist()} "
@@ -781,6 +815,55 @@ def row_mean_rounding(dev, d: int) -> dict:
             "float64_rows_differing": count["float64"]}
 
 
+def lane_replay(engine, params, cfg, prompts, dev, tokens, n_steps,
+                want_fused, **gen_kw) -> dict:
+    """Each lane of ``engine``'s first ``generate`` (tokens ``(N, B,
+    n_steps)`` of ``(N, B, S)`` prompts) replayed alone: the engine's key
+    schedule, sliced (``FaultConfig.lane(i)``, the lane's sampling key),
+    through the single-device path, timed as the lane loop (which must
+    make ``N * want_fused`` fused launches); and the prefill logits of the
+    folded forward against the lanes' own."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch import random as prandom
+    from repro_torch.serve import steps
+    N, B, S = prompts.shape
+    _, call_key = prandom.split(prandom.PRNGKey(0))
+    fi = engine._fleet_fault_config(call_key)
+    keys = prandom.split(prandom.fold_in(call_key, 1), N)
+    lane_prompts = [torch.as_tensor(prompts[i], device=dev) for i in range(N)]
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    replay = [steps.generate(params, cfg, lane_prompts[i], fi.lane(i),
+                             keys[i], max_len=64, n_steps=n_steps,
+                             **gen_kw)[0] for i in range(N)]
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    loop_counts = kernels.launch_counts()
+    check(loop_counts["fused_aged_matmul"] == N * want_fused,
+          f"replay launches {loop_counts}")
+    # prefill logits, fleet against replay: every faulted op is exact per
+    # lane; the clean bf16 unembed matmul (transformer.unembed) may round
+    # differently at 4 x 2 rows than at 2, by at most one bf16 ulp of the
+    # logit (2**-7 relative to its magnitude)
+    folded = torch.as_tensor(prompts.reshape(N * B, S), device=dev)
+    lf = steps.prefill(params, cfg, folded, fi.with_seeds(), 64)[0]
+    lr = torch.cat([steps.prefill(params, cfg, lane_prompts[i],
+                                  fi.lane(i).with_seeds(), 64)[0]
+                    for i in range(N)])
+    d = (lf - lr).abs()
+    diverged = [(i, b, t) for i in range(N) for b in range(B)
+                for t in range(n_steps) if tokens[i, b, t] != replay[i][b, t]]
+    return {"fi": fi, "replay": replay, "loop_s": loop_s,
+            "loop_counts": loop_counts,
+            "logit_diff": float(d.max()),
+            "within": bool((d <= 2.0 ** -7
+                            * torch.maximum(lf.abs(), lr.abs())).all()),
+            "diverged": diverged,
+            "first": diverged[0] if diverged else None}
+
+
 def fleet_phase(dev, cfg, params, single) -> dict:
     """[6] ``FleetServeEngine`` over a 4-device fleet aged ``FLEET_AGES``,
     at [4]'s full width and depth on [4]'s params: one lane-batched
@@ -789,11 +872,9 @@ def fleet_phase(dev, cfg, params, single) -> dict:
     import numpy as np
     import torch
     from repro_torch import kernels
-    from repro_torch import random as prandom
     from repro_torch.core.fleet import FleetRuntime
     from repro_torch.data import SyntheticLM
     from repro_torch.kernels import ops
-    from repro_torch.serve import steps
     from repro_torch.serve.engine import FleetServeEngine
 
     N, B, S, n_steps = len(FLEET_AGES), 2, 16, 8
@@ -839,37 +920,10 @@ def fleet_phase(dev, cfg, params, single) -> dict:
                                        "bitflip_words", "systolic_matmul")),
           f"the fleet launched a single-lane or three-pass kernel: {counts}")
 
-    # each lane's single-lane replay: the engine's key schedule, sliced
-    _, call_key = prandom.split(prandom.PRNGKey(0))
-    fi = engine._fleet_fault_config(call_key)
-    keys = prandom.split(prandom.fold_in(call_key, 1), N)
-    lane_prompts = [torch.as_tensor(prompts[i], device=dev) for i in range(N)]
-    kernels.reset_launch_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    replay = [steps.generate(params, cfg, lane_prompts[i], fi.lane(i),
-                             keys[i], max_len=64, n_steps=n_steps)[0]
-              for i in range(N)]
-    torch.cuda.synchronize()
-    loop_s = time.perf_counter() - t0
-    loop_counts = kernels.launch_counts()
-    check(loop_counts["fused_aged_matmul"] == N * want_fused,
-          f"replay launches {loop_counts}")
-    # prefill logits, fleet against replay: every faulted op is exact per
-    # lane; the clean bf16 unembed matmul (transformer.unembed) may round
-    # differently at 4 x 2 rows than at 2, by at most one bf16 ulp of the
-    # logit (2**-7 relative to its magnitude)
-    folded = torch.as_tensor(prompts.reshape(N * B, S), device=dev)
-    lf = steps.prefill(params, cfg, folded, fi.with_seeds(), 64)[0]
-    lr = torch.cat([steps.prefill(params, cfg, lane_prompts[i],
-                                  fi.lane(i).with_seeds(), 64)[0]
-                    for i in range(N)])
-    d = (lf - lr).abs()
-    logit_diff = float(d.max())
-    within = bool((d <= 2.0 ** -7 * torch.maximum(lf.abs(), lr.abs())).all())
-    diverged = [(i, b, t) for i in range(N) for b in range(B)
-                for t in range(n_steps) if tok[i, b, t] != replay[i][b, t]]
-    first = diverged[0] if diverged else None
+    rp = lane_replay(engine, params, cfg, prompts, dev, tok, n_steps,
+                     want_fused)
+    loop_s, loop_counts, first = rp["loop_s"], rp["loop_counts"], rp["first"]
+    logit_diff, within, fi = rp["logit_diff"], rp["within"], rp["fi"]
     check(first is None, f"fleet lane {first and first[0]} row "
           f"{first and first[1]} diverges from its single-lane replay at "
           f"token {first and first[2]}; prefill logits differ by up to "
@@ -946,15 +1000,14 @@ def fleet_phase(dev, cfg, params, single) -> dict:
     return res
 
 
-def moe_phase(dev, cfg) -> dict:
-    """[7] The MoE serve path at published widths, ``MOE_LAYERS`` deep,
-    then reduced qwen3_moe_235b and arctic_480b on the card against the
-    CPU."""
+def moe_phase(dev, cfg) -> tuple:
+    """[7] The MoE serve path at published widths, ``MOE_LAYERS`` deep.
+    Returns ``(results, params, the served config)``: [8] serves the same
+    params as a fleet before they are freed."""
     import numpy as np
     import torch
     from repro_torch import kernels
     from repro_torch import random as prandom
-    from repro_torch.configs import get_config
     from repro_torch.core.fleet import FleetRuntime
     from repro_torch.data import SyntheticLM
     from repro_torch.models.transformer import init_params
@@ -1069,15 +1122,317 @@ def moe_phase(dev, cfg) -> dict:
           f"{res['host_syncs']['generate_2_tokens']} / "
           f"{res['host_syncs']['generate_8_tokens']} (none in a decode "
           f"step)", flush=True)
-    del engine, params
-    torch.cuda.empty_cache()
+    res["expert_bmm"] = expert_bmm_ms(params, cfg_run, dev, lanes=1)
+    print(f"    expert bmm chain (gate, up, down) of {L} layers at (E, C, d) "
+          f"= ({cfg.moe.n_experts}, {res['expert_bmm']['rows']}, "
+          f"{cfg.d_model}): {res['expert_bmm']['dev_ms']:.2f} ms of device "
+          f"time a forward", flush=True)
+    return res, params, cfg_run
 
-    res["reduced_vs_cpu"] = {}
-    for arch in ("qwen3_moe_235b", "arctic_480b"):
-        res["reduced_vs_cpu"][arch] = reduced_vs_cpu(
-            get_config(arch).reduced(), dev, temperature=0.8, top_k=8)
+
+def moe_reduced_vs_cpu(dev) -> dict:
+    """[7]'s last check: reduced qwen3_moe_235b and arctic_480b sampled at
+    BER 1e-3 on the card against the CPU."""
+    from repro_torch.configs import get_config
+    out = {arch: reduced_vs_cpu(get_config(arch).reduced(), dev,
+                                temperature=0.8, top_k=8)
+           for arch in ("qwen3_moe_235b", "arctic_480b")}
     print("    reduced qwen3_moe_235b and arctic_480b at BER 1e-3, T=0.8, "
           "top_k=8: card kernel route == CPU plain route tokens", flush=True)
+    return out
+
+
+def expert_bmm_ms(params, cfg, dev, lanes: int) -> dict:
+    """Device time (profiler) of the clean expert FFN of every layer, the
+    ``bmm`` chain ``moe_apply`` runs, at one forward's rows: ``lanes``
+    lanes of ``C = _capacity(B * S)`` rows each (B = 2, prompt 16; decode's
+    ``C`` is the same minimum of 8), side by side as ``(E, lanes * C,
+    d)``.  Each layer's weights are read from device memory once a call."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.models.moe import _capacity
+    C = _capacity(2 * 16, cfg.moe)
+    E, d = cfg.moe.n_experts, cfg.d_model
+    buf = torch.randn((E, lanes * C, d), dtype=torch.bfloat16, device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(5))
+
+    def chain():
+        for lp in params["layers"]:
+            p = lp["ffn"]
+            h = F.silu(torch.bmm(buf, p["w_gate"])) * torch.bmm(buf, p["w_up"])
+            torch.bmm(h, p["w_down"])
+    ms, kernels = device_ms(chain, iters=3)
+    weight_bytes = sum(lp["ffn"][k].numel() * lp["ffn"][k].element_size()
+                       for lp in params["layers"]
+                       for k in ("w_gate", "w_up", "w_down"))
+    return {"lanes": lanes, "rows": lanes * C, "dev_ms": ms,
+            "kernels": kernels, "weight_gb": weight_bytes / 1e9,
+            "tb_per_s": weight_bytes / (ms * 1e-3) / 1e12}
+
+
+def bmm_rounding_probe(params, cfg, dev, lanes: int) -> dict:
+    """Max |diff| between each lane's expert rows run alone, ``(E, C, d)``,
+    and the same rows inside the fleet's ``(E, lanes * C, d)`` batch, for
+    each ``bmm`` of layer 0's expert chain and for its output: non-zero
+    would mean cuBLAS rounds a row differently by the batch's row count,
+    and a lane could part from its single-lane replay there."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.models.moe import _capacity
+    C = _capacity(2 * 16, cfg.moe)
+    E, d = cfg.moe.n_experts, cfg.d_model
+    p = params["layers"][0]["ffn"]
+    g = torch.Generator(device=dev).manual_seed(6)
+    bufs = [torch.randn((E, C, d), dtype=torch.bfloat16, device=dev,
+                        generator=g) for _ in range(lanes)]
+
+    def run(buf):
+        gate, up = torch.bmm(buf, p["w_gate"]), torch.bmm(buf, p["w_up"])
+        h = F.silu(gate) * up
+        return {"gate": gate, "up": up, "down": torch.bmm(h, p["w_down"])}
+    folded = run(torch.cat(bufs, dim=1))
+    diff = {k: 0.0 for k in folded}
+    rows = 0
+    for i, buf in enumerate(bufs):
+        alone = run(buf)
+        for k, v in alone.items():
+            part = folded[k][:, i * C:(i + 1) * C]
+            diff[k] = max(diff[k], float((part.float() - v.float()).abs()
+                                         .max()))
+            if k == "down":
+                rows += int((part != v).any(dim=-1).sum())
+    return {"lanes": lanes, "rows_per_lane": C,
+            "max_abs_diff": diff, "down_rows_differing": rows,
+            "down_rows": lanes * E * C}
+
+
+def moe_fleet_phase(dev, cfg, params, single) -> dict:
+    """[8] The MoE fleet: ``FleetServeEngine`` over
+    ``FleetRuntime.for_model(n_devices=4)`` aged ``FLEET_AGES`` on [7]'s
+    model and params, sampled; held against each lane's single-lane
+    replay, timed beside [7]'s single device; then reduced qwen3_moe_235b
+    and arctic_480b fleets on the card against the CPU."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch import random as prandom
+    from repro_torch.core.fleet import FleetRuntime
+    from repro_torch.data import SyntheticLM
+    from repro_torch.serve import steps
+    from repro_torch.serve.engine import FleetServeEngine
+
+    sample = {"temperature": 0.8, "top_k": 50}
+    N, B, S, n_steps = len(FLEET_AGES), 2, 16, 8
+    L = cfg.n_layers
+    torch.cuda.reset_peak_memory_stats(dev)
+    fleet = FleetRuntime.for_model(cfg, n_devices=N, device=dev)
+    for i, age in enumerate(FLEET_AGES):
+        fleet.set_age(years=age, device=i)
+    bers = fleet.op_ber_array()
+    check(len(fleet.operators) == 10 and "router" in fleet.operators
+          and bool(np.isfinite(bers).all() and (bers >= 0).all()
+                   and (bers[1:] > 0).all()), f"MoE fleet BERs {bers}")
+    r = fleet.op_index("router")
+    print(f"[8] MoE fleet of {N} qwen3_moe_235b devices aged "
+          f"{', '.join(f'{a:g}' for a in FLEET_AGES)} y "
+          f"({len(fleet.operators)} domains): admitted BER (q / o / router "
+          f"per lane) " + "; ".join(
+              f"{bers[i, 0]:.2e} / {bers[i, 5]:.2e} / {bers[i, r]:.2e}"
+              for i in range(N)), flush=True)
+    prompts = SyntheticLM(vocab=cfg.vocab, seq_len=S,
+                          global_batch=N * B).batch_at(0).tokens.reshape(
+                              N, B, S)
+    make = lambda: FleetServeEngine(cfg, params, fleet, max_len=64,
+                                    use_systolic_kernel=True, device=dev)
+    make().generate(prompts, 2, **sample)       # warm-up of the fleet shapes
+    engine = make()
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = engine.generate(prompts, n_steps, **sample)
+    gen_s = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    by_path = kernels.launch_counts_by_path()
+    tok = out.tokens
+    check(tok.shape == (N, B, n_steps), f"MoE fleet tokens shape {tok.shape}")
+    check(bool(((tok >= 0) & (tok < cfg.vocab)).all()), "MoE fleet token ids")
+    check(all(v.shape == (N, n_steps) and np.isfinite(v).all()
+              for v in out.telemetry.values()), "MoE fleet logit taps")
+    want_fused, want_flip = 5 * L * n_steps, 2 * L * n_steps
+    check(counts["fused_aged_matmul_lanes"] == want_fused
+          and by_path["fused_aged_matmul_lanes"] == {"fast": want_fused,
+                                                     "generic": 0},
+          f"MoE fleet lane GEMM launches {by_path} != {want_fused} fast")
+    check(counts["bitflip_draw_lanes"] == want_flip,
+          f"MoE fleet lane draw launches {counts} != {want_flip}")
+    check(all(counts[k] == 0 for k in ("fused_aged_matmul", "bitflip_draw",
+                                       "bitflip_words", "systolic_matmul")),
+          f"the MoE fleet launched a single-lane or three-pass kernel: "
+          f"{counts}")
+    check(single["launches"]["fused_aged_matmul"] == want_fused
+          and single["launches"]["bitflip_draw"] == want_flip,
+          f"[7]'s launches {single['launches']} differ from the fleet's")
+
+    rp = lane_replay(engine, params, cfg, prompts, dev, tok, n_steps,
+                     want_fused, **sample)
+    loop_s, loop_counts, first = rp["loop_s"], rp["loop_counts"], rp["first"]
+    logit_diff, within, diverged = rp["logit_diff"], rp["within"], \
+        rp["diverged"]
+    probe = bmm_rounding_probe(params, cfg, dev, N)
+    rounding = max(probe["max_abs_diff"].values())
+    # a lane may part from its replay only where cuBLAS rounds the expert
+    # rows by the batch's row count, which the probe then shows
+    check(first is None or rounding > 0,
+          f"MoE fleet lane {first and first[0]} row {first and first[1]} "
+          f"diverges from its single-lane replay at token "
+          f"{first and first[2]} although the expert bmm rounds alike")
+    check(within or rounding > 0,
+          f"MoE fleet prefill logits differ from the replay's by "
+          f"{logit_diff:.3g}, more than one bf16 ulp")
+    peak = torch.cuda.max_memory_allocated(dev)
+    check(peak < MOE_PEAK_LIMIT, f"MoE fleet peak memory {peak / 1e9:.2f} GB")
+    pf, dc = out.timings["prefill_s"], out.timings["decode_s"]
+    per_tok = dc / (n_steps - 1)
+    res = {"lanes": N, "ages_years": list(FLEET_AGES), "layers": L,
+           "batch_per_lane": B, "prompt": S, "n_steps": n_steps,
+           "temperature": sample["temperature"], "top_k": sample["top_k"],
+           "bers": bers.tolist(), "operators": list(fleet.operators),
+           "generate_s": gen_s, "prefill_s": pf,
+           "decode_s_per_token": per_tok,
+           "tokens_per_s": N * B * n_steps / gen_s,
+           "replay_loop_s": loop_s,
+           "replay_tokens_per_s": N * B * n_steps / loop_s,
+           "single": {k: single[k] for k in ("prefill_s",
+                                             "decode_s_per_token",
+                                             "tokens_per_s", "generate_s")},
+           "launches": counts, "launches_by_path": by_path,
+           "replay_launches": loop_counts, "tokens": tok.tolist(),
+           "replay_tokens": [t.tolist() for t in rp["replay"]],
+           "first_divergence": first, "n_diverged": len(diverged),
+           "bmm_rounding_probe": probe,
+           "prefill_logit_max_abs_diff": logit_diff,
+           "prefill_logits_within_bf16_ulp": within,
+           "max_memory_allocated_gb": peak / 1e9,
+           "power_w": out.power_w.tolist()}
+    print(f"    fleet generate ({N} lanes x B={B}, 8 tokens at T=0.8, "
+          f"top_k=50): prefill {pf * 1e3:.1f} ms, decode "
+          f"{per_tok * 1e3:.1f} ms/token, {res['tokens_per_s']:.2f} "
+          f"tokens/s, peak {peak / 1e9:.2f} GB; single device [7]: prefill "
+          f"{single['prefill_s'] * 1e3:.1f} ms, decode "
+          f"{single['decode_s_per_token'] * 1e3:.1f} ms/token, "
+          f"{single['tokens_per_s']:.2f} tokens/s; replay loop of {N} "
+          f"single-lane generates {loop_s:.2f} s ({gen_s:.2f} s fleet)",
+          flush=True)
+    print(f"    launches per forward: {counts['fused_aged_matmul_lanes'] // n_steps}"
+          f" lane GEMM (fast path), {counts['bitflip_draw_lanes'] // n_steps}"
+          f" lane draw; lanes == their single-lane replays: "
+          f"{first is None} ({len(diverged)} of {N * B * n_steps} tokens "
+          f"differ, first {first}); prefill logits within {logit_diff:.3g}"
+          f"; expert bmm rows alone vs in the {N}-lane batch: max |diff| "
+          + ", ".join(f"{k} {v:.3g}" for k, v in
+                      probe["max_abs_diff"].items()), flush=True)
+    res["expert_bmm"] = expert_bmm_ms(params, cfg, dev, lanes=N)
+    res["profile"] = profile_generate(engine, prompts, 5 * L * 2, **sample)
+    prof = res["profile"]
+    print(f"    expert bmm chain of {L} layers at (E, {N} x C, d): "
+          f"{res['expert_bmm']['dev_ms']:.2f} ms a forward ([7]: "
+          f"{single['expert_bmm']['dev_ms']:.2f} ms at (E, C, d)), "
+          f"{res['expert_bmm']['tb_per_s']:.2f} TB/s over "
+          f"{res['expert_bmm']['weight_gb']:.1f} GB; aten::bmm calls a "
+          f"prefill + decode step {prof['bmm_calls']}; prefill + 1 decode "
+          f"step: {prof['wall_ms']:.1f} ms, device busy "
+          f"{prof['device_busy_ms']:.1f} ms "
+          f"({100 * prof['device_busy_share']:.1f}%) over "
+          f"{prof['n_kernel_launches']} kernel launches; lane GEMM "
+          f"{prof['gemm_device_ms']:.2f} ms over {prof['gemm_launches']}",
+          flush=True)
+    res["host_syncs"] = decode_syncs(engine, prompts, **sample)
+    # the sampler of a fleet token: one Gumbel chain per lane on the host
+    logits = torch.randn((N * B, cfg.vocab), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(7))
+    lane_keys = prandom.split(prandom.PRNGKey(3), N)
+    draw = lambda: steps.sample_token(logits * 3.0, lane_keys, 0.8, 50,
+                                      lanes=N)
+    draw()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        draw()
+    host_ms = (time.perf_counter() - t0) / 5 * 1e3
+    torch.cuda.synchronize()
+    samp_dev, samp_kernels = device_ms(draw, iters=5)
+    res["sampler"] = {"host_ms": host_ms, "dev_ms": samp_dev,
+                      "kernels_per_token": samp_kernels,
+                      "ms": cuda_time_ms(draw, iters=5, warmup=1)}
+    print(f"    host syncs of sampled fleet generate at 2 / 8 tokens: "
+          f"{res['host_syncs']['generate_2_tokens']} / "
+          f"{res['host_syncs']['generate_8_tokens']}; the {N}-lane sampler: "
+          f"{host_ms:.2f} ms of host time and {samp_kernels:.0f} kernels "
+          f"({samp_dev:.3f} ms of device time) a token", flush=True)
+    del engine
+    return res
+
+
+def moe_fleet_reduced_vs_cpu(dev) -> dict:
+    """[8]'s last check: reduced qwen3_moe_235b and arctic_480b fleets (3
+    lanes) sampled on the card against the CPU."""
+    from repro_torch.configs import get_config
+    out = {arch: reduced_fleet_vs_cpu(get_config(arch).reduced(), dev,
+                                      temperature=0.8, top_k=8)
+           for arch in ("qwen3_moe_235b", "arctic_480b")}
+    print("    reduced qwen3_moe_235b and arctic_480b fleets (3 lanes, BER "
+          "1e-3 / 0 / 3e-3, T=0.8, top_k=8): card kernel route == CPU "
+          "plain route tokens", flush=True)
+    return out
+
+
+def paper_tables_phase(dev) -> dict:
+    """[9] The paper's Table I / II and Fig. 5 benchmarks and the lifetime
+    study on the card, each with its checks and its seconds."""
+    import numpy as np
+    import torch
+    from repro_torch.benchmarks import fig5_curves, table1_aging, \
+        table2_policy
+    from repro_torch.core.resilience import OPERATORS
+    from repro_torch.examples import lifetime_study
+    res = {}
+    for name, mod in (("table1_aging", table1_aging),
+                      ("table2_policy", table2_policy),
+                      ("fig5_curves", fig5_curves)):
+        t0 = time.perf_counter()
+        out = mod.evaluate(device=dev)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        res[name] = {"seconds": secs, "checks": out["checks"],
+                     "rows": out["rows"]}
+        print(f"[9] {name} on the card in {secs:.2f} s:", flush=True)
+        for ln in out["text"].splitlines():
+            if ln.startswith("[PASS]") or ln.startswith("[FAIL]"):
+                print(f"    {ln}", flush=True)
+        failed = [c["name"] for c in out["checks"] if not c["ok"]]
+        check(not failed, f"{name} checks failed: {failed}")
+    t0 = time.perf_counter()
+    study = lifetime_study.study(device=dev)
+    secs = time.perf_counter() - t0
+    sav = study["saving"]
+    shape = (len(lifetime_study.BUDGETS), len(lifetime_study.DUTIES),
+             len(OPERATORS))
+    check(study["traj"].batch_shape == shape and sav.shape == shape
+          and bool(np.isfinite(sav).all()),
+          f"lifetime study grid {study['traj'].batch_shape}")
+    # the (0.5 % budget, duty 0.5) cell is Table II's scenario
+    cell = float(sav[lifetime_study.BUDGETS.index(0.5),
+                     lifetime_study.DUTIES.index(0.5)].mean())
+    avg = res["table2_policy"]["rows"]["avg_power_saving_pct"]
+    check(abs(cell - avg) < 1e-3, f"lifetime study cell (0.5 %, 0.5) "
+          f"saving {cell:.4f} % != Table II average {avg:.4f} %")
+    res["lifetime_study"] = {"seconds": secs, "sweep_s": study["sweep_s"],
+                             "saving_pct": sav.mean(axis=-1).tolist(),
+                             "table2_cell_saving_pct": cell}
+    print(f"[9] lifetime_study on the card in {secs:.2f} s: "
+          f"{np.prod(shape)} lifetimes in one batched sweep "
+          f"({study['sweep_s']:.2f} s with the baseline's); the (0.5 %, "
+          f"0.5) cell saves {cell:.2f} % = Table II's average", flush=True)
     return res
 
 
@@ -1145,7 +1500,7 @@ def main(argv=None) -> int:
     # 3. kernels vs plain versions -----------------------------------------
     t0 = time.perf_counter()
     rows = kernel_checks(dev, cfg, moe_cfg)
-    rows.update(lane_kernel_checks(dev, cfg))
+    rows.update(lane_kernel_checks(dev, cfg, moe_cfg))
     report["kernel_checks"] = rows
     print(f"[3] kernels bit-exact vs plain versions at main-path shapes "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
@@ -1170,7 +1525,8 @@ def main(argv=None) -> int:
         for r in rows[name]:
             dims = (f"M={r['lanes']}x{r['M_lane']} K={r['K']} N={r['N']}"
                     if "M" in r else f"n={r['lanes']}x{r['n_lane']}")
-            print(f"    {name:23s} {dims:24s} {r['op']:12s} dev "
+            print(f"    {name:23s} {dims:24s} {r['model'][:5]} "
+                  f"{r['op']:12s} dev "
                   f"{r['dev_ms'] * 1e3:.2f} us (4 single-lane launches "
                   f"{r['singles_dev_ms'] * 1e3:.2f} us) bound "
                   f"{r['bound_ms'] * 1e3:.2f} us ({r['bound_by']}); wrapper "
@@ -1348,16 +1704,34 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     # 7. MoE path ------------------------------------------------------------
-    report["moe"] = moe_phase(dev, moe_cfg)
+    report["moe"], moe_params, moe_run = moe_phase(dev, moe_cfg)
     moe_counts = report["moe"]["launches"]
 
-    # 8. summary ----------------------------------------------------------
-    # launches summed over the four paths' runs, each counted from 0; the
+    # 8. MoE fleet, on [7]'s params -------------------------------------------
+    report["moe_fleet"] = moe_fleet_phase(dev, moe_run, moe_params,
+                                          report["moe"])
+    moe_fleet_counts = report["moe_fleet"]["launches"]
+    check(report["moe_fleet"]["profile"]["bmm_calls"]
+          == report["moe"]["profile"]["bmm_calls"],
+          f"aten::bmm calls a fleet step "
+          f"{report['moe_fleet']['profile']['bmm_calls']} != one device's "
+          f"{report['moe']['profile']['bmm_calls']}")
+    del moe_params
+    torch.cuda.empty_cache()
+    report["moe"]["reduced_vs_cpu"] = moe_reduced_vs_cpu(dev)
+    report["moe_fleet"]["reduced_vs_cpu"] = moe_fleet_reduced_vs_cpu(dev)
+
+    # 9. the paper's tables ---------------------------------------------------
+    report["paper_tables"] = paper_tables_phase(dev)
+
+    # 10. summary ---------------------------------------------------------
+    # launches summed over the five paths' runs, each counted from 0; the
     # explicit-randoms bitflip_words is on no path any more: it stays the
     # Pallas kernel's counterpart signature for signature, held against
     # its plain version in [3], with 0 launches on the paths
     launches = {name: main_counts[name] + counts3[name] + fleet_counts[name]
-                + moe_counts[name] for name in kernels.KERNEL_NAMES}
+                + moe_counts[name] + moe_fleet_counts[name]
+                for name in kernels.KERNEL_NAMES}
     # the representative shape of each kernel: the decode weight matmul
     # that dominates the fused route (gate/up, M = 2; 4 x 2 in lane mode),
     # the prefill gate/up GEMM (M = 32, where torch._int_mm computes the

@@ -9,5 +9,6 @@
 * :mod:`scenario`   — mission profiles and trajectories
 * :mod:`power`      — lifetime power / V_eff model
 * :mod:`fleet`      — FleetRuntime (N devices x O domains)
+* :mod:`runtime`    — AgingAwareRuntime, the one-device view
 * :mod:`artifacts`  — the calibration artifact
 """

@@ -166,3 +166,11 @@ def final_shifts(traj) -> Dict[str, float]:
     return {"dvp": float(np.asarray(traj["dvp"])[-1]),
             "dvn": float(np.asarray(traj["dvn"])[-1]),
             "v_final": float(np.asarray(traj["V"])[-1])}
+
+
+def per_population_finals(traj) -> Dict[str, float]:
+    """End-of-life shift [mV] of each of the six trap populations."""
+    if isinstance(traj, LifetimeTrajectory):
+        traj = traj.to_dict()
+    dv = np.asarray(traj["dv"])[-1]
+    return {name: float(dv[i]) for i, name in enumerate(aging.POPULATIONS)}

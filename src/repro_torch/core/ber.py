@@ -1,4 +1,5 @@
-"""Timing-error / BER model (port of ``repro.core.ber``, evaluation paths).
+"""Timing-error / BER model (port of ``repro.core.ber``; the anchor fit
+``solve_ber_model`` stays in the reference).
 
 ``log10 BER(d) = log10(BER_sat) - a * exp(-(d - t_clk) / tau)``: steep just
 past the clock edge, saturating as the violating-path population thins
@@ -7,6 +8,7 @@ out; analytically invertible, which the fault-tolerant policy uses.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Dict
 
 import torch
@@ -35,6 +37,15 @@ class BerModel:
         """BER (float32) of the aged critical-path delay ``d`` [s]."""
         return 10.0 ** self.log10_ber_from_delay(d)
 
+    def delay_max_for_ber(self, ber_tol: float) -> float:
+        """Invert BER(d) -> delay threshold [s] for one tolerance, in
+        Python floats (clamped to [t_clk, CAP])."""
+        gap = self.log10_sat - math.log10(max(ber_tol, 1e-30))
+        if gap <= 0.0:          # tolerance above saturation: never reached
+            return DELAY_MAX_CAP
+        d = self.t_clk - self.tau * math.log(gap / self.a)
+        return float(min(max(d, self.t_clk), DELAY_MAX_CAP))
+
     def delay_for_ber(self, ber_tol) -> torch.Tensor:
         """Invert BER(d) -> delay threshold [s], clamped to [t_clk, CAP]
         (CAP where the tolerance is above saturation), in float32."""
@@ -44,6 +55,10 @@ class BerModel:
             true_div(torch.clamp_min(gap, 1e-30), self.a))
         return torch.where(gap <= 0.0, DELAY_MAX_CAP,
                            torch.clamp(d, self.t_clk, DELAY_MAX_CAP))
+
+    def to_dict(self) -> Dict[str, Any]:
+        return {"log10_sat": float(self.log10_sat), "a": float(self.a),
+                "tau": float(self.tau), "t_clk": float(self.t_clk)}
 
     @classmethod
     def from_dict(cls, d: Dict[str, Any]) -> "BerModel":

@@ -1,17 +1,23 @@
 """Voltage-scaling policies (port of ``repro.core.policy``).
 
 A policy maps a :class:`Scenario` to per-operator ``delay_max`` thresholds,
-``thresholds(scenario, operators) -> float32 tensor batch_shape + (O,)``.
+``thresholds(scenario, operators) -> float32 tensor batch_shape + (O,)``,
+so a whole sweep (budgets x mission profiles x operator domains) runs as
+one batched :func:`simulate` (:func:`sweep_policy`).
 
 * :class:`BaselinePolicy` — classical AVS: ``delay_max = t_clk`` for every
   operator domain.
 * :class:`FaultTolerantPolicy` — per-operator ``delay_max`` from inverting
   the resilience curve at the accuracy budget, then the BER curve.
+
+Policies register by name (:func:`register_policy`) and are built with
+:func:`get_policy`.  The reference's ``"measured"`` policy (curves fitted
+by the fault-injection sweep) is not ported yet.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Protocol, runtime_checkable
 
 import numpy as np
 import torch
@@ -19,11 +25,12 @@ import torch
 from .aging import AgingParams
 from .avs import LifetimeConfig, simulate
 from .ber import BerModel
-from .constants import T_CLK
+from .constants import DEFAULT_MAX_LOSS_PCT, T_CLK
 from .delay import DelayPolynomial
 from .power import PowerModel, batched_lifetime_stats
-from .resilience import OPERATORS, ResilienceCurve, default_curves
-from .scenario import Scenario
+from .resilience import (OPERATORS, ResilienceCurve, default_curves,
+                         tolerable_bers)
+from .scenario import LifetimeTrajectory, Scenario
 
 _F32 = torch.float32
 
@@ -33,9 +40,45 @@ def _broadcast_leaf(value, batch_shape) -> torch.Tensor:
                               batch_shape)
 
 
+@runtime_checkable
+class Policy(Protocol):
+    """Anything that maps scenarios to per-operator delay thresholds."""
+
+    def thresholds(self, scenario: Scenario,
+                   operators: tuple = OPERATORS) -> torch.Tensor:
+        """Per-operator delay_max [s], shape ``batch_shape + (O,)``."""
+        ...
+
+
+POLICY_REGISTRY: Dict[str, type] = {}
+# registered in the reference, not ported yet (ROADMAP §A)
+UNPORTED_POLICIES = ("measured",)
+
+
+def register_policy(cls):
+    """Class decorator: register a policy under its ``name`` attribute."""
+    POLICY_REGISTRY[cls.name] = cls
+    return cls
+
+
+def get_policy(name: str, **kw):
+    """Instantiate a registered policy by name."""
+    if name in UNPORTED_POLICIES:
+        raise NotImplementedError(f"the {name!r} policy needs the measured "
+                                  "resilience curves, which are not ported "
+                                  "yet")
+    try:
+        return POLICY_REGISTRY[name](**kw)
+    except KeyError:
+        raise KeyError(f"unknown policy {name!r}; registered: "
+                       f"{sorted(POLICY_REGISTRY)}") from None
+
+
+@register_policy
 @dataclasses.dataclass(frozen=True)
 class BaselinePolicy:
-    """Classical AVS: the threshold IS the scenario's clock period."""
+    """Classical AVS: the threshold IS the scenario's clock period.  The
+    ``t_clk`` field only serves the scenario-free :meth:`delay_max`."""
     name = "baseline"
     t_clk: float = T_CLK
 
@@ -45,17 +88,36 @@ class BaselinePolicy:
         return torch.broadcast_to(t[..., None], scenario.batch_shape
                                   + (len(operators),))
 
+    def delay_max(self) -> Dict[str, float]:
+        return {op: self.t_clk for op in OPERATORS}
 
+
+@register_policy
 @dataclasses.dataclass(frozen=True)
 class FaultTolerantPolicy:
-    """``max_loss_pct=None`` takes the budget from the scenario."""
+    """``max_loss_pct=None`` takes the budget from the scenario; a float
+    pins it (and is the budget of the scenario-free :meth:`delay_max`)."""
     name = "fault_tolerant"
     ber_model: BerModel
     max_loss_pct: float | None = None
     curves: Mapping[str, ResilienceCurve] | None = None
 
+    def _budget_scalar(self) -> float:
+        return DEFAULT_MAX_LOSS_PCT if self.max_loss_pct is None \
+            else self.max_loss_pct
+
     def _curves_for(self, operators) -> Mapping[str, ResilienceCurve]:
         return self.curves or default_curves(tuple(operators))
+
+    def tolerable_ber(self) -> Dict[str, float]:
+        """Each operator's tolerable BER at the budget (Python floats)."""
+        return tolerable_bers(dict(self._curves_for(OPERATORS)),
+                              self._budget_scalar())
+
+    def delay_max(self) -> Dict[str, float]:
+        """Each operator's delay threshold [s] at the budget."""
+        return {op: self.ber_model.delay_max_for_ber(tol)
+                for op, tol in self.tolerable_ber().items()}
 
     def thresholds(self, scenario: Scenario,
                    operators: tuple = OPERATORS) -> torch.Tensor:
@@ -77,6 +139,17 @@ class FaultTolerantPolicy:
         d = self.ber_model.delay_for_ber(tol)
         t_clk = _broadcast_leaf(scenario.t_clk, batch)[..., None]
         return torch.maximum(d, t_clk).to(_F32)
+
+
+def sweep_policy(policy: Policy, params: AgingParams, poly: DelayPolynomial,
+                 scenarios: Scenario, *, operators: tuple = OPERATORS,
+                 recovery: bool = True, device="cuda") -> LifetimeTrajectory:
+    """Run a policy over a scenario batch as one batched simulation: the
+    result's batch shape is ``scenarios.batch_shape + (O,)`` (the leaves
+    gain a trailing operator axis, matched by the policy's thresholds)."""
+    dmax = policy.thresholds(scenarios, operators)
+    return simulate(params, poly, scenarios.expand_dims(-1), delay_max=dmax,
+                    recovery=recovery, device=device)
 
 
 def evaluate_policy(policy, params: AgingParams, poly: DelayPolynomial,

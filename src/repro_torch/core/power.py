@@ -1,4 +1,5 @@
-"""Accelerator power model (port of ``repro.core.power``, evaluation paths).
+"""Accelerator power model (port of ``repro.core.power``; the calibration
+fit ``calibrate_power`` stays in the reference).
 
     P(V, dVth) = P_dyn0 * (V / V0)**2
                + P_leak0 * (V / V0) * 10**((k_dibl * (V - V0) - dVth_mean) / S)
@@ -26,8 +27,8 @@ class PowerModel:
     s_slope: float = 0.085      # subthreshold slope [V/decade]
     k_dibl: float = 1.5         # supply sensitivity of leakage
 
-    def power(self, V, dvth_p_mv, dvth_n_mv) -> torch.Tensor:
-        """Instantaneous power [W] at full activity; dVth args in mV."""
+    def power_split(self, V, dvth_p_mv, dvth_n_mv):
+        """(dynamic, leakage) components [W], float32; dVth args in mV."""
         f32 = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float32)
         V, dvp, dvn = f32(V), f32(dvth_p_mv), f32(dvth_n_mv)
         dv_mean = 0.5 * (dvp + dvn) * 1e-3
@@ -35,7 +36,23 @@ class PowerModel:
         dyn = self.p_dyn0 * (r * r)
         leak = self.p_leak0 * r * 10.0 ** true_div(
             self.k_dibl * (V - self.v0) - dv_mean, self.s_slope)
+        return dyn, leak
+
+    def power(self, V, dvth_p_mv, dvth_n_mv) -> torch.Tensor:
+        """Instantaneous power [W] at full activity; dVth args in mV."""
+        dyn, leak = self.power_split(V, dvth_p_mv, dvth_n_mv)
         return dyn + leak
+
+    def power_at_activity(self, V, dvth_p_mv, dvth_n_mv,
+                          activity) -> torch.Tensor:
+        """Power when the device is busy ``activity`` of the time: the
+        CV^2f term scales with the duty, leakage burns regardless."""
+        dyn, leak = self.power_split(V, dvth_p_mv, dvth_n_mv)
+        act = torch.as_tensor(np.asarray(activity), dtype=torch.float32)
+        return act * dyn + leak
+
+    def to_dict(self) -> Dict[str, Any]:
+        return dataclasses.asdict(self)
 
     @classmethod
     def from_dict(cls, d: Dict[str, Any]) -> "PowerModel":

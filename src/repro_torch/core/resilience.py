@@ -2,14 +2,16 @@
 published-heterogeneity defaults).
 
 Per-operator accuracy loss is a log-BER logistic,
-``loss(ber) = L_max / (1 + exp(-k * (log10(ber) - log10(ber50))))``; the
-fault-tolerant policy inverts it (:mod:`repro_torch.core.policy`).  The
+``loss(ber) = L_max / (1 + exp(-k * (log10(ber) - log10(ber50))))``;
+:meth:`ResilienceCurve.tolerable_ber` inverts it, and so does the
+fault-tolerant policy (:mod:`repro_torch.core.policy`).  The
 measured-curve artifact and its fitting stay in the reference for now.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+import math
+from typing import Dict, Mapping
 
 # Operator domains of the paper's Table II.
 OPERATORS = ("q", "k", "v", "qkt", "sv", "o", "gate", "up", "down")
@@ -47,6 +49,27 @@ class ResilienceCurve:
     steepness: float = DEFAULT_STEEPNESS
     l_max: float = DEFAULT_LMAX
 
+    def accuracy_loss(self, ber: float) -> float:
+        """Accuracy loss [%] at a given BER."""
+        if ber <= 0.0:
+            return 0.0
+        x = self.steepness * (math.log10(ber) - math.log10(self.ber50))
+        return self.l_max / (1.0 + math.exp(-min(max(x, -60.0), 60.0)))
+
+    def tolerable_ber(self, max_loss_pct: float = 0.5) -> float:
+        """Largest BER with accuracy loss <= max_loss_pct [%]."""
+        frac = min(max(max_loss_pct / self.l_max, 1e-9), 1.0 - 1e-9)
+        x = math.log(frac / (1.0 - frac))
+        return 10.0 ** (math.log10(self.ber50) + x / self.steepness)
+
 
 def default_curves(ops: tuple = OPERATORS) -> Dict[str, ResilienceCurve]:
     return {op: ResilienceCurve(ber50=DEFAULT_BER50[op]) for op in ops}
+
+
+def tolerable_bers(curves: Mapping[str, ResilienceCurve] | None = None,
+                   max_loss_pct: float = 0.5) -> Dict[str, float]:
+    """Each curve's tolerable BER at ``max_loss_pct`` (default curves of
+    the paper's nine operators when none are given)."""
+    curves = curves or default_curves()
+    return {op: c.tolerable_ber(max_loss_pct) for op, c in curves.items()}

@@ -1,0 +1,1 @@
+"""Examples on the port: ``python -m repro_torch.examples.<name>``."""

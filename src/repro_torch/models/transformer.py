@@ -11,8 +11,11 @@ tree across.  The KV cache is updated in place during decode (the
 reference returns a new buffer).  Under a lane config (N devices'
 :class:`FaultConfig`) the batch axis folds the lanes lane-major: a
 ``(N * B, S)`` forward is N devices' ``(B, S)`` forwards, each at its own
-BERs, in one pass over the weights.  Sliding windows, prefix embeddings and
-the hybrid, SSM, enc-dec and VLM families are not ported yet.
+BERs, in one pass over the weights (the MoE dispatch keeps each lane's
+capacity and queue positions its own, :mod:`repro_torch.models.moe`).
+Sliding windows, prefix embeddings, encoder layers, other block patterns
+and the hybrid, SSM, enc-dec and VLM families are not ported yet:
+:func:`check_supported` refuses them.
 """
 from __future__ import annotations
 
@@ -30,22 +33,23 @@ from .moe import moe_apply, moe_init
 UNPORTED_FAMILIES = ("hybrid", "ssm", "encdec", "vlm")
 
 
-def _check_supported(cfg: ModelConfig) -> None:
+def check_supported(cfg: ModelConfig) -> None:
+    """Refuse a config the port would serve differently from the reference:
+    an unported family, or a field that changes the computation in any
+    family (a sliding ``window`` in attention and the cache, prefix
+    embeddings, encoder layers, a block pattern other than attention)."""
     if cfg.family in UNPORTED_FAMILIES:
         raise NotImplementedError(f"{cfg.name}: the {cfg.family} family is "
                                   "not ported yet")
-
-
-def check_lane_support(cfg: ModelConfig) -> None:
-    """Refuse a lane config where folding lanes into the batch would change
-    the computation: the MoE dispatch sizes its expert buffers from the
-    tokens it sees (``moe._capacity``), which under the reference's
-    ``vmap`` are one lane's."""
-    if cfg.moe:
-        raise NotImplementedError(
-            f"{cfg.name}: serving an MoE model on a fleet needs a lane-aware "
-            "expert dispatch (moe._capacity counts one lane's tokens), which "
-            "is not ported yet (ROADMAP §A: the MoE fleet)")
+    unported = {"window": cfg.window is not None,
+                "prefix_tokens": cfg.prefix_tokens > 0,
+                "n_encoder_layers": cfg.n_encoder_layers > 0,
+                "block_pattern": tuple(cfg.block_pattern) != ("attn",)}
+    for field, is_set in unported.items():
+        if is_set:
+            raise NotImplementedError(
+                f"{cfg.name}: {field}={getattr(cfg, field)!r} is not ported "
+                "yet (the port would serve it as if unset)")
 
 
 def _attn_init(cfg: ModelConfig, dtype, device, gen) -> Dict:
@@ -67,7 +71,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.bfloat16,
     the reference's scales (``N(0,1) * d**-0.5`` projections, ``0.02``
     embeddings) and tree (no ``lm_head`` under tied embeddings, a float32
     MoE router)."""
-    _check_supported(cfg)
+    check_supported(cfg)
     device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
     d, f = cfg.d_model, cfg.d_ff
@@ -144,11 +148,11 @@ def _attn_block(x, bp, cfg: ModelConfig, *, positions, cache=None,
 def _run_blocks(x, params, cfg: ModelConfig, *, positions, states=None,
                 cache_len=None, fi=None, with_aux: bool = False):
     """-> ``(x, new_states, aux)``: ``aux`` is the float32 load-balance loss
-    summed over layers when ``with_aux`` is set, else ``None``.  It is
+    summed over layers when ``with_aux`` is set (``(N,)`` under a lane
+    config of N lanes, each lane's own), else ``None``.  It is
     built on the device (no host copy), so the step stays free of
     host-device synchronisation."""
-    if fi is not None and fi.lanes is not None:
-        check_lane_support(cfg)
+    check_supported(cfg)
     new_states: Optional[List] = [] if states is not None else None
     aux_total = (torch.zeros((), dtype=torch.float32, device=x.device)
                  if with_aux else None)
@@ -182,8 +186,8 @@ def forward_logits(params, cfg: ModelConfig, tokens, *,
                    cache_len=None):
     """Full-sequence forward (prefill).  tokens: (B, S) int.  Returns
     ``(logits (B, S, vocab) float32, new_states, aux)``, ``aux`` the MoE
-    load-balance loss summed over layers (float32, 0 for dense models)."""
-    _check_supported(cfg)
+    load-balance loss summed over layers (float32, 0 for dense models;
+    ``(N,)``, one per lane, under a lane config)."""
     x = embed_tokens(params, cfg, tokens)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     x, new_states, aux = _run_blocks(x, params, cfg, positions=positions,

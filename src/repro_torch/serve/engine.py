@@ -65,6 +65,7 @@ class ServeEngine:
         object exposing ``op_bers / age_years / total_power``.  ``params``
         must already live on ``device`` (``init_params(device=...)`` or
         :func:`repro_torch.convert.params_from_reference`)."""
+        tf.check_supported(cfg)
         self.device = resolve_device(device)
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params live on {params['embed'].device}, the "
@@ -170,7 +171,7 @@ class FleetServeEngine:
             raise NotImplementedError("router= / loads= need "
                                       "FleetRuntime.apply_load and the "
                                       "scheduler, which are not ported yet")
-        tf.check_lane_support(cfg)
+        tf.check_supported(cfg)
         self.device = resolve_device(device)
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params live on {params['embed'].device}, the "

@@ -307,6 +307,32 @@ def test_cuda_fused_lanes_match_plain_and_single_lanes(cuda_device, L, Ml,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("Ml", [32, 2])
+@pytest.mark.parametrize("K,N", [(4096, 128), (4096, 512), (4096, 8192),
+                                 (8192, 4096)],
+                         ids=["router", "k/v", "q", "o"])
+def test_cuda_moe_fleet_lane_gemm_matches_plain(cuda_device, Ml, K, N):
+    """The MoE fleet's lane launches: qwen3_moe_235b's router, k/v, q and o
+    (head_dim 128) with 4 lanes of B = 2 folded (M = 4 x 32 prefill, 4 x 2
+    decode), int32 and dequantised, equal the plain lane version bit for
+    bit, each in one launch on the fast path."""
+    L = 4
+    a, b, xs, ws = _operands(cuda_device, L * Ml, K, N, K + N + Ml)
+    bers, seeds = _lane_params(L, Ml + N)
+    bm, bn, _ = ops._resolve_blocks(Ml, N, K, 256, 256, 256)
+    for xs_, ws_ in ((None, None), (xs, ws)):
+        kernels.reset_launch_counts()
+        got = pfam.fused_aged_matmul_lanes(a, b, xs_, ws_, bers, seeds,
+                                           lanes=L, bm=bm, bn=bn)
+        by_path = kernels.launch_counts_by_path()["fused_aged_matmul_lanes"]
+        want = ref.fused_aged_matmul_lanes_ref(a, b, xs_, ws_, bers, seeds,
+                                               lanes=L, bm=bm, bn=bn)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        assert by_path == {"fast": 1, "generic": 0}
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("L", LANE_COUNTS)
 @pytest.mark.parametrize("n", [1, 7, 4096, 8195])
 def test_cuda_draw_lanes_match_plain_and_single_lanes(cuda_device, L, n):

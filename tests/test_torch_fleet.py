@@ -31,7 +31,6 @@ from repro_torch.data import SyntheticLM
 from repro_torch.kernels import ops
 from repro_torch.kernels.bitflip import bitflip_draw_lanes
 from repro_torch.kernels.fused_aged_matmul import fused_aged_matmul_lanes
-from repro_torch.models import transformer as tf
 from repro_torch.models.layers import FaultConfig
 from repro_torch.serve import steps
 from repro_torch.serve.engine import FleetServeEngine
@@ -394,20 +393,14 @@ def test_fleet_engine_shards_a_flat_batch(model):
         eng.generate(lane_prompts[0][:1], 3)
 
 
-def test_fleet_engine_refuses_moe_and_router():
-    cfg = get_config("qwen3_moe_235b").reduced()
-    fleet = FleetRuntime.for_model(cfg, n_devices=2, device="cpu")
-    params = {"embed": torch.zeros((cfg.vocab, cfg.d_model))}
-    with pytest.raises(NotImplementedError, match="MoE fleet"):
-        FleetServeEngine(cfg, params, fleet, device="cpu")
+def test_fleet_engine_refuses_router():
+    """``router=`` needs ``FleetRuntime.apply_load``, which is not
+    ported (the MoE family is served: ``tests/test_torch_moe_fleet.py``)."""
+    params = {"embed": torch.zeros((64, 64))}
     dense = get_config("llama3_8b").reduced()
     with pytest.raises(NotImplementedError, match="apply_load"):
         FleetServeEngine(dense, params, FleetRuntime(device="cpu"),
                          router="wear_level", device="cpu")
-    lane_fi = FaultConfig(bers={}, key=prandom.split(prandom.PRNGKey(0), 2))
-    with pytest.raises(NotImplementedError, match="MoE fleet"):
-        tf._run_blocks(torch.zeros((2, 1, cfg.d_model)), {"layers": []}, cfg,
-                       positions=None, fi=lane_fi)
 
 
 def test_fleet_entry_points_default_to_cuda_and_raise_without_it(

@@ -36,6 +36,13 @@ LANES = [(M, K, N) for M in (8, 128)
          for K, N in ((4096, 4096), (4096, 1024), (4096, 14336),
                       (14336, 4096))]
 
+# qwen3_moe_235b's faulted weight GEMMs at its published head_dim 128
+# (q, k/v, router at K = d_model; o at K = 64 heads x 128) with 4 lanes of
+# B = 2 folded: the MoE fleet's decode and prefill
+MOE_LANES = [(M, K, N) for M in (8, 128)
+             for K, N in ((4096, 8192), (4096, 512), (4096, 128),
+                          (8192, 4096))]
+
 
 def _wrap32(x: torch.Tensor) -> torch.Tensor:
     """int64 -> int32 with two's-complement wraparound."""
@@ -86,6 +93,28 @@ def test_plan_for_lane_folded_rows(M, K, N):
     assert plan.workspace_words == (plan.tiles * plan.splits * plan.bm
                                     * plan.bn if plan.splits > 1 else 0)
     assert plan.n_tickets == (plan.tiles if plan.splits > 1 else 0)
+
+
+@pytest.mark.parametrize("M,K,N", MOE_LANES)
+def test_plan_for_moe_lane_folded_rows(M, K, N):
+    """The MoE fleet's lane launches take the fast path: eight decode rows
+    the 16-row tile and grid of one lane's M = 2, 128 prefill rows two
+    64-row tiles; K is split until every SM has a CTA or every split is
+    one stage (the router's 128 columns give too few tiles to fill 132
+    SMs)."""
+    plan = gemm_plan(M, N, K, H100_SMS)
+    assert plan.path == "fast"
+    kblocks = -(-K // FAST_BK)
+    assert plan.ctas >= H100_SMS or plan.splits == kblocks
+    assert plan.grid[0] * plan.grid[1] * plan.grid[2] == plan.ctas
+    if M == 8:
+        one = gemm_plan(2, N, K, H100_SMS)
+        assert (plan.bm, plan.bn, plan.splits, plan.grid) == \
+            (16, one.bn, one.splits, one.grid)
+    else:
+        assert plan.bm == 64 and plan.grid[1] == 2
+    assert plan.workspace_words == (plan.tiles * plan.splits * plan.bm
+                                    * plan.bn if plan.splits > 1 else 0)
 
 
 @pytest.mark.parametrize("M,K,N", RAGGED)

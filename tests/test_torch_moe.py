@@ -30,7 +30,7 @@ from repro_torch.models import moe
 from repro_torch.models import transformer as tf
 from repro_torch.models.layers import FaultConfig
 from repro_torch.serve import steps
-from repro_torch.serve.engine import ServeEngine
+from repro_torch.serve.engine import FleetServeEngine, ServeEngine
 
 OPS = ("q", "k", "v", "qkt", "sv", "o", "gate", "up", "down", "router")
 MOE_ARCHS = ("qwen3_moe_235b", "arctic_480b")
@@ -100,6 +100,39 @@ def test_unported_families_are_refused():
                                  family="hybrid")
     with pytest.raises(NotImplementedError, match="hybrid"):
         tf.init_params(hybrid, device="cpu")
+
+
+# config fields the port does not implement (ROADMAP §C.1): the reference
+# applies each in any family, so the port must refuse rather than serve
+# the config as if the field were unset
+UNPORTED_FIELDS = {"window": 4, "prefix_tokens": 8, "n_encoder_layers": 2,
+                   "block_pattern": ("rec", "rec", "attn")}
+
+
+@pytest.mark.parametrize("field", list(UNPORTED_FIELDS))
+def test_unported_config_fields_are_refused(field):
+    """A reduced llama3_8b with ``window=4`` (C.1's reproduction), prefix
+    tokens, encoder layers or a hybrid block pattern raises, naming the
+    field, at ``init_params``, ``forward_logits``, ``serve.steps.prefill``,
+    ``ServeEngine`` and ``FleetServeEngine`` (before the repair the
+    windowed prefill returned the unwindowed logits)."""
+    base = get_config("llama3_8b").reduced()
+    cfg = dataclasses.replace(base, **{field: UNPORTED_FIELDS[field]})
+    params = tf.init_params(base, seed=2, dtype=torch.float32, device="cpu")
+    prompts = torch.as_tensor(SyntheticLM(
+        vocab=cfg.vocab, seq_len=8, global_batch=2).batch_at(0).tokens)
+    calls = {
+        "init_params": lambda: tf.init_params(cfg, device="cpu"),
+        "forward_logits": lambda: tf.forward_logits(params, cfg, prompts),
+        "prefill": lambda: steps.prefill(params, cfg, prompts, None, 32),
+        "ServeEngine": lambda: ServeEngine(cfg, params, device="cpu"),
+        "FleetServeEngine": lambda: FleetServeEngine(
+            cfg, params, FleetRuntime(n_devices=2, device="cpu"),
+            device="cpu")}
+    for name, call in calls.items():
+        with pytest.raises(NotImplementedError, match=field):
+            call()
+    steps.prefill(params, base, prompts, None, 32)      # the base serves
 
 
 def test_family_operators_match_reference():
