@@ -52,6 +52,22 @@ Phases (any failure exits non-zero):
    one bf16 ulp of the replay's, no host-device synchronisation in a
    decode step, a profiled step, timings beside [4]'s, and a reduced
    llama3_8b fleet on the card against the CPU;
+6b. traffic-driven aging on [4]'s params: ``FleetRuntime.apply_load`` of
+   the [6] fleet under 3 years of diurnal traffic at 55 % (144 epochs) for
+   ``round_robin`` and ``wear_level``, and ``rest_to_recover`` with the
+   recovery pool and thermal feedback at 480 epochs, each on the card
+   against the same call on the CPU (supplies equal but for at most one
+   (device, op) moved by one ``v_step``, shifts within 1e-4), wear_level's
+   fleet-max ΔVth below round_robin's, the co-sim's wall times and its
+   launches per epoch; ``FleetServeEngine(router="wear_level", ...)``
+   serving ``(4, 2, 16)`` prompts for 8 greedy tokens at full width at the
+   traffic-aged BERs (which must differ from [6]'s), with 7 + 2 lane
+   launches per layer and forward, every lane equal to its replay and no
+   sync in a decode step, timed in turns against the same fleet at [6]'s
+   static BERs; the ``state_dict`` round trip, ``resize`` +
+   ``apply_load`` bit-exact against the undisturbed run, ``health()``; and
+   ``repro_torch.benchmarks.sched_bench`` / ``disruption_bench`` on the
+   card (any FAIL fails);
 7. the MoE path: qwen3_moe_235b at its published widths (head_dim 128,
    which the reference config leaves to derive as d_model // n_heads =
    64; 12 of 94 layers, bf16 random params) on ``FleetRuntime.for_model``
@@ -83,7 +99,7 @@ Phases (any failure exits non-zero):
    PASS/FAIL check, and ``repro_torch.examples.lifetime_study``'s sweep,
    each timed;
 10. a ``{"kernels": [...]}`` line (launches summed over the runs of [4],
-   [5], [6], [7] and [8]), the ``nvidia-smi`` line, and as the last line
+   [5], [6], [6b], [7] and [8]), the ``nvidia-smi`` line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
 Details go to ``chiprun_out/chip_smoke.json``.  The port never calls
@@ -1000,6 +1016,299 @@ def fleet_phase(dev, cfg, params, single) -> dict:
     return res
 
 
+YEAR_S = 365.25 * 24 * 3600.0
+# [6b]'s traffic: the reference serving example's settings (3 years of
+# diurnal traffic at 55 % utilization over 144 epochs)
+LOAD_KW = {"workload": "diurnal", "utilization": 0.55, "n_epochs": 144,
+           "horizon_s": 3 * YEAR_S}
+SHIFT_RTOL = 1e-4              # card against CPU, co-sim shifts
+
+
+def _aged_fleet(dev):
+    from repro_torch.core.fleet import FleetRuntime
+    fleet = FleetRuntime(n_devices=len(FLEET_AGES), device=dev)
+    for i, age in enumerate(FLEET_AGES):
+        fleet.set_age(years=age, device=i)
+    return fleet
+
+
+def cosim_card_vs_cpu(dev, router, **kw) -> dict:
+    """``apply_load`` of a fleet aged ``FLEET_AGES`` on the card and the
+    same call on the CPU: the supplies may differ only where the card's
+    float32 exp/pow moves a boost decision — at most one (device, op),
+    by one ``v_step`` — and the shifts agree within ``SHIFT_RTOL``."""
+    import numpy as np
+    import torch
+    runs = {}
+    for where in (dev, "cpu"):
+        fleet = _aged_fleet(where)
+        fleet.trap_state()                # the static lifetime, not timed
+        if where != "cpu":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cos = fleet.apply_load(router=router, **kw)
+        runs["cpu" if where == "cpu" else "cuda"] = (
+            cos, time.perf_counter() - t0)
+    (g, g_s), (c, c_s) = runs["cuda"], runs["cpu"]
+    diff = np.nonzero(g.V != c.V)
+    moved = sorted({(int(d), int(o)) for d, o in zip(diff[1], diff[2])})
+    step = float(np.max(np.abs(g.V - c.V))) if diff[0].size else 0.0
+    check(len(moved) <= 1 and step <= 0.010 + 1e-6,
+          f"{router} co-sim: supplies differ card vs CPU at (device, op) "
+          f"{moved}, by up to {step:.4f} V (first at epoch "
+          f"{int(diff[0][0]) if diff[0].size else None})")
+    rel = {}
+    # the shifts: the monotone state and the effective totals (dv - rec);
+    # the relaxed pool alone is a small difference of large terms
+    for f in ("dv", "dvp", "dvn"):
+        a, b = getattr(g, f).astype(np.float64), getattr(c, f)
+        rel[f] = float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-6)))
+        check(np.allclose(a, b, rtol=SHIFT_RTOL, atol=1e-6),
+              f"{router} co-sim {f}: card vs CPU differ by {rel[f]:.3g} "
+              f"relative (> {SHIFT_RTOL})")
+    return {"cos": g, "card_s": g_s, "cpu_s": c_s, "moved": moved,
+            "max_shift_rel": rel, "epochs": g.n_epochs}
+
+
+def cosim_launches(dev, epochs: int = 24) -> dict:
+    """Kernel launches per epoch of the routed co-sim (wear_level, the
+    aged fleet, ``epochs`` epochs), from ``torch.profiler``; loads and
+    the starting state are made before the trace."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.sched import cosimulate, get_workload
+    fleet = _aged_fleet(dev)
+    st = fleet.trap_state()
+    dmax = fleet.policy.thresholds(fleet.scenario, fleet.operators)
+    loads = get_workload("diurnal", n_devices=fleet.n_devices,
+                         utilization=0.55, n_epochs=epochs).loads(
+                             0, device=dev)
+    run = lambda: cosimulate(fleet.cal.aging, fleet.cal.delay_poly,
+                             fleet.scenario, dmax, loads, "wear_level",
+                             n_devices=fleet.n_devices,
+                             epoch_s=3 * YEAR_S / 144, dv0=st["dv"],
+                             v0=st["v"], device=dev)
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages()
+          if getattr(e, "device_type", None) == DeviceType.CUDA]
+    n = sum(e.count for e in ev)
+    busy = sum(_dev_us(e) for e in ev) / 1e3
+    return {"epochs": epochs, "launches": n, "launches_per_epoch": n / epochs,
+            "device_busy_ms": busy}
+
+
+def fleet_load_phase(dev, cfg, params, static) -> dict:
+    """[6b] Traffic-driven fleet aging on the card: the routed co-sim
+    (round_robin, wear_level; rest_to_recover with recovery and thermal
+    feedback) against the port on the CPU, then ``FleetServeEngine(router=
+    "wear_level")`` at [6]'s width and depth on [4]'s params serving the
+    traffic-aged BERs, the aging state's round trips, and the scheduler
+    benchmarks."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.benchmarks import disruption_bench, sched_bench
+    from repro_torch.core.fleet import FleetRuntime
+    from repro_torch.data import SyntheticLM
+    from repro_torch.serve.engine import FleetServeEngine
+
+    res = {"load_kw": dict(LOAD_KW)}
+    cos = {}
+    for router, kw in (("round_robin", LOAD_KW), ("wear_level", LOAD_KW),
+                       ("rest_to_recover", dict(LOAD_KW, n_epochs=480,
+                                                recovery=True,
+                                                thermal=True))):
+        r = cosim_card_vs_cpu(dev, router, **kw)
+        cos[router] = r
+        res[router] = {k: r[k] for k in ("card_s", "cpu_s", "moved",
+                                         "max_shift_rel", "epochs")}
+        res[router]["fleet_max_dvp_mv"] = float(
+            r["cos"].device_wear()[-1].max())
+        print(f"[6b] {router} co-sim, {r['epochs']} epochs x "
+              f"{len(FLEET_AGES)} devices: card {r['card_s']:.2f} s, CPU "
+              f"{r['cpu_s']:.2f} s; supplies == CPU except at "
+              f"{len(r['moved'])} (device, op); shifts within "
+              f"{max(r['max_shift_rel'].values()):.2g} relative; "
+              f"fleet-max dVth,p {res[router]['fleet_max_dvp_mv']:.2f} mV",
+              flush=True)
+    rr = res["round_robin"]["fleet_max_dvp_mv"]
+    wl = res["wear_level"]["fleet_max_dvp_mv"]
+    check(wl < rr, f"wear_level fleet-max dVth,p {wl:.3f} mV not below "
+          f"round_robin's {rr:.3f} mV")
+    res["wear_level_saving_pct"] = 100.0 * (1.0 - wl / rr)
+    res["cosim_profile"] = cosim_launches(dev)
+    cp = res["cosim_profile"]
+    print(f"    wear_level cuts the fleet-max dVth,p by "
+          f"{res['wear_level_saving_pct']:.2f} % against round_robin; the "
+          f"routed co-sim makes {cp['launches_per_epoch']:.0f} kernel "
+          f"launches an epoch (device busy {cp['device_busy_ms']:.1f} ms "
+          f"over {cp['epochs']} epochs)", flush=True)
+
+    # serving at the traffic-aged BERs, full width
+    N, B, S, n_steps = len(FLEET_AGES), 2, 16, 8
+    L = cfg.n_layers
+    fleet = _aged_fleet(dev)
+    t0 = time.perf_counter()
+    engine = FleetServeEngine(cfg, params, fleet, max_len=64,
+                              use_systolic_kernel=True, router="wear_level",
+                              workload="diurnal",
+                              apply_load_kw={k: v for k, v in LOAD_KW.items()
+                                             if k != "workload"},
+                              device=dev)
+    res["apply_load_s"] = time.perf_counter() - t0
+    check(getattr(fleet, "last_cosim", None) is not None
+          and fleet.last_cosim.n_epochs == LOAD_KW["n_epochs"],
+          "FleetServeEngine(router=) did not age the fleet")
+    check(np.array_equal(fleet.last_cosim.V, cos["wear_level"]["cos"].V),
+          "the engine's co-sim differs from the same call made alone")
+    bers = fleet.op_ber_array()
+    prompts = SyntheticLM(vocab=cfg.vocab, seq_len=S,
+                          global_batch=N * B).batch_at(0).tokens.reshape(
+                              N, B, S)
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = engine.generate(prompts, n_steps)
+    gen_s = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    by_path = kernels.launch_counts_by_path()
+    tok = out.tokens
+    check(tok.shape == (N, B, n_steps), f"[6b] tokens shape {tok.shape}")
+    want_fused, want_flip = 7 * L * n_steps, 2 * L * n_steps
+    check(counts["fused_aged_matmul_lanes"] == want_fused
+          and by_path["fused_aged_matmul_lanes"] == {"fast": want_fused,
+                                                     "generic": 0},
+          f"[6b] lane GEMM launches {by_path} != {want_fused} fast")
+    check(counts["bitflip_draw_lanes"] == want_flip,
+          f"[6b] lane draw launches {counts} != {want_flip}")
+    check(all(counts[k] == 0 for k in ("fused_aged_matmul", "bitflip_draw",
+                                       "bitflip_words", "systolic_matmul")),
+          f"[6b] launched a single-lane or three-pass kernel: {counts}")
+    check(np.array_equal(out.bers, bers), f"[6b] served BERs {out.bers} != "
+          f"the fleet's after apply_load {bers}")
+    static_bers = np.asarray(static["bers"])
+    check(not np.array_equal(out.bers, static_bers),
+          "[6b] traffic-aged BERs equal [6]'s static ones")
+    rp = lane_replay(engine, params, cfg, prompts, dev, tok, n_steps,
+                     want_fused)
+    first = rp["first"]
+    check(first is None, f"[6b] lane {first and first[0]} row "
+          f"{first and first[1]} diverges from its single-lane replay at "
+          f"token {first and first[2]}")
+    check(rp["within"], f"[6b] prefill logits differ from the replay's by "
+          f"{rp['logit_diff']:.3g}, more than one bf16 ulp")
+    pf, dc = out.timings["prefill_s"], out.timings["decode_s"]
+    per_tok = dc / (n_steps - 1)
+    res["serve"] = {"lanes": N, "layers": L, "n_steps": n_steps,
+                    "bers": out.bers.tolist(),
+                    "static_bers": static_bers.tolist(),
+                    "generate_s": gen_s, "prefill_s": pf,
+                    "decode_s_per_token": per_tok,
+                    "tokens_per_s": N * B * n_steps / gen_s,
+                    "launches": counts, "launches_by_path": by_path,
+                    "tokens": tok.tolist(),
+                    "prefill_logit_max_abs_diff": rp["logit_diff"]}
+    print(f"    FleetServeEngine(router=wear_level) aged the fleet in "
+          f"{res['apply_load_s']:.2f} s; admitted BER q / o / down per lane"
+          f", traffic-aged: " + "; ".join(
+              f"{out.bers[i, 0]:.2e} / {out.bers[i, 5]:.2e} / "
+              f"{out.bers[i, 8]:.2e}" for i in range(N)), flush=True)
+    print(f"    [6]'s static (ages {', '.join(f'{a:g}' for a in FLEET_AGES)}"
+          f" y): " + "; ".join(
+              f"{static_bers[i, 0]:.2e} / {static_bers[i, 5]:.2e} / "
+              f"{static_bers[i, 8]:.2e}" for i in range(N)), flush=True)
+    print(f"    generate: prefill {pf * 1e3:.1f} ms, decode "
+          f"{per_tok * 1e3:.1f} ms/token, {res['serve']['tokens_per_s']:.2f}"
+          f" tokens/s ([6]: prefill {static['prefill_s'] * 1e3:.1f} ms, "
+          f"decode {static['decode_s_per_token'] * 1e3:.1f} ms/token, "
+          f"{static['tokens_per_s']:.2f} tokens/s); launches per forward "
+          f"{counts['fused_aged_matmul_lanes'] // n_steps} lane GEMM, "
+          f"{counts['bitflip_draw_lanes'] // n_steps} lane draw; every lane "
+          f"== its single-lane replay", flush=True)
+    res["host_syncs"] = decode_syncs(engine, prompts)
+    print(f"    host syncs of generate at 2 / 8 tokens: "
+          f"{res['host_syncs']['generate_2_tokens']} / "
+          f"{res['host_syncs']['generate_8_tokens']} (none in a decode "
+          f"step)", flush=True)
+    # the same work at the static and at the traffic-aged BERs, in turns
+    # (one generate is too short to compare across phases: the host clock
+    # spreads by tens of percent between calls)
+    static_engine = FleetServeEngine(cfg, params, _aged_fleet(dev),
+                                     max_len=64, use_systolic_kernel=True,
+                                     device=dev)
+    turns = {"static": [], "traffic": []}
+    for _ in range(3):
+        for name, eng in (("static", static_engine), ("traffic", engine)):
+            torch.cuda.synchronize()
+            t = eng.generate(prompts, n_steps).timings
+            turns[name].append((t["prefill_s"],
+                                t["decode_s"] / (n_steps - 1)))
+    med = {k: [float(np.median([x[i] for x in v])) for i in (0, 1)]
+           for k, v in turns.items()}
+    res["turns"] = {"runs": turns, "median_prefill_decode_s": med}
+    print(f"    3 turns each, medians: static BERs prefill "
+          f"{med['static'][0] * 1e3:.1f} ms, decode "
+          f"{med['static'][1] * 1e3:.1f} ms/token; traffic-aged prefill "
+          f"{med['traffic'][0] * 1e3:.1f} ms, decode "
+          f"{med['traffic'][1] * 1e3:.1f} ms/token", flush=True)
+    del engine, static_engine
+
+    # the aging state on the card: round trip, resize, health
+    sd = fleet.state_dict()
+    back = FleetRuntime(n_devices=N, device=dev)
+    back.load_state_dict(json.loads(json.dumps(sd)))
+    a, b = fleet.trap_state(), back.trap_state()
+    check(all(np.array_equal(a[k], b[k]) for k in a),
+          "state_dict -> load_state_dict does not round-trip")
+    E, e, keep = 64, 32, [0, 2, 3]
+    U = np.random.default_rng(7).uniform(0.0, 1.0, (E, N)).astype(np.float32)
+    H = 2.0 * YEAR_S
+    full = FleetRuntime(n_devices=N, device=dev).apply_load(
+        util_trace=U, horizon_s=H, recovery=True)
+    cut = FleetRuntime(n_devices=N, device=dev)
+    cut.apply_load(util_trace=U[:e], horizon_s=H * e / E, recovery=True)
+    cut2 = cut.resize(keep, n_fresh=1)
+    U2 = np.concatenate([U[e:][:, keep], U[e:][:, :1]], axis=1)
+    after = cut2.apply_load(util_trace=U2, horizon_s=H * (E - e) / E,
+                            recovery=True)
+    ref = lambda x: x[e:][:, keep]
+    check(all(np.array_equal(getattr(after, f)[:, :len(keep)],
+                             ref(getattr(full, f)))
+              for f in ("dv", "rec", "V")),
+          "resize + apply_load: survivors differ from the undisturbed run")
+    text = cut2.health().render()
+    check("aging odometer" in text and len(text.splitlines()) >= 3 + N,
+          f"health() rendered {text!r}")
+    res["state"] = {"round_trip": True, "resize_bit_exact": True,
+                    "health": text}
+    print("    state_dict round-trips on the card; resize(keep=[0, 2, 3], "
+          "n_fresh=1) + apply_load gives the survivors the undisturbed "
+          "run's trajectory bit for bit; health():", flush=True)
+    for ln in text.splitlines()[1:3 + len(keep) + 1]:
+        print(f"      {ln}", flush=True)
+
+    for name, mod in (("sched_bench", sched_bench),
+                      ("disruption_bench", disruption_bench)):
+        t0 = time.perf_counter()
+        bench = mod.evaluate(device=dev)
+        secs = time.perf_counter() - t0
+        res[name] = {"seconds": secs, "checks": bench["checks"],
+                     "rows": bench["rows"]}
+        print(f"[6b] {name} on the card in {secs:.2f} s:", flush=True)
+        for ln in bench["text"].splitlines():
+            if ln.startswith(("[PASS]", "[FAIL]", "one call")):
+                print(f"    {ln}", flush=True)
+        failed = [c["name"] for c in bench["checks"] if not c["ok"]]
+        check(not failed, f"{name} checks failed: {failed}")
+    res["launches"] = counts
+    return res
+
+
 def moe_phase(dev, cfg) -> tuple:
     """[7] The MoE serve path at published widths, ``MOE_LAYERS`` deep.
     Returns ``(results, params, the served config)``: [8] serves the same
@@ -1700,6 +2009,11 @@ def main(argv=None) -> int:
     # 6. fleet path, on [4]'s params ----------------------------------------
     report["fleet"] = fleet_phase(dev, cfg_run, params, serve)
     fleet_counts = report["fleet"]["launches"]
+
+    # 6b. traffic-aged fleet, still on [4]'s params ---------------------------
+    report["fleet_load"] = fleet_load_phase(dev, cfg_run, params,
+                                            report["fleet"])
+    load_counts = report["fleet_load"]["launches"]
     del params
     torch.cuda.empty_cache()
 
@@ -1725,12 +2039,13 @@ def main(argv=None) -> int:
     report["paper_tables"] = paper_tables_phase(dev)
 
     # 10. summary ---------------------------------------------------------
-    # launches summed over the five paths' runs, each counted from 0; the
+    # launches summed over the six paths' runs, each counted from 0; the
     # explicit-randoms bitflip_words is on no path any more: it stays the
     # Pallas kernel's counterpart signature for signature, held against
     # its plain version in [3], with 0 launches on the paths
     launches = {name: main_counts[name] + counts3[name] + fleet_counts[name]
-                + moe_counts[name] + moe_fleet_counts[name]
+                + load_counts[name] + moe_counts[name]
+                + moe_fleet_counts[name]
                 for name in kernels.KERNEL_NAMES}
     # the representative shape of each kernel: the decode weight matmul
     # that dominates the fused route (gate/up, M = 2; 4 x 2 in lane mode),

@@ -3,7 +3,9 @@
 Bit-exact with ``jax.random`` under ``jax_threefry_partitionable=True``
 (the default of the jax the reference runs on): ``PRNGKey``, ``split``,
 ``fold_in``, ``bits`` (uint32), ``uniform`` (float32), ``randint``, and
-``gumbel``/``categorical`` up to ``log``'s last bit.
+``gumbel``/``categorical`` up to ``log``'s last bit, and the workload
+samplers ``bernoulli`` and ``poisson`` (bit for bit: their ``log`` and
+``lgamma`` are the reference backend's, :mod:`repro_torch.fmath`).
 ``tests/test_torch_random.py`` and ``tests/test_torch_sampling.py`` hold
 every function against jax.
 
@@ -24,6 +26,8 @@ from __future__ import annotations
 import math
 
 import torch
+
+from . import fmath
 
 M32 = 0xFFFFFFFF
 _TINY = torch.finfo(torch.float32).tiny
@@ -172,3 +176,75 @@ def randint(key: torch.Tensor, shape, minval: int, maxval: int,
         offset = offset % span
     out = (offset + minval) & M32
     return (out - ((out >> 31) << 32)).to(torch.int32)
+
+
+def bernoulli(key: torch.Tensor, p, shape=None, device="cpu") -> torch.Tensor:
+    """``jax.random.bernoulli(key, p, shape)`` (its default ``low`` mode):
+    ``uniform(key, shape) < p``."""
+    p = torch.as_tensor(p, dtype=torch.float32, device=device)
+    shape = tuple(p.shape) if shape is None else tuple(shape)
+    return uniform(key, shape, device=device) < p
+
+
+def _poisson_knuth(key, lam, shape, device):
+    """Knuth's multiplication method, as ``jax.random``'s: every round
+    splits the key, counts the elements still above ``exp(-lam)`` and
+    draws a full-shape uniform; the loop ends when no element is."""
+    k = torch.zeros(shape, dtype=torch.int32, device=device)
+    log_prod = torch.zeros(shape, dtype=torch.float32, device=device)
+    while bool((log_prod > -lam).any()):
+        key, sub = split(key)
+        k = torch.where(log_prod > -lam, k + 1, k)
+        log_prod = log_prod + fmath.log(uniform(sub, shape, device=device))
+    return k - 1
+
+
+def _poisson_rejection(key, lam, shape, device):
+    """Hormann's transformed rejection, as ``jax.random``'s: every round
+    splits the key three ways and draws two full-shape uniforms; an
+    element takes the ``k`` of every round that accepts it (a later
+    acceptance overwrites an earlier one) and the loop ends when all have
+    been accepted."""
+    log_lam = fmath.log(lam)
+    b = fmath.fma(2.53, torch.sqrt(lam.double()).float(), 0.931)
+    a = fmath.fma(0.02483, b, -0.059)
+    # a tensor numerator: ``number / tensor`` multiplies by a reciprocal
+    c = lambda v: torch.full((), v, dtype=torch.float32, device=device)
+    inv_alpha = 1.1239 + c(1.1328) / (b - 3.4)
+    v_r = 0.9277 - c(3.6224) / (b - 2.0)
+    k_out = torch.full(shape, -1.0, dtype=torch.float32, device=device)
+    accepted = torch.zeros(shape, dtype=torch.bool, device=device)
+    while not bool(accepted.all()):
+        key, sub0, sub1 = split(key, 3)
+        u = uniform(sub0, shape, device=device) - 0.5
+        v = uniform(sub1, shape, device=device)
+        u_shifted = 0.5 - torch.abs(u)
+        k = torch.floor(fmath.fma(2.0 * a / u_shifted + b, u, lam) + 0.43)
+        s = fmath.log(v * inv_alpha / (a / (u_shifted * u_shifted) + b))
+        t = fmath.fma(k, log_lam, -lam) - fmath.lgamma(k + 1.0)
+        accept1 = (u_shifted >= 0.07) & (v <= v_r)
+        reject = (k < 0) | ((u_shifted < 0.013) & (v > u_shifted))
+        accept = accept1 | (~reject & (s <= t))
+        k_out = torch.where(accept, k, k_out)
+        accepted = accepted | accept
+    return k_out.to(torch.int32)
+
+
+def poisson(key: torch.Tensor, lam, shape=None, device="cpu") -> torch.Tensor:
+    """``jax.random.poisson(key, lam, shape)`` as int32 counts, bit for bit:
+    Knuth's method where ``lam < 10`` and transformed rejection elsewhere,
+    both run over the full shape from the same key and selected per
+    element, as jax does.  Each sampler loops until every element is
+    done, so the call waits for the device once a round (a sampler's
+    loop, never a serving step)."""
+    lam = torch.as_tensor(lam, dtype=torch.float32, device=device)
+    shape = tuple(lam.shape) if shape is None else tuple(shape)
+    lam = torch.broadcast_to(lam, shape)
+    use_knuth = torch.isnan(lam) | (lam < 10)
+    lam_knuth = torch.where(use_knuth, lam, 0.0)
+    lam_rejection = torch.where(use_knuth, 1e5, lam)
+    result = torch.where(use_knuth,
+                         _poisson_knuth(key, lam_knuth, shape, device),
+                         _poisson_rejection(key, lam_rejection, shape,
+                                            device))
+    return torch.where(lam == 0, 0, result).to(torch.int32)

@@ -22,7 +22,9 @@ lanes — as one lane-batched forward per step: the lanes fold into the
 batch axis lane-major, each faulted op makes one launch for all lanes (the
 lane modes of the fused GEMM and of the draw-mode bitflip) and reads each
 weight once, and every lane runs at its own row of the fleet's BER matrix
-with its own fault and sampling streams.
+with its own fault and sampling streams.  Built with ``router=``, it first
+ages the fleet under routed traffic (:meth:`FleetRuntime.apply_load`), so
+the lanes serve traffic-aged BERs.
 """
 from __future__ import annotations
 
@@ -162,15 +164,16 @@ class FleetServeEngine:
     def __init__(self, cfg: ModelConfig, params, fleet: FleetRuntime, *,
                  max_len: int = 512, use_systolic_kernel: bool = False,
                  use_fused_kernel: bool = True, seed: int = 0, router=None,
-                 loads=None, device="cuda"):
-        """``router`` / ``loads`` (ageing the fleet under routed traffic
-        first) need ``FleetRuntime.apply_load``, which is not ported; a
+                 workload="diurnal", loads=None, apply_load_kw=None,
+                 device="cuda"):
+        """``router`` (a registered router name or a Router) ages the
+        fleet under routed traffic before serving, once, here: the lanes
+        then serve BERs of traffic-dependent age.  ``workload`` /
+        ``loads`` pick the arrival trace and ``apply_load_kw`` passes
+        further knobs (``utilization``, ``n_epochs``, ``horizon_s``,
+        ``key``, ``recovery``, ...) to :meth:`FleetRuntime.apply_load`.  A
         shard-granular fleet cannot be built (``FleetRuntime`` refuses
         ``n_shards > 1``).  ``params`` must already live on ``device``."""
-        if router is not None or loads is not None:
-            raise NotImplementedError("router= / loads= need "
-                                      "FleetRuntime.apply_load and the "
-                                      "scheduler, which are not ported yet")
         tf.check_supported(cfg)
         self.device = resolve_device(device)
         if params["embed"].device.type != self.device.type:
@@ -183,6 +186,9 @@ class FleetServeEngine:
         self.use_kernel = use_systolic_kernel
         self.use_fused = use_fused_kernel
         self._key = prandom.PRNGKey(seed)
+        if router is not None:
+            fleet.apply_load(loads=loads, workload=workload, router=router,
+                             **(apply_load_kw or {}))
 
     @property
     def n_devices(self) -> int:

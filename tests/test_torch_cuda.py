@@ -381,3 +381,40 @@ def test_cuda_lane_aged_linear_matches_cpu(cuda_device, fused):
     assert counts["fused_aged_matmul_lanes" if fused
                   else "bitflip_draw_lanes"] == 1
     assert counts["fused_aged_matmul"] == counts["bitflip_draw"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("router,kw", [
+    ("wear_level", {}), ("least_aged", {}),
+    ("rest_to_recover", {"recovery_dynamics": True, "thermal": True})])
+def test_cuda_cosim_matches_cpu(cuda_device, router, kw):
+    """The traffic co-simulation on the card against the port on the CPU:
+    the same Poisson trace (backend-exact samplers), supplies equal but for
+    at most one (device, op) moved by one v_step, shifts (the monotone
+    state and the effective totals) within 1e-4, the thermal node within
+    1e-5."""
+    import numpy as np
+    from repro_torch.core.artifacts import load_calibration
+    from repro_torch.core.policy import FaultTolerantPolicy
+    from repro_torch.core.resilience import OPERATORS
+    from repro_torch.core.scenario import Scenario
+    from repro_torch.sched import cosimulate, get_workload
+    cal = load_calibration()
+    scn = Scenario.from_lifetime_config(cal.lifetime_cfg).replace(
+        lifetime_s=3 * 365.25 * 24 * 3600.0,
+        t_amb=torch.linspace(298.15, 328.15, 4))
+    dmax = FaultTolerantPolicy(ber_model=cal.ber).thresholds(scn, OPERATORS)
+    wl = get_workload("diurnal", n_devices=4, utilization=0.55, n_epochs=96)
+    loads = wl.loads(0, device=cuda_device)
+    assert torch.equal(loads.cpu(), wl.loads(0, "cpu"))
+    runs = [cosimulate(cal.aging, cal.delay_poly, scn, dmax, loads,
+                       router=router, n_devices=4, device=d, **kw)
+            for d in (cuda_device, "cpu")]
+    g, c = runs
+    moved = {(d, o) for _, d, o in zip(*np.nonzero(g.V != c.V))}
+    assert len(moved) <= 1 and np.abs(g.V - c.V).max() <= 0.010 + 1e-6
+    for f in ("dv", "dvp", "dvn"):
+        np.testing.assert_allclose(getattr(g, f), getattr(c, f), rtol=1e-4,
+                                   atol=1e-6)
+    if g.t_node is not None:
+        np.testing.assert_allclose(g.t_node, c.t_node, rtol=1e-5)

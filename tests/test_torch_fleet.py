@@ -25,7 +25,7 @@ from repro_torch.configs import get_config
 from repro_torch.convert import params_from_reference
 from repro_torch.core.artifacts import load_calibration
 from repro_torch.core.avs import simulate
-from repro_torch.core.fleet import FleetRuntime
+from repro_torch.core.fleet import SECONDS_PER_YEAR, FleetRuntime
 from repro_torch.core.scenario import Scenario
 from repro_torch.data import SyntheticLM
 from repro_torch.kernels import ops
@@ -393,14 +393,28 @@ def test_fleet_engine_shards_a_flat_batch(model):
         eng.generate(lane_prompts[0][:1], 3)
 
 
-def test_fleet_engine_refuses_router():
-    """``router=`` needs ``FleetRuntime.apply_load``, which is not
-    ported (the MoE family is served: ``tests/test_torch_moe_fleet.py``)."""
-    params = {"embed": torch.zeros((64, 64))}
-    dense = get_config("llama3_8b").reduced()
-    with pytest.raises(NotImplementedError, match="apply_load"):
-        FleetServeEngine(dense, params, FleetRuntime(device="cpu"),
-                         router="wear_level", device="cpu")
+def test_fleet_engine_applies_load_before_serving():
+    """``router=`` ages the fleet under routed traffic once, at
+    construction (``FleetRuntime.apply_load``), and the lanes then serve
+    the traffic-aged BERs (parity with the reference:
+    ``tests/test_torch_fleet_load.py``)."""
+    from repro_torch.models.transformer import init_params
+    cfg = get_config("llama3_8b").reduced()
+    params = init_params(cfg, seed=0, dtype=torch.float32, device="cpu")
+    fleet = FleetRuntime(n_devices=2, device="cpu")
+    fleet.set_age(years=4.0, device=1)
+    static = fleet.op_ber_array().copy()
+    eng = FleetServeEngine(cfg, params, fleet, max_len=32, seed=5,
+                           router="wear_level",
+                           apply_load_kw={"n_epochs": 12,
+                                          "utilization": 0.6},
+                           device="cpu")
+    assert fleet.last_cosim is not None and fleet.last_cosim.n_epochs == 12
+    res = eng.generate(np.ones((2, 1, 8), np.int64), 2)
+    np.testing.assert_array_equal(res.bers, fleet.op_ber_array())
+    assert not np.array_equal(res.bers, static)
+    np.testing.assert_allclose(res.ages_years,
+                               fleet.last_cosim.t[-1] / SECONDS_PER_YEAR)
 
 
 def test_fleet_entry_points_default_to_cuda_and_raise_without_it(
