@@ -18,6 +18,7 @@ import torch
 
 from .configs import ModelConfig
 from .device import resolve_device
+from .tree import map_with_path, nest
 
 
 def _tensor(x, dtype, device) -> torch.Tensor:
@@ -25,10 +26,11 @@ def _tensor(x, dtype, device) -> torch.Tensor:
                            device=device)
 
 
-def _map(tree, fn, name=""):
-    if isinstance(tree, dict):
-        return {k: _map(v, fn, k) for k, v in tree.items()}
-    return fn(tree, name)
+def _map(tree, fn):
+    """``fn(leaf, name)`` over a reference subtree, ``name`` the leaf's
+    own key."""
+    return map_with_path(lambda path, x: fn(x, path.rsplit("/", 1)[-1]),
+                         tree)
 
 
 def params_from_reference(np_params: Dict[str, Any], cfg: ModelConfig, *,
@@ -50,3 +52,24 @@ def params_from_reference(np_params: Dict[str, Any], cfg: ModelConfig, *,
                          f"{cfg.n_layers}")
     out["layers"] = layers
     return out
+
+
+def train_state_from_reference(flat: Dict[str, np.ndarray], cfg: ModelConfig,
+                               *, dtype=torch.float32, device="cuda"):
+    """A reference train-state checkpoint (the flat arrays
+    :func:`repro_torch.checkpoint.load_checkpoint` returns without a
+    template) -> the port's :class:`~repro_torch.train.steps.TrainState`:
+    params in ``dtype``, float32 moments, the int32 step."""
+    from .optim import OptState
+    from .train.steps import TrainState
+    device = resolve_device(device)
+    tree = nest(flat)
+    moments = lambda t: params_from_reference(t, cfg, dtype=torch.float32,
+                                              device=device)
+    opt = tree["opt"]
+    step = torch.as_tensor(np.asarray(opt["step"]), dtype=torch.int32,
+                           device=device)
+    return TrainState(
+        params=params_from_reference(tree["params"], cfg, dtype=dtype,
+                                     device=device),
+        opt=OptState(mu=moments(opt["mu"]), nu=moments(opt["nu"]), step=step))

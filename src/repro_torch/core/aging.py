@@ -8,11 +8,12 @@ On top of that monotone state rides the short-term recoverable pool
 (:class:`RecoveryParams`, :func:`relax_step`) that relaxes while a device
 idles.  Everything is float32, batched over leading axes: ``dv`` is
 ``(..., 6)`` and ``V`` broadcasts as ``(..., 1)``.  The transcendental
-steps round alike on every device: ``exp`` is the reference backend's own
-(:func:`repro_torch.fmath.exp`) and ``pow``/``expm1`` are rounded from
-float64, because the co-simulation's wear-levelling router turns an ulp of
-drift between the card's and the CPU's float32 libraries into different
-routing.
+steps are the reference backend's own and round alike on every device:
+``exp`` and ``pow`` are :func:`repro_torch.fmath.exp` / :func:`~repro_torch.fmath.pow`
+(``expm1`` is rounded from float64), and the multiply-adds the backend
+fuses are fused here (:func:`repro_torch.fmath.fma`), because the
+co-simulation's wear-levelling router turns an ulp of drift into
+different routing.
 """
 from __future__ import annotations
 
@@ -23,7 +24,6 @@ import numpy as np
 import torch
 
 from .. import fmath
-from ..device import true_div
 from .constants import (DUTY_FACTOR, KB_EV, T_AMB, T_CLK, TOGGLE_RATE,
                         TRANSITION_TIME, V_NOM)
 
@@ -128,12 +128,19 @@ def relax_step(rparams: RecoveryParams, dv_mv: torch.Tensor,
     """
     dev = dv_mv.device
     act = torch.clamp(_f32(act, dev), 0.0, 1.0)
-    a = rparams.k_relax * (1.0 - act)
+    idle = 1.0 - act
+    a = rparams.k_relax * idle
     b = rparams.k_retrap * act
-    lam = a + b
+    # the rate a + b, with the product the reference backend fuses: the
+    # equilibrium's divisor keeps a (which it reuses) and fuses b, the
+    # decay fuses a
+    lam_div = fmath.fma(act, rparams.k_retrap, a)
+    lam_exp = fmath.fma(idle, rparams.k_relax, b)
     cap = rparams.rho * dv_mv
-    rec_inf = a * cap / torch.clamp_min(lam, 1e-30)
-    rec = rec_inf + (rec_mv - rec_inf) * fmath.exp(-lam * _f32(dt, dev))
+    rec_inf = a * cap / torch.clamp_min(lam_div, 1e-30)
+    # a pool decaying at full stress underflows: flushed, as the reference
+    rec = fmath.flush(fmath.fma(rec_mv - rec_inf,
+                                fmath.exp(-lam_exp * _f32(dt, dev)), rec_inf))
     return torch.minimum(torch.clamp_min(rec, 0.0), cap)
 
 
@@ -146,8 +153,10 @@ def effective_dv(dv_mv, rec_mv):
 
 def self_heating_temp(V, t_amb=T_AMB, dT_sh: float = 8.0,
                       v_ref: float = V_NOM):
-    """Channel temperature with the ~V**2 self-heating rise [K]."""
-    r = true_div(V, v_ref)
+    """Channel temperature with the ~V**2 self-heating rise [K].  The
+    reference backend divides by the constant ``v_ref`` as a multiply by
+    its float32 reciprocal, and so does this."""
+    r = V * float(np.float32(1.0) / np.float32(v_ref))
     return t_amb + dT_sh * (r * r)
 
 
@@ -197,8 +206,8 @@ def stress_rates(params: AgingParams, *, duty=DUTY_FACTOR,
     base = torch.where(is_bti, duty,
                        gamma * (transition_time / t_clk) * toggle)
     if recovery:
-        base = base * act / torch.clamp_min(act + params.chi * (1.0 - act),
-                                            1e-30)
+        base = base * act / torch.clamp_min(
+            fmath.fma(params.chi, 1.0 - act, act), 1e-30)
     return base.to(_F32)
 
 
@@ -208,18 +217,10 @@ def update_state(params: AgingParams, dv_mv: torch.Tensor, V, rates,
     ``t_eq = (dv / K)**(1/n)``, ``dv' = K * (t_eq + rate*dt)**n``."""
     K = k_factor(params, V, t_amb)
     inv_n = 1.0 / params.n
-    t_eq = torch.where(dv_mv > 0.0, pow32(dv_mv / K, inv_n),
+    t_eq = torch.where(dv_mv > 0.0, fmath.pow(dv_mv / K, inv_n),
                        torch.zeros((), dtype=_F32, device=dv_mv.device))
     t_new = t_eq + rates * dt
-    return K * pow32(t_new, params.n)
-
-
-def pow32(x, y: torch.Tensor) -> torch.Tensor:
-    """float32 ``x ** y`` rounded once from float64 (``x`` a tensor or a
-    number): float32 ``pow`` differs by an ulp between the CPU's and the
-    card's libraries, the float64 result rounds alike on both."""
-    x = x.to(torch.float64) if isinstance(x, torch.Tensor) else float(x)
-    return torch.pow(x, y.to(torch.float64)).to(_F32)
+    return K * fmath.pow(t_new, params.n)
 
 
 def totals(dv_mv: torch.Tensor):

@@ -20,6 +20,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from .. import fmath
 from ..device import resolve_device, true_div
 from . import aging
 from .aging import AgingParams
@@ -61,9 +62,8 @@ def _logspace(start, stop, num: int, device) -> torch.Tensor:
     a last axis, for scalar or ``(B, 1)`` bounds.
 
     jnp's linspace is ``start * (1 - s) + stop * s`` with ``s = i / (num -
-    1)``, then the exact endpoint; ``10 ** lin`` is taken in float64 and
-    rounded, which matches XLA's float32 power more often than
-    ``torch.pow`` in float32 does.
+    1)``, then the exact endpoint; ``10 ** lin`` is the reference backend's
+    float32 power (:func:`repro_torch.fmath.pow`).
     """
     start = _log10(torch.as_tensor(start, dtype=_F32, device=device))
     stop = _log10(torch.as_tensor(stop, dtype=_F32, device=device))
@@ -71,7 +71,7 @@ def _logspace(start, stop, num: int, device) -> torch.Tensor:
     step = true_div(torch.arange(div, dtype=_F32, device=device), div)
     lin = start * (1 - step) + stop * step
     lin = torch.cat([lin, stop.reshape(lin.shape[:-1] + (1,))], dim=-1)
-    return torch.pow(10.0, lin.to(torch.float64)).to(_F32)
+    return fmath.pow(10.0, lin)
 
 
 def simulate(params: AgingParams, poly: DelayPolynomial,

@@ -13,6 +13,8 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from .. import fmath
+
 TOTAL_DEGREE = 6
 
 
@@ -29,6 +31,43 @@ def _integer_pow(x: torch.Tensor, y: int) -> torch.Tensor:
         if y > 0:
             x = x * x
     return acc
+
+
+def _tree8(v: torch.Tensor) -> torch.Tensor:
+    """A reassociated 8-lane ``vector.reduce.fadd`` as x86 lowers it:
+    halves added pairwise, (0..3) + (4..7), then (0, 1) + (2, 3), then
+    lane 0 + lane 1."""
+    v = v[..., :4] + v[..., 4:]
+    v = v[..., :2] + v[..., 2:]
+    return v[..., 0] + v[..., 1]
+
+
+def dot_like_xla(terms: torch.Tensor, coeffs: torch.Tensor) -> torch.Tensor:
+    """``terms @ coeffs`` over the last axis, summed in the order of the
+    reference backend's CPU code for the polynomial's fused dot (its
+    optimised LLVM IR): each product fused into its accumulator
+    (``fma``), 8-lane vectors with 4 accumulators over the first
+    ``32 * (K // 32)`` terms (lane sums ``((a1 + a0) + a2) + a3``, then
+    :func:`_tree8`), one 8-lane accumulator seeded with that sum over the
+    next multiples of 8 (:func:`_tree8` again), then the rest one by one.
+    Explicit elementwise steps, so the card sums in the same order."""
+    K = terms.shape[-1]
+    k32, k8 = 32 * (K // 32), 8 * (K // 8)
+    acc = None
+    for k in range(0, k32, 32):
+        t, c = terms[..., k:k + 32], coeffs[k:k + 32]
+        acc = t * c if acc is None else fmath.fma(t, c, acc)
+    lanes = terms.new_zeros(terms.shape[:-1] + (8,))
+    if acc is not None:
+        a = acc.unflatten(-1, (4, 8))
+        s = ((a[..., 1, :] + a[..., 0, :]) + a[..., 2, :]) + a[..., 3, :]
+        lanes[..., 0] = _tree8(s)
+    for k in range(k32, k8, 8):
+        lanes = fmath.fma(terms[..., k:k + 8], coeffs[k:k + 8], lanes)
+    out = _tree8(lanes)
+    for k in range(k8, K):
+        out = fmath.fma(terms[..., k], coeffs[k], out)
+    return out
 
 
 @dataclasses.dataclass
@@ -51,7 +90,7 @@ class DelayPolynomial:
         e = self.exponents
         terms = (pows[..., e[:, 0], 0] * pows[..., e[:, 1], 1]
                  * pows[..., e[:, 2], 2])
-        return terms @ self.coeffs
+        return dot_like_xla(terms, self.coeffs)
 
     def to(self, device) -> "DelayPolynomial":
         return DelayPolynomial(self.coeffs.to(device),

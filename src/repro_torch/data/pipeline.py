@@ -61,3 +61,21 @@ class SyntheticLM:
 
     def batch_at(self, step: int) -> TokenBatch:
         return self._rows(step, np.arange(self.global_batch))
+
+    def local_batch_at(self, step: int, shard: int,
+                       n_shards: int) -> TokenBatch:
+        """Shard ``shard`` of ``n_shards`` of step ``step``'s global batch
+        (the shards concatenate to :meth:`batch_at`)."""
+        if self.global_batch % n_shards:
+            raise ValueError(f"global_batch {self.global_batch} does not "
+                             f"split into {n_shards} shards")
+        per = self.global_batch // n_shards
+        return self._rows(step, np.arange(shard * per, (shard + 1) * per))
+
+    def uniform_nll(self) -> float:
+        """Loss of the know-nothing predictor (upper baseline)."""
+        return float(np.log(self.vocab))
+
+    def oracle_nll(self) -> float:
+        """Loss of the perfect predictor knowing the recurrence (~log eps)."""
+        return float(np.log(self.noise_vocab))

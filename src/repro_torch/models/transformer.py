@@ -19,9 +19,11 @@ and the hybrid, SSM, enc-dec and VLM families are not ported yet:
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, List, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs import ModelConfig
 from ..device import resolve_device
@@ -146,21 +148,32 @@ def _attn_block(x, bp, cfg: ModelConfig, *, positions, cache=None,
 
 
 def _run_blocks(x, params, cfg: ModelConfig, *, positions, states=None,
-                cache_len=None, fi=None, with_aux: bool = False):
+                cache_len=None, fi=None, with_aux: bool = False,
+                remat: bool = False):
     """-> ``(x, new_states, aux)``: ``aux`` is the float32 load-balance loss
     summed over layers when ``with_aux`` is set (``(N,)`` under a lane
     config of N lanes, each lane's own), else ``None``.  It is
     built on the device (no host copy), so the step stays free of
-    host-device synchronisation."""
+    host-device synchronisation.
+
+    ``remat=True`` recomputes each block in the backward pass
+    (``torch.utils.checkpoint``, non-reentrant): only a block's input is
+    kept, as the reference's per-layer-group ``jax.checkpoint``.  The
+    recomputation repeats the same operations, so values and gradients
+    equal those without remat bit for bit."""
     check_supported(cfg)
     new_states: Optional[List] = [] if states is not None else None
     aux_total = (torch.zeros((), dtype=torch.float32, device=x.device)
                  if with_aux else None)
+    block = _attn_block
+    if remat and torch.is_grad_enabled():
+        block = functools.partial(checkpoint, _attn_block,
+                                  use_reentrant=False)
     for i, bp in enumerate(params["layers"]):
-        x, ns, aux = _attn_block(x, bp, cfg, positions=positions,
-                                 cache=None if states is None else states[i],
-                                 cache_len=cache_len, fi=fi, salt=i,
-                                 with_aux=with_aux)
+        x, ns, aux = block(x, bp, cfg, positions=positions,
+                           cache=None if states is None else states[i],
+                           cache_len=cache_len, fi=fi, salt=i,
+                           with_aux=with_aux)
         if aux is not None:
             aux_total = aux_total + aux
         if new_states is not None:
@@ -169,7 +182,8 @@ def _run_blocks(x, params, cfg: ModelConfig, *, positions, states=None,
 
 
 def embed_tokens(params, cfg: ModelConfig, tokens):
-    x = params["embed"][tokens]
+    # a gather; its backward sums rows by sorted index, not by atomics
+    x = torch.nn.functional.embedding(tokens, params["embed"])
     if cfg.scale_embeds:
         x = x * torch.full((), cfg.d_model ** 0.5, dtype=x.dtype,
                            device=x.device)
@@ -183,16 +197,17 @@ def unembed(params, cfg: ModelConfig, x):
 
 def forward_logits(params, cfg: ModelConfig, tokens, *,
                    fi: Optional[FaultConfig] = None, states=None,
-                   cache_len=None):
+                   cache_len=None, remat: bool = False):
     """Full-sequence forward (prefill).  tokens: (B, S) int.  Returns
     ``(logits (B, S, vocab) float32, new_states, aux)``, ``aux`` the MoE
     load-balance loss summed over layers (float32, 0 for dense models;
-    ``(N,)``, one per lane, under a lane config)."""
+    ``(N,)``, one per lane, under a lane config).  ``remat`` recomputes
+    each block in the backward pass (see :func:`_run_blocks`)."""
     x = embed_tokens(params, cfg, tokens)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     x, new_states, aux = _run_blocks(x, params, cfg, positions=positions,
                                      states=states, cache_len=cache_len,
-                                     fi=fi, with_aux=True)
+                                     fi=fi, with_aux=True, remat=remat)
     x = norm(x, params["final_norm"], cfg.norm)
     return unembed(params, cfg, x), new_states, aux
 

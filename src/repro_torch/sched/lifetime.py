@@ -286,17 +286,22 @@ def cosimulate(params: AgingParams, poly: DelayPolynomial,
             dvm = 0.5 * (dvp_c + dvn_c) * 1e-3
             r = v / tp["v0"]
             dyn = tp["p_dyn0"] * (r * r)
-            leak = tp["p_leak0"] * r * aging.pow32(
-                10.0, (tp["k_dibl"] * (v - tp["v0"]) - dvm) / tp["s_slope"])
-            terms = util[:, None] * dyn + leak
-            p_dev = terms[:, 0]
-            for i in range(1, O):
-                p_dev = p_dev + terms[:, i]
-            t_ss = t_amb0 + tp["r_th"] * p_dev
-            tn = t_ss + (tn - t_ss) * decay
+            # the multiply-adds the reference backend fuses, each rounded
+            # once (fmath.fma); its sum over the operators folds both of an
+            # operator's products into the running total:
+            # p = fma(util, dyn, fma(p_leak0 * r, 10**x, p))
+            lead = tp["p_leak0"] * r
+            scale = fmath.pow(10.0, fmath.fma(tp["k_dibl"], v - tp["v0"],
+                                              -dvm) / tp["s_slope"])
+            p_dev = zeros(N)
+            for i in range(O):
+                p_dev = fmath.fma(util, dyn[:, i],
+                                  fmath.fma(lead[:, i], scale[:, i], p_dev))
+            t_ss = fmath.fma(tp["r_th"], p_dev, t_amb0)
+            tn = fmath.fma(tn - t_ss, decay, t_ss)
             t_amb = tn
         else:
-            t_amb = t_amb0 + heat * util
+            t_amb = fmath.fma(heat, util, t_amb0)
         rates = aging.stress_rates(
             params, duty=duty[:, None], toggle=toggle[:, None],
             t_clk=t_clk[:, None], transition_time=tt[:, None],

@@ -389,10 +389,10 @@ def test_cuda_lane_aged_linear_matches_cpu(cuda_device, fused):
     ("rest_to_recover", {"recovery_dynamics": True, "thermal": True})])
 def test_cuda_cosim_matches_cpu(cuda_device, router, kw):
     """The traffic co-simulation on the card against the port on the CPU:
-    the same Poisson trace (backend-exact samplers), supplies equal but for
-    at most one (device, op) moved by one v_step, shifts (the monotone
-    state and the effective totals) within 1e-4, the thermal node within
-    1e-5."""
+    the same Poisson trace (backend-exact samplers), supplies equal (every
+    transcendental, multiply-add and sum is an explicit elementwise step),
+    shifts (the monotone state and the effective totals) within 1e-4, the
+    thermal node within 1e-5."""
     import numpy as np
     from repro_torch.core.artifacts import load_calibration
     from repro_torch.core.policy import FaultTolerantPolicy
@@ -411,10 +411,43 @@ def test_cuda_cosim_matches_cpu(cuda_device, router, kw):
                        router=router, n_devices=4, device=d, **kw)
             for d in (cuda_device, "cpu")]
     g, c = runs
-    moved = {(d, o) for _, d, o in zip(*np.nonzero(g.V != c.V))}
-    assert len(moved) <= 1 and np.abs(g.V - c.V).max() <= 0.010 + 1e-6
+    np.testing.assert_array_equal(g.V, c.V)
     for f in ("dv", "dvp", "dvn"):
         np.testing.assert_allclose(getattr(g, f), getattr(c, f), rtol=1e-4,
                                    atol=1e-6)
     if g.t_node is not None:
         np.testing.assert_allclose(g.t_node, c.t_node, rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_fmath_pow_and_delay_sum_match_cpu(cuda_device):
+    """``fmath.pow`` (glibc's powf from elementwise operations, its double
+    multiply-adds exact) and the delay polynomial's explicit sum order give
+    the CPU's bits on the card: no operation is contracted or reordered."""
+    import numpy as np
+    from repro_torch import fmath
+    from repro_torch.core.artifacts import load_calibration
+    rng = np.random.default_rng(0)
+    n = 1 << 20
+    x = np.concatenate([rng.uniform(0, 1000, n), 10.0 ** rng.uniform(
+        -37, 38, n), rng.uniform(-5, 5, n)]).astype(np.float32)
+    y = np.concatenate([rng.uniform(0.05, 20, n), rng.uniform(-4, 4, n),
+                        rng.integers(-9, 10, n)]).astype(np.float32)
+    sp = torch.tensor([0.0, -0.0, 1.0, -1.0, float("inf"), float("-inf"),
+                       float("nan"), 1e-40, 2.5, -3.0])
+    sx, sy = torch.meshgrid(sp, sp, indexing="ij")
+    xt = torch.cat([torch.from_numpy(x), sx.reshape(-1)])
+    yt = torch.cat([torch.from_numpy(y), sy.reshape(-1)])
+    cpu = fmath.pow(xt, yt)
+    gpu = fmath.pow(xt.to(cuda_device), yt.to(cuda_device)).cpu()
+    same = (cpu.view(torch.int32) == gpu.view(torch.int32)) | (
+        cpu.isnan() & gpu.isnan())
+    assert bool(same.all())
+    poly = load_calibration().delay_poly
+    dp, dn = (torch.from_numpy(rng.uniform(0, 0.08, (64, 9)).astype(
+        np.float32)) for _ in range(2))
+    V = torch.from_numpy(rng.uniform(0.8, 1.0, (64, 9)).astype(np.float32))
+    want = poly(dp, dn, V)
+    got = poly.to(cuda_device)(dp.to(cuda_device), dn.to(cuda_device),
+                               V.to(cuda_device)).cpu()
+    assert torch.equal(got, want)
