@@ -67,7 +67,7 @@ Phases (any failure exits non-zero):
    static BERs; the ``state_dict`` round trip, ``resize`` +
    ``apply_load`` bit-exact against the undisturbed run, ``health()``; and
    ``repro_torch.benchmarks.sched_bench`` / ``disruption_bench`` on the
-   card (any FAIL fails);
+   card at 48 epochs, one timed repetition (any FAIL fails);
 7. the MoE path: qwen3_moe_235b at its published widths (head_dim 128,
    which the reference config leaves to derive as d_model // n_heads =
    64; 12 of 94 layers, bf16 random params) on ``FleetRuntime.for_model``
@@ -112,9 +112,32 @@ Phases (any failure exits non-zero):
    card (determinism); an async checkpoint and its restore bit for bit and
    a run interrupted at step 3 and resumed equal to the uninterrupted one;
    and ``repro_torch.benchmarks.fig1b_ber`` with its checks;
+10b. measured resilience on [10]'s trained params: ``empirical_resilience``
+   at the reference CLI's full setting (``DEFAULT_BER_GRID`` x the 9
+   operator domains = 108 fault lanes, 2 seeds, ``SyntheticLM`` B=8, S=64,
+   on the fused lane kernels, 32 lanes = 16,384 rows a forward) with wall
+   time, grid points/s, peak memory, the busy share of one profiled chunk
+   forward and exactly 7 lane GEMM (fast path) + 2 lane draw launches a
+   layer and chunk forward; losses in [0, 100] and every knee the grid
+   brackets fitted inside it; layer 0's 9 launches of one chunk forward
+   replayed through the plain versions bit for bit (upsets present), each
+   GEMM shape timed beside its bound and ``torch._int_mm``; one BER row as
+   part of a 32-lane chunk, a 9-lane chunk and 9 single forwards (equal
+   predictions but for near ties within one float32 ulp); reduced
+   llama3_8b over ``QUICK_BER_GRID`` (45 lanes in one forward: two launches
+   a faulted op) on the fused and the three-pass route against the CPU; the
+   fit written to ``chiprun_out/resilience_measured.json``, the measured
+   policy's Table II saving and a 4-lane fleet served under it (every lane
+   == its replay); ``cosim_taps`` of [6b]'s wear_level co-sim card == CPU,
+   a tapped fleet call and the registry exported (JSONL, Prometheus) and
+   parsed back equal; ``python -m repro_torch.examples.aging_aware_serving``
+   on the card; ``calibrate_aging`` and ``verify_table1`` on the card
+   against the checked-in calibration (Table I within 1 %) and the
+   checked-in path model's polynomial refitted (within 1e-6 relative of
+   the checked-in one: the host's least squares);
 11. a ``{"kernels": [...]}`` line (launches summed over the runs of [4],
-   [5], [6], [6b], [7], [8] and [10]), the ``nvidia-smi`` line, and as the
-   last line ``{"ok": true, "device": {...}}``.
+   [5], [6], [6b], [7], [8], [10] and [10b]), the ``nvidia-smi`` line, and
+   as the last line ``{"ok": true, "device": {...}}``.
 
 Details go to ``chiprun_out/chip_smoke.json``.  The port never calls
 ``torch._int_mm``; it is timed here only as a yardstick.
@@ -166,6 +189,10 @@ SOURCE = "src/repro_torch/kernels/csrc/aged_kernels.cu"
 
 class PhaseError(RuntimeError):
     pass
+
+
+# objects a later phase reads from an earlier one (not in the report)
+KEPT = {}
 
 
 def check(cond: bool, what: str) -> None:
@@ -903,6 +930,7 @@ def fleet_phase(dev, cfg, params, single) -> dict:
     reduced llama3_8b fleet on the card against the CPU."""
     import numpy as np
     import torch
+    from repro_torch.obs.taps import enable_taps
     from repro_torch import kernels
     from repro_torch.core.fleet import FleetRuntime
     from repro_torch.data import SyntheticLM
@@ -932,7 +960,8 @@ def fleet_phase(dev, cfg, params, single) -> dict:
     kernels.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    out = engine.generate(prompts, n_steps)
+    with enable_taps():             # the checks below read the taps
+        out = engine.generate(prompts, n_steps)
     gen_s = time.perf_counter() - t0
     counts = kernels.launch_counts()
     by_path = kernels.launch_counts_by_path()
@@ -1038,6 +1067,10 @@ YEAR_S = 365.25 * 24 * 3600.0
 LOAD_KW = {"workload": "diurnal", "utilization": 0.55, "n_epochs": 144,
            "horizon_s": 3 * YEAR_S}
 SHIFT_RTOL = 1e-4              # card against CPU, co-sim shifts
+# the scheduler benchmarks' horizon in [6b]: half their 96-epoch default,
+# one timed repetition (their checks are per epoch; the smoke's time went
+# to [10b])
+BENCH_EPOCHS = 48
 
 
 def _aged_fleet(dev):
@@ -1085,7 +1118,8 @@ def cosim_card_vs_cpu(dev, router, **kw) -> dict:
               f"relative (> {SHIFT_RTOL})")
     exact = all(np.array_equal(getattr(g, f), getattr(c, f))
                 for f in ("dv", "dvp", "dvn", "util", "delay"))
-    return {"cos": g, "card_s": g_s, "cpu_s": c_s, "moved": moved,
+    return {"cos": g, "cos_cpu": c, "card_s": g_s, "cpu_s": c_s,
+            "moved": moved,
             "max_shift_rel": rel, "epochs": g.n_epochs, "exact": exact}
 
 
@@ -1156,6 +1190,9 @@ def fleet_load_phase(dev, cfg, params, static) -> dict:
               f"({'bit-equal' if r['exact'] else 'not bit-equal'}); "
               f"fleet-max dVth,p {res[router]['fleet_max_dvp_mv']:.2f} mV",
               flush=True)
+    # [10b] reads the wear_level co-sim's taps on both devices
+    KEPT["wear_level_cosims"] = (cos["wear_level"]["cos"],
+                                 cos["wear_level"]["cos_cpu"])
     rr = res["round_robin"]["fleet_max_dvp_mv"]
     wl = res["wear_level"]["fleet_max_dvp_mv"]
     check(wl < rr, f"wear_level fleet-max dVth,p {wl:.3f} mV not below "
@@ -1315,7 +1352,7 @@ def fleet_load_phase(dev, cfg, params, static) -> dict:
     for name, mod in (("sched_bench", sched_bench),
                       ("disruption_bench", disruption_bench)):
         t0 = time.perf_counter()
-        bench = mod.evaluate(device=dev)
+        bench = mod.evaluate(device=dev, epochs=BENCH_EPOCHS, reps=1)
         secs = time.perf_counter() - t0
         res[name] = {"seconds": secs, "checks": bench["checks"],
                      "rows": bench["rows"]}
@@ -1335,6 +1372,7 @@ def moe_phase(dev, cfg) -> tuple:
     params as a fleet before they are freed."""
     import numpy as np
     import torch
+    from repro_torch.obs.taps import enable_taps
     from repro_torch import kernels
     from repro_torch import random as prandom
     from repro_torch.core.fleet import FleetRuntime
@@ -1377,7 +1415,8 @@ def moe_phase(dev, cfg) -> tuple:
     n_steps = 8
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
-    out = engine.generate(prompts, n_steps, **sample)
+    with enable_taps():             # the checks below read the taps
+        out = engine.generate(prompts, n_steps, **sample)
     gen_s = time.perf_counter() - t0
     counts = kernels.launch_counts()
     by_path = kernels.launch_counts_by_path()
@@ -1544,6 +1583,7 @@ def moe_fleet_phase(dev, cfg, params, single) -> dict:
     and arctic_480b fleets on the card against the CPU."""
     import numpy as np
     import torch
+    from repro_torch.obs.taps import enable_taps
     from repro_torch import kernels
     from repro_torch import random as prandom
     from repro_torch.core.fleet import FleetRuntime
@@ -1579,7 +1619,8 @@ def moe_fleet_phase(dev, cfg, params, single) -> dict:
     kernels.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    out = engine.generate(prompts, n_steps, **sample)
+    with enable_taps():             # the checks below read the taps
+        out = engine.generate(prompts, n_steps, **sample)
     gen_s = time.perf_counter() - t0
     counts = kernels.launch_counts()
     by_path = kernels.launch_counts_by_path()
@@ -2059,7 +2100,7 @@ def train_phase(dev, cfg) -> dict:
               + "; draws " + ", ".join(
                   f"{tuple(x['shape'])} ({x['flips']} flips)"
                   for x in r if x["kernel"] == "bitflip_draw"), flush=True)
-    del params, eng
+    del eng
     torch.cuda.empty_cache()
     res["card_vs_cpu"] = train_card_vs_cpu(dev, cfg)
     cv = res["card_vs_cpu"]
@@ -2086,6 +2127,619 @@ def train_phase(dev, cfg) -> dict:
           + f"; {len(fb['checks']) - len(fails)} / {len(fb['checks'])} "
           f"checks pass", flush=True)
     check(not fails, f"fig1b_ber checks failed: {fails}")
+    return res, params, cfg8
+
+
+# [10b]'s refit of the checked-in delay polynomial on this machine's numpy
+POLY_RTOL = 1e-6
+# [10b]'s sweep: the reference CLI's full setting on [10]'s trained model
+SWEEP_BATCH, SWEEP_SEQ, SWEEP_SEEDS = 8, 64, 2
+SWEEP_ROW = 6                  # step 3's BER row (1e-4: losses mid-range)
+
+
+def lane_top2(params, cfg, tokens, fi):
+    """Top-1 predictions and top1 - top2 logit gaps of every lane of
+    ``fi`` in one forward (``(lanes, B, S)`` each, host numpy), and each
+    position's top-1 logit."""
+    import torch
+    from repro_torch.models import transformer as tf
+    lanes = fi.lanes or 1             # a single-device config: one lane
+    with torch.no_grad():
+        logits, _, _ = tf.forward_logits(params, cfg,
+                                         tokens.repeat(lanes, 1),
+                                         fi=fi.with_seeds())
+        top = torch.topk(logits, 2, dim=-1)
+        pred = logits.argmax(dim=-1)
+        del logits
+    shape = (lanes,) + tuple(tokens.shape)
+    val = top.values.cpu().numpy()
+    check(bool((pred == top.indices[..., 0]).all()),
+          "argmax and topk disagree on the first maximal index")
+    return (pred.cpu().numpy().reshape(shape),
+            (val[..., 0] - val[..., 1]).reshape(shape),
+            val[..., 0].reshape(shape))
+
+
+def near_ties(a, b) -> dict:
+    """Positions where two runs' predictions differ, and whether each is a
+    near tie: a top-2 gap (of either run) within one float32 ulp of the
+    top logit.  ``a``/``b`` are :func:`lane_top2` triples."""
+    import numpy as np
+    (pa, ga, ta), (pb, gb, tb) = a, b
+    where = np.argwhere(pa != pb)
+    rows = []
+    for idx in map(tuple, where):
+        gap = float(min(ga[idx], gb[idx]))
+        ulp = float(np.spacing(np.float32(max(abs(ta[idx]), abs(tb[idx])))))
+        rows.append({"at": [int(i) for i in idx], "gap": gap, "ulp": ulp,
+                     "tie": gap <= ulp})
+    return {"differ": len(rows), "rows": rows[:20],
+            "ok": all(r["tie"] for r in rows)}
+
+
+def sweep_vs(dev, cfg, params_by_dev, tokens, ber_grid, route, chunk):
+    """One seed of the sweep on the card (``chunk`` lanes a forward) and
+    on the CPU, lane by lane: the reference predictions and every lane's
+    predictions compared with the near-tie rule, and the loss surfaces
+    (``run_sweep``) compared, differences allowed only where a prediction
+    differs at a near tie.  Returns the launches of the card's sweep."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch import random as prandom
+    from repro_torch.calibrate import resilience_sweep as rs
+    from repro_torch.core.resilience import operators_for
+    ops = operators_for(cfg.family)
+    key = prandom.PRNGKey(0)
+    fi = rs.grid_fault_config(ops, ber_grid, prandom.fold_in(key, 0),
+                              **route)
+    ref_fi = rs._reference_fault_config(ops, key, **route)
+    tops = {}
+    for where in (dev, "cpu"):
+        tk = torch.as_tensor(tokens, dtype=torch.int64, device=where)
+        p = params_by_dev[where if where == "cpu" else "cuda"]
+        ref = lane_top2(p, cfg, tk, ref_fi)
+        parts = [lane_top2(p, cfg, tk, rs.chunk_of(fi, l0, min(
+            fi.lanes, l0 + chunk))) for l0 in range(0, fi.lanes, chunk)]
+        tops[where if where == "cpu" else "cuda"] = (ref, tuple(
+            np.concatenate([x[i] for x in parts]) for i in range(3)))
+    ref_cmp = near_ties(tops["cuda"][0], tops["cpu"][0])
+    lane_cmp = near_ties(tops["cuda"][1], tops["cpu"][1])
+    kernels.reset_launch_counts()
+    card = rs.run_sweep(cfg, params_by_dev["cuda"], tokens,
+                        ber_grid=ber_grid, n_seeds=1, chunk=chunk,
+                        device=dev, **route)
+    counts = kernels.launch_counts()
+    by_path = kernels.launch_counts_by_path()
+    cpu = rs.run_sweep(cfg, params_by_dev["cpu"], tokens, ber_grid=ber_grid,
+                       n_seeds=1, device="cpu", **route)
+    same = bool(np.array_equal(card.loss_pct, cpu.loss_pct))
+    check(ref_cmp["ok"] and lane_cmp["ok"],
+          f"sweep {route} card vs CPU: predictions differ beyond a near "
+          f"tie: reference {ref_cmp}, lanes {lane_cmp}")
+    check(same or ref_cmp["differ"] + lane_cmp["differ"] > 0,
+          "sweep losses differ card vs CPU with equal predictions")
+    return {"route": route, "lanes": fi.lanes, "chunk": chunk,
+            "losses_equal": same, "reference_preds": ref_cmp,
+            "lane_preds": lane_cmp, "launches": counts,
+            "launches_by_path": by_path,
+            "max_loss_diff": float(np.abs(card.loss_pct
+                                          - cpu.loss_pct).max())}
+
+
+def timed_once(fn, wrapper: str | None, match: str | None) -> dict:
+    """``fn`` (one call of a kernel wrapper, counted under ``wrapper``)
+    checked to launch once, then timed: ``ms`` with CUDA events over
+    back-to-back calls, ``dev_ms`` from ``torch.profiler`` (``None`` where
+    the profiler dropped the kernels' records on every try)."""
+    import torch
+    from repro_torch import kernels
+    if wrapper is not None:
+        kernels.reset_launch_counts()
+        fn()
+        torch.cuda.synchronize()
+        n = kernels.launch_counts()[wrapper]
+        check(n == 1, f"{wrapper}: {n} launches a call")
+    dev_ms, per_call = device_ms(fn, iters=5, match=match)
+    return {"ms": cuda_time_ms(fn, iters=5, warmup=1),
+            "dev_ms": dev_ms if per_call >= 1 else None}
+
+
+def resilience_phase(dev, cfg, params) -> dict:
+    """[10b] The measured-resilience path on [10]'s trained llama3_8b
+    (published widths, 8 layers, float32): the reference CLI's full sweep
+    (108 lanes x 2 seeds, B=8, S=64) on the fused lane kernels, its first
+    layer's launches against the plain versions, chunk invariance, a
+    reduced grid on the card against the CPU on two routes, the fit, the
+    artifact, the measured policy serving a fleet, the telemetry taps and
+    export, and the serving example."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import kernels
+    from repro_torch import random as prandom
+    from repro_torch.calibrate import resilience_sweep as rs
+    from repro_torch.core.artifacts import load_calibration
+    from repro_torch.core.fleet import FleetRuntime
+    from repro_torch.core.policy import (MeasuredResiliencePolicy,
+                                         evaluate_policy)
+    from repro_torch.core.resilience import DEFAULT_BER50, OPERATORS
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import _cuda, ops, ref
+    from repro_torch.kernels.bitflip import bitflip_draw_lanes
+    from repro_torch.kernels.fused_aged_matmul import fused_aged_matmul_lanes
+    from repro_torch.models.transformer import init_params
+    from repro_torch.obs import export, metrics
+    from repro_torch.obs.taps import cosim_taps, enable_taps
+    from repro_torch.serve.engine import FleetServeEngine
+    from repro_torch.tree import tree_map
+
+    L = cfg.n_layers
+    res = {"layers": L, "batch": SWEEP_BATCH, "seq": SWEEP_SEQ,
+           "seeds": SWEEP_SEEDS}
+    grid = rs.DEFAULT_BER_GRID
+    n_ops = len(OPERATORS)
+    n_lanes = len(grid) * n_ops
+    tokens = SyntheticLM(vocab=cfg.vocab, seq_len=SWEEP_SEQ,
+                         global_batch=SWEEP_BATCH).batch_at(10_000).tokens
+    rows = SWEEP_BATCH * SWEEP_SEQ
+    chunk = rs.default_chunk(cfg, rows, n_lanes, dev)
+    check(chunk == _cuda.MAX_LANES, f"default chunk {chunk} at {rows} rows")
+    n_fwd = SWEEP_SEEDS * -(-n_lanes // chunk)
+
+    # 1. the sweep --------------------------------------------------------
+    kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    curves, sweep = rs.empirical_resilience(
+        cfg, params, tokens, ber_grid=grid, n_seeds=SWEEP_SEEDS,
+        use_kernel=True, fused=True, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    by_path = kernels.launch_counts_by_path()
+    peak = torch.cuda.max_memory_allocated(dev)
+    check(counts["fused_aged_matmul_lanes"] == 7 * L * n_fwd
+          and by_path["fused_aged_matmul_lanes"] == {"fast": 7 * L * n_fwd,
+                                                     "generic": 0},
+          f"sweep lane GEMM launches {by_path}, want {7 * L * n_fwd} fast "
+          f"(7 a layer and chunk forward)")
+    check(counts["bitflip_draw_lanes"] == 2 * L * n_fwd,
+          f"sweep lane draw launches {counts}, want {2 * L * n_fwd}")
+    check(counts["fused_aged_matmul"] == 7 * L
+          and counts["bitflip_draw"] == 2 * L
+          and counts["systolic_matmul"] == 0,
+          f"sweep reference-forward launches {counts}")
+    loss = sweep.loss_pct
+    check(bool(np.isfinite(loss).all() and (loss >= 0).all()
+               and (loss <= 100).all()), f"losses outside [0, 100]: {loss}")
+    knees = {op: c.ber50 for op, c in curves.items()}
+    # a knee the grid brackets (the surface crosses half of l_max inside
+    # it) must be fitted inside the grid; an operator whose loss stays
+    # below half at the grid's top BER is reported, its knee above the grid
+    half = 0.5 * curves[OPERATORS[0]].l_max
+    crosses = {op: bool(loss[:, j].min() < half <= loss[:, j].max())
+               for j, op in enumerate(OPERATORS)}
+    outside = {op: v for op, v in knees.items()
+               if not grid[0] <= v <= grid[-1]}
+    check(not any(crosses[op] for op in outside),
+          f"fitted knees outside the grid [{grid[0]:.2g}, {grid[-1]:.2g}] "
+          f"where the surface crosses {half:g} % inside it: {outside}; "
+          f"losses {loss.tolist()}")
+    print("    loss surface [%] (rows: BER): " + "; ".join(
+        f"{b:.1e}: " + " ".join(f"{x:.1f}" for x in loss[i])
+        for i, b in enumerate(grid)), flush=True)
+    res["sweep"] = {"lanes": n_lanes, "chunk": chunk, "chunk_forwards": n_fwd,
+                    "wall_s": wall,
+                    "grid_points_per_s": n_lanes * SWEEP_SEEDS / wall,
+                    "peak_gb": peak / 1e9, "launches": counts,
+                    "launches_by_path": by_path,
+                    "loss_pct": loss.tolist(), "ber50": knees,
+                    "knee_above_grid": sorted(
+                        op for op in outside if knees[op] > grid[-1]),
+                    "steepness": {op: c.steepness
+                                  for op, c in curves.items()}}
+    print(f"[10b] measured resilience of [10]'s llama3_8b ({L} layers, "
+          f"float32): {n_lanes} lanes ({len(grid)} BERs x {n_ops} ops) x "
+          f"{SWEEP_SEEDS} seeds, B={SWEEP_BATCH} S={SWEEP_SEQ}, {chunk} lanes "
+          f"a forward ({rows * chunk} rows): {wall:.2f} s, "
+          f"{n_lanes * SWEEP_SEEDS / wall:.1f} grid points/s, peak "
+          f"{peak / 1e9:.2f} GB; launches {counts} (7 lane GEMM + 2 lane "
+          f"draw a layer and chunk forward, all GEMMs fast)", flush=True)
+    print("    BER50 measured (published): " + ", ".join(
+        f"{op} {knees[op]:.2e} ({DEFAULT_BER50[op]:.1e})"
+        for op in OPERATORS), flush=True)
+
+    # host cost of the 108 lanes' key and seed derivation, one forward
+    key = prandom.PRNGKey(0)
+    t0 = time.perf_counter()
+    fi_all = rs.grid_fault_config(OPERATORS, grid, prandom.fold_in(key, 0),
+                                  use_kernel=True, fused=True).with_seeds()
+    for salt in range(L):
+        for op in ("q", "k", "v", "o", "gate", "up", "down"):
+            fi_all.seed_for(op, salt)
+        for op in ("qkt", "sv"):
+            [ops.flip_key_words(k) for k in fi_all.key_for(op, salt)]
+    res["key_derivation_ms_108_lanes"] = (time.perf_counter() - t0) * 1e3
+
+    # one chunk forward under the profiler: the device busy share
+    tk = torch.as_tensor(tokens, dtype=torch.int64, device=dev)
+    ref_pred = rs.predict(params, cfg, tk, rs._reference_fault_config(
+        OPERATORS, key, use_kernel=True, fused=True)).cpu().numpy()
+    fi = rs.grid_fault_config(OPERATORS, grid, prandom.fold_in(key, 0),
+                              use_kernel=True, fused=True)
+    part = rs.chunk_of(fi, 32, 64)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        rs.lane_losses(params, cfg, tk, ref_pred, part)
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t0
+    kern = [e for e in prof.key_averages()
+            if getattr(e, "device_type", None) == DeviceType.CUDA]
+    busy = sum(_dev_us(e) for e in kern) / 1e3
+    top = sorted(kern, key=_dev_us, reverse=True)[:6]
+    res["chunk_profile"] = {
+        "wall_ms": prof_wall * 1e3, "device_busy_ms": busy,
+        "device_busy_share": busy / (prof_wall * 1e3),
+        "launches": sum(e.count for e in kern),
+        "top": [{"name": e.key[:100], "device_ms": _dev_us(e) / 1e3,
+                 "calls": e.count} for e in top]}
+    cp = res["chunk_profile"]
+    print(f"    one {chunk}-lane chunk forward: {cp['wall_ms']:.1f} ms, "
+          f"device busy {cp['device_busy_ms']:.1f} ms "
+          f"({100 * cp['device_busy_share']:.1f}%) over {cp['launches']} "
+          f"launches; top: " + ", ".join(
+              f"{o['name'][:40]} {o['device_ms']:.1f} ms"
+              for o in cp["top"][:4])
+          + f"; lanes' key derivation "
+          f"{res['key_derivation_ms_108_lanes']:.1f} ms a forward at "
+          f"{n_lanes} lanes", flush=True)
+
+    # 2. layer 0's launches of one chunk forward against the plain versions
+    gemm = _Recorder(ops.fused_aged_matmul_lanes, 7)
+    draw = _Recorder(ops.bitflip_draw_lanes, 2)
+    ops.fused_aged_matmul_lanes, ops.bitflip_draw_lanes = gemm, draw
+    try:
+        rs.lane_losses(params, cfg, tk, ref_pred, part)
+    finally:
+        ops.fused_aged_matmul_lanes, ops.bitflip_draw_lanes = gemm.fn, draw.fn
+    check(gemm.n == 7 * L and draw.n == 2 * L,
+          f"chunk forward wrapper calls: {gemm.n} GEMM, {draw.n} draw")
+    int_rate = int32_issue_per_s(dev)
+    names = ("q", "k", "v", "o", "gate", "up", "down")
+    replay, timed = [], set()
+    for name, ((a, b, xs, ws, bers, seeds), kw, out) in zip(names,
+                                                            gemm.calls):
+        exp = ref.fused_aged_matmul_lanes_ref(a, b, xs, ws, bers, seeds, **kw)
+        clean = ref.fused_aged_matmul_lanes_ref(
+            a, b, xs, ws, (0.0,) * len(bers), seeds, **kw)
+        torch.cuda.synchronize()
+        M, K, N = a.shape[0], a.shape[1], b.shape[1]
+        row = {"kernel": "fused_aged_matmul_lanes", "op": name,
+               "lanes": kw["lanes"], "M": M, "K": K, "N": N,
+               "upset_outputs": int((exp != clean).sum()),
+               "max_abs_err": max_abs_err(out, exp)}
+        check(torch.equal(out, exp), f"chunk GEMM vs plain {row}")
+        del clean
+        if (K, N) not in timed:
+            timed.add((K, N))
+            fk = lambda: fused_aged_matmul_lanes(a, b, xs, ws, bers, seeds,
+                                                 **kw)
+            t = timed_once(fk, "fused_aged_matmul_lanes", "int8_gemm")
+            lib = timed_once(lambda: torch._int_mm(a, b), None, None)
+            # the same product with b stored column-major, the layout
+            # cuBLAS's int8 kernels read (the port keeps weights row-major)
+            bt = b.t().contiguous().t()
+            lib_cm = timed_once(lambda: torch._int_mm(a, bt), None, None)
+            check(torch.equal(torch._int_mm(a, bt), torch._int_mm(a, b)),
+                  "_int_mm differs by the layout of b")
+            del bt
+            t_b, by = bound(M * K + K * N + 4 * (M + N) + 4 * M * N,
+                            2.0 * M * K * N)
+            plan = _cuda.gemm_plan(M, N, K, torch.cuda.
+                                   get_device_properties(dev)
+                                   .multi_processor_count)
+            row.update(ms=t["ms"], dev_ms=t["dev_ms"],
+                       bound_ms=t_b, bound_by=by,
+                       library_ms=lib["ms"], library_dev_ms=lib["dev_ms"],
+                       library_colmajor_b_ms=lib_cm["ms"],
+                       plain_ms=cuda_time_ms(lambda: ref.
+                                             fused_aged_matmul_lanes_ref(
+                                                 a, b, xs, ws, bers, seeds,
+                                                 **kw), iters=1, warmup=0),
+                       plan={"path": plan.path, "bm": plan.bm, "bn": plan.bn,
+                             "splits": plan.splits})
+        replay.append(row)
+    for name, ((x, words, qs), _, out) in zip(("qkt", "sv"), draw.calls):
+        exp = ref.bitflip_draw_lanes_ref(x, words, qs)
+        torch.cuda.synchronize()
+        flips = int((exp != x).sum())
+        n = x.numel()
+        row = {"kernel": "bitflip_draw_lanes", "op": name,
+               "lanes": x.shape[0], "n": n, "n_lane": n // x.shape[0],
+               "flips": flips, "max_abs_err": max_abs_err(out, exp)}
+        check(torch.equal(out, exp), f"chunk draw vs plain {row}")
+        t = timed_once(lambda: bitflip_draw_lanes(x, words, qs),
+                       "bitflip_draw_lanes", "bitflip_draw")
+        t_b, by = bound(8 * n, int_ops=THREEFRY_INT_OPS * (n + flips),
+                        int_rate=int_rate)
+        row.update(ms=t["ms"], dev_ms=t["dev_ms"],
+                   bound_ms=t_b, bound_by=by, library_ms=None,
+                   plain_ms=cuda_time_ms(lambda: ref.bitflip_draw_lanes_ref(
+                       x, words, qs), iters=1, warmup=0))
+        replay.append(row)
+    del gemm, draw
+    torch.cuda.empty_cache()
+    upset = sum(r.get("upset_outputs", 0) + r.get("flips", 0)
+                for r in replay)
+    check(upset > 0, "no upsets in layer 0 of the chunk forward")
+    res["layer0_vs_plain"] = replay
+    for r in replay:
+        dims = (f"M={r['lanes']}x{r['M'] // r['lanes']} K={r['K']} "
+                f"N={r['N']}" if "M" in r else
+                f"n={r['lanes']}x{r['n_lane']}")
+        fmt = lambda v: "not measured" if v is None else f"{v:.3f} ms"
+        extra = (f", _int_mm {r['library_ms']:.3f} ms (dev "
+                 f"{fmt(r['library_dev_ms'])}; b column-major "
+                 f"{r['library_colmajor_b_ms']:.3f} ms), plan "
+                 f"{r['plan']['bm']}x"
+                 f"{r['plan']['bn']}/{r['plan']['splits']}"
+                 if r.get("library_ms") else "")
+        timing = (f": dev {fmt(r['dev_ms'])}, wrapper {r['ms']:.3f} ms, "
+                  f"bound {r['bound_ms']:.3f} ms ({r['bound_by']}), plain "
+                  f"{r['plain_ms']:.1f} ms{extra}" if "ms" in r else "")
+        print(f"    layer 0 {r['kernel']} {r['op']:5s} {dims}: == plain "
+              f"({r.get('upset_outputs', r.get('flips'))} "
+              f"{'upset' if 'M' in r else 'flips'}){timing}", flush=True)
+
+    # 3. chunk invariance: one BER row as part of a 32-lane chunk, as a
+    # 9-lane chunk and as 9 single-lane forwards
+    b0 = SWEEP_ROW * n_ops
+    check(32 <= b0 and b0 + n_ops <= 64, "the row must lie in lanes 32-63")
+    in32 = tuple(x[b0 - 32:b0 - 32 + n_ops]
+                 for x in lane_top2(params, cfg, tk, part))
+    in9 = lane_top2(params, cfg, tk, rs.chunk_of(fi, b0, b0 + n_ops))
+    singles = [lane_top2(params, cfg, tk, rs.chunk_of(fi, b0 + j, b0 + j + 1))
+               for j in range(n_ops)]
+    in1 = tuple(np.concatenate([s[i] for s in singles]) for i in range(3))
+    inv = {"row_ber": grid[SWEEP_ROW], "9_vs_32": near_ties(in9, in32),
+           "1_vs_32": near_ties(in1, in32), "1_vs_9": near_ties(in1, in9)}
+    lossof = lambda t: [float(100 * (1 - np.mean(t[0][j] == ref_pred)))
+                        for j in range(n_ops)]
+    inv["losses"] = {"32": lossof(in32), "9": lossof(in9), "1": lossof(in1)}
+    for k in ("9_vs_32", "1_vs_32", "1_vs_9"):
+        check(inv[k]["ok"], f"chunk invariance {k}: predictions differ "
+              f"beyond a near tie: {inv[k]}")
+    res["chunk_invariance"] = inv
+    n_tie = sum(inv[k]["differ"] for k in ("9_vs_32", "1_vs_32", "1_vs_9"))
+    print(f"    chunk invariance at BER {grid[SWEEP_ROW]:.1e} (9 lanes): "
+          f"losses in a 32-lane chunk / a 9-lane chunk / 9 single forwards "
+          f"{'equal' if inv['losses']['32'] == inv['losses']['9'] == inv['losses']['1'] else 'differ'}"
+          f"; {n_tie} predictions differ, all near ties (gaps "
+          + ", ".join(f"{r['gap']:.3g}" for k in ("9_vs_32", "1_vs_32",
+                                                   "1_vs_9")
+                      for r in inv[k]["rows"]) + ")", flush=True)
+    del in32, in9, in1, singles
+
+    # 4. reduced llama3_8b: the card against the CPU on two routes
+    small = cfg.reduced()
+    small_cpu = init_params(small, seed=0, dtype=torch.float32, device="cpu")
+    by_dev = {"cpu": small_cpu,
+              "cuda": tree_map(lambda x: x.to(dev), small_cpu)}
+    stoks = SyntheticLM(vocab=small.vocab, seq_len=16,
+                        global_batch=2).batch_at(0).tokens
+    red = {}
+    for name, route in (("fused", dict(use_kernel=True, fused=True)),
+                        ("three_pass", dict(use_kernel=True, fused=False))):
+        red[name] = sweep_vs(dev, small, by_dev, stoks, rs.QUICK_BER_GRID,
+                             route, chunk=45)
+    Ls = small.n_layers
+    fc, tc = red["fused"]["launches"], red["three_pass"]["launches"]
+    check(fc["fused_aged_matmul_lanes"] == 7 * Ls * 2
+          and fc["bitflip_draw_lanes"] == 2 * Ls * 2,
+          f"reduced fused sweep at 45 lanes: launches {fc}, want "
+          f"{14 * Ls} lane GEMM and {4 * Ls} lane draw (two a faulted op)")
+    check(tc["systolic_matmul"] == 7 * Ls * 2
+          and tc["bitflip_draw_lanes"] == 9 * Ls * 2
+          and tc["fused_aged_matmul_lanes"] == 0,
+          f"reduced three-pass sweep launches {tc}")
+    res["reduced_vs_cpu"] = red
+    print(f"    reduced llama3_8b, QUICK grid (45 lanes in one forward, two "
+          f"launches a faulted op): card == CPU on the fused route (losses "
+          f"{'equal' if red['fused']['losses_equal'] else 'differ at near ties'}"
+          f", {red['fused']['lane_preds']['differ']} near-tie predictions) "
+          f"and the three-pass route ("
+          f"{'equal' if red['three_pass']['losses_equal'] else 'near ties'}"
+          f", {red['three_pass']['lane_preds']['differ']}); launches fused "
+          f"{fc['fused_aged_matmul_lanes']} GEMM / {fc['bitflip_draw_lanes']}"
+          f" draw, three-pass {tc['systolic_matmul']} systolic / "
+          f"{tc['bitflip_draw_lanes']} draw", flush=True)
+    del by_dev, small_cpu
+
+    # 5. close the loop: fit, artifact, measured policy, serving ----------
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    path = str(out_dir / "resilience_measured.json")
+    rs.write_artifact({"llama3_8b": (sweep, rs.fit_sweep(sweep))},
+                      {"mode": "chip_smoke", "ber_grid": list(grid),
+                       "n_seeds": SWEEP_SEEDS,
+                       "batch": [SWEEP_BATCH, SWEEP_SEQ], "backend": "cuda",
+                       "kernel": "fused", "layers": L}, path=path)
+    cal = load_calibration()
+    pol = MeasuredResiliencePolicy(ber_model=cal.ber, model="llama3_8b",
+                                   artifact_path=path)
+    ev = evaluate_policy(pol, cal.aging, cal.delay_poly, cal.power,
+                         cal.lifetime_cfg, device=dev)
+    N, B, S, n_steps = len(FLEET_AGES), 2, 16, 8
+    mfleet = FleetRuntime(operators=OPERATORS, policy=pol, n_devices=N,
+                          device=dev)
+    ftfleet = _aged_fleet(dev)
+    for i, age in enumerate(FLEET_AGES):
+        mfleet.set_age(years=age, device=i)
+    mb, fb = mfleet.op_ber_array(), ftfleet.op_ber_array()
+    check(bool(np.isfinite(mb).all() and (mb >= 0).all()),
+          f"measured-policy BERs {mb}")
+    prompts = SyntheticLM(vocab=cfg.vocab, seq_len=S,
+                          global_batch=N * B).batch_at(0).tokens.reshape(
+                              N, B, S)
+    engine = FleetServeEngine(cfg, params, mfleet, max_len=64,
+                              use_systolic_kernel=True, device=dev)
+    kernels.reset_launch_counts()
+    served = engine.generate(prompts, n_steps)
+    serve_counts = kernels.launch_counts()
+    check(served.tokens.shape == (N, B, n_steps)
+          and np.array_equal(served.bers, mb),
+          f"measured fleet served {served.tokens.shape}, BERs "
+          f"{served.bers} != {mb}")
+    check(serve_counts["fused_aged_matmul_lanes"] == 7 * L * n_steps
+          and serve_counts["bitflip_draw_lanes"] == 2 * L * n_steps,
+          f"measured fleet launches {serve_counts}")
+    rp = lane_replay(engine, params, cfg, prompts, dev, served.tokens,
+                     n_steps, 7 * L * n_steps)
+    check(rp["first"] is None, f"measured fleet lane diverges from its "
+          f"single-lane replay at {rp['first']}")
+    res["measured_policy"] = {
+        "artifact": "chiprun_out/resilience_measured.json",
+        "avg_power_saving_pct": ev["avg_power_saving_pct"],
+        "published_pct": 14.0,
+        "v_final": {op: ev[op]["v_final"] for op in OPERATORS},
+        "bers": mb.tolist(), "fault_tolerant_bers": fb.tolist(),
+        "tokens": served.tokens.tolist(), "launches": serve_counts}
+    print(f"    measured policy from {path.split('/')[-1]}: average lifetime "
+          f"power saving {ev['avg_power_saving_pct']:.2f}% (published curves"
+          f" 14.0%, Table II); V_final " + ", ".join(
+              f"{op} {ev[op]['v_final']:.2f}" for op in ("q", "k", "o",
+                                                         "down")), flush=True)
+    print("    served BERs at 0/3/6/9.5 y, measured (fault-tolerant), q / o "
+          "/ down: " + "; ".join(
+              f"{mb[i, 0]:.1e} / {mb[i, 5]:.1e} / {mb[i, 8]:.1e} "
+              f"({fb[i, 0]:.1e} / {fb[i, 5]:.1e} / {fb[i, 8]:.1e})"
+              for i in range(N)) + "; every lane == its single-lane replay",
+          flush=True)
+
+    # 6. telemetry on the card --------------------------------------------
+    g_cos, c_cos = KEPT.pop("wear_level_cosims")
+    tg = cosim_taps(g_cos, _aged_fleet(dev).unit_scenario)
+    tc_ = cosim_taps(c_cos, _aged_fleet("cpu").unit_scenario)
+    check(set(tg.keys()) == set(tc_.keys())
+          and all(np.array_equal(tg[k], tc_[k]) for k in tg.keys()),
+          "cosim_taps of the wear_level co-sim: card != CPU")
+    ftengine = FleetServeEngine(cfg, params, ftfleet, max_len=64,
+                                use_systolic_kernel=True, device=dev)
+    calls = lambda: getattr(metrics.REGISTRY.get("fleet_generate_calls"),
+                            "value", 0.0)
+    calls0 = calls()
+    with enable_taps():
+        tapped = ftengine.generate(prompts, 4)
+    check(tapped.telemetry is not None and all(
+        v.shape == (N, 4) and np.isfinite(v).all()
+        for v in tapped.telemetry.values()), "fleet taps under enable_taps")
+    check(calls() == calls0 + 1, "the tapped fleet call was not recorded")
+    samples = metrics.REGISTRY.collect()
+    jsonl, prom = out_dir / "telemetry.jsonl", out_dir / "metrics.prom"
+    export.write_jsonl(jsonl, samples, manifest=export.run_manifest(
+        "chip_smoke"), events=[{"phase": "10b"}])
+    text = export.prometheus_text(samples)
+    prom.write_text(text)
+    _, back, _ = export.read_jsonl(jsonl)
+    same = lambda xs: [(s.name, s.labels, s.kind,
+                        None if math.isnan(s.value) else s.value) for s in xs]
+    check(same(back) == same(samples), "JSONL export did not round-trip")
+    check(same(export.parse_prometheus(prom.read_text())) == same(samples),
+          "Prometheus text did not round-trip")
+    res["telemetry"] = {"cosim_taps_series": sorted(tg.keys()),
+                        "samples": len(samples),
+                        "fleet_logit_max": tapped.telemetry[
+                            "logit_max"].tolist()}
+    print(f"    telemetry: cosim_taps of [6b]'s wear_level co-sim card == "
+          f"CPU ({', '.join(sorted(tg.keys()))}); a tapped fleet call "
+          f"recorded; {len(samples)} registry samples exported to "
+          f"chiprun_out/telemetry.jsonl and metrics.prom and parsed back "
+          f"equal", flush=True)
+    del engine, ftengine
+
+    # 7. the serving example ------------------------------------------------
+    t0 = time.perf_counter()
+    ex = subprocess.run([sys.executable, "-m",
+                         "repro_torch.examples.aging_aware_serving"],
+                        cwd=str(ROOT), capture_output=True, text=True,
+                        timeout=300, env={**__import__("os").environ,
+                                          "PYTHONPATH": str(ROOT / "src")})
+    ex_s = time.perf_counter() - t0
+    (out_dir / "aging_aware_serving.log").write_text(ex.stdout + ex.stderr)
+    check(ex.returncode == 0, f"the serving example failed "
+          f"({ex.returncode}): {ex.stderr[-2000:]}")
+    res["serving_example"] = {"seconds": ex_s,
+                              "tail": ex.stdout.splitlines()[-3:]}
+    print(f"    python -m repro_torch.examples.aging_aware_serving on the "
+          f"card: {ex_s:.1f} s (log in chiprun_out/aging_aware_serving.log)"
+          f"; ends: {ex.stdout.splitlines()[-2][:110]}", flush=True)
+
+    # 8. the physics calibration on the card -------------------------------
+    from repro_torch.core import calibrate as pcal
+    from repro_torch.core.delay import PathModel, fit_delay_polynomial
+    t0 = time.perf_counter()
+    aged = pcal.calibrate_aging(device=dev)
+    same = {f: bool(np.array_equal(getattr(aged, f).cpu().numpy(),
+                                   np.asarray(cal.raw["aging"][f],
+                                              np.float32)))
+            for f in ("A", "B", "Ea", "n", "chi")}
+    check(all(same.values()), f"calibrate_aging on the card != the "
+          f"checked-in parameters: {same}")
+    rows = pcal.verify_table1(aged, cal.delay_poly, cal.lifetime_cfg,
+                              device=dev)
+    targets = {"nom_norec": dict(pmos_total=82.0, nmos=50.5, pmos_hci=19.8,
+                                 pmos_bti=62.2),
+               "nom_rec": dict(pmos_total=73.1, nmos=46.1),
+               "vmax_norec": dict(pmos_total=130.7, nmos=105.2,
+                                  pmos_hci=27.3, pmos_bti=103.4)}
+    off = {(r, k): rows[r][k] for r, vals in targets.items()
+           for k, v in vals.items() if abs(rows[r][k] / v - 1) > 0.01}
+    check(not off, f"Table I rows off the paper's by more than 1 %: {off}")
+    drift = max(abs(rows[r][k] - v) / max(abs(v), 1e-6)
+                for r, vals in cal.raw["table1_check"].items()
+                for k, v in vals.items())
+    check(drift <= 1e-4, f"Table I on the card vs the checked-in rows: "
+          f"{drift:.3g} relative")
+    # the fit is a float64 LAPACK least squares on the host: this
+    # machine's numpy may round it otherwise than the one that wrote the
+    # artifact, so the refit is held to the checked-in coefficients within
+    # POLY_RTOL of the largest, and its delays over the fitting box to
+    # the checked-in polynomial's within POLY_RTOL (float32 delays)
+    poly = fit_delay_polynomial(PathModel.from_dict(cal.raw["path_model"]))
+    want = np.asarray(cal.raw["delay_poly"]["coeffs"])
+    got = np.asarray(poly.to_dict()["coeffs"])
+    coef_rel = float(np.abs(got - want).max() / np.abs(want).max())
+    g = torch.Generator().manual_seed(7)
+    box = [torch.rand(4096, generator=g) * 0.15,
+           torch.rand(4096, generator=g) * 0.15,
+           0.88 + torch.rand(4096, generator=g) * 0.18]
+    d_got, d_want = poly(*box), cal.delay_poly(*box)
+    delay_rel = float(((d_got - d_want).abs() / d_want.abs()).max())
+    check(coef_rel <= POLY_RTOL and delay_rel <= POLY_RTOL,
+          f"fit_delay_polynomial vs the checked-in polynomial: coefficients "
+          f"{coef_rel:.3g}, delays {delay_rel:.3g} relative")
+    res["calibration"] = {"seconds": time.perf_counter() - t0,
+                          "table1": rows, "max_rel_vs_checked_in": drift,
+                          "poly_bit_equal": bool(np.array_equal(got, want)),
+                          "poly_coeff_rel": coef_rel,
+                          "poly_delay_rel": delay_rel}
+    print(f"    physics calibration on the card ({res['calibration']['seconds']:.1f}"
+          f" s): calibrate_aging == the checked-in parameters; Table I "
+          + ", ".join(f"{r} {rows[r]['pmos_total']:.1f}/{rows[r]['nmos']:.1f}"
+                      for r in rows)
+          + f" mV (p/n; within 1 % of the paper, {drift:.2g} of the "
+          f"checked-in rows); the checked-in path model refitted: "
+          + ("bit for bit" if res["calibration"]["poly_bit_equal"] else
+             f"coefficients within {coef_rel:.2g}, delays within "
+             f"{delay_rel:.2g} relative"), flush=True)
+
+    launches = {k: counts[k] + serve_counts[k] + fc[k] + tc[k]
+                for k in kernels.KERNEL_NAMES}
+    res["launches"] = launches
     return res
 
 
@@ -2115,6 +2769,7 @@ def main(argv=None) -> int:
     from repro_torch.data import SyntheticLM
     from repro_torch.kernels import _cuda
     from repro_torch.models.transformer import init_params
+    from repro_torch.obs.taps import enable_taps
     from repro_torch.serve.engine import ServeEngine
     from repro_torch.tree import leaves
 
@@ -2253,7 +2908,8 @@ def main(argv=None) -> int:
     torch.cuda.reset_peak_memory_stats(dev)
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
-    out = engine.generate(prompts, n_steps)
+    with enable_taps():             # the checks below read the taps
+        out = engine.generate(prompts, n_steps)
     gen_s = time.perf_counter() - t0
     counts = kernels.launch_counts()
     by_path = kernels.launch_counts_by_path()
@@ -2384,17 +3040,24 @@ def main(argv=None) -> int:
     report["paper_tables"] = paper_tables_phase(dev)
 
     # 10. training, after every earlier phase's params are freed -------------
-    report["train"] = train_phase(dev, cfg)
+    report["train"], trained, cfg8 = train_phase(dev, cfg)
     train_counts = report["train"]["launches"]
 
+    # 10b. measured resilience on [10]'s trained params --------------------
+    report["resilience"] = resilience_phase(dev, cfg8, trained)
+    resilience_counts = report["resilience"]["launches"]
+    del trained
+    torch.cuda.empty_cache()
+
     # 11. summary ---------------------------------------------------------
-    # launches summed over the seven paths' runs, each counted from 0; the
+    # launches summed over the eight paths' runs, each counted from 0; the
     # explicit-randoms bitflip_words is on no path any more: it stays the
     # Pallas kernel's counterpart signature for signature, held against
     # its plain version in [3], with 0 launches on the paths
     launches = {name: main_counts[name] + counts3[name] + fleet_counts[name]
                 + load_counts[name] + moe_counts[name]
                 + moe_fleet_counts[name] + train_counts[name]
+                + resilience_counts[name]
                 for name in kernels.KERNEL_NAMES}
     # the representative shape of each kernel: the decode weight matmul
     # that dominates the fused route (gate/up, M = 2; 4 x 2 in lane mode),

@@ -68,6 +68,12 @@ class AgingParams:
                    n=_f32(d["n"]), chi=_f32(d["chi"]),
                    dT_sh=float(d.get("dT_sh", 8.0)))
 
+    def to_dict(self) -> Dict[str, Any]:
+        lst = lambda t: t.cpu().tolist()
+        return {"A": lst(self.A), "B": lst(self.B), "Ea": lst(self.Ea),
+                "n": lst(self.n), "chi": lst(self.chi),
+                "dT_sh": float(self.dT_sh)}
+
     def to(self, device) -> "AgingParams":
         return AgingParams(self.A.to(device), self.B.to(device),
                            self.Ea.to(device), self.n.to(device),

@@ -1,9 +1,10 @@
-"""Timing-error / BER model (port of ``repro.core.ber``; the anchor fit
-``solve_ber_model`` stays in the reference).
+"""Timing-error / BER model (port of ``repro.core.ber``).
 
 ``log10 BER(d) = log10(BER_sat) - a * exp(-(d - t_clk) / tau)``: steep just
 past the clock edge, saturating as the violating-path population thins
 out; analytically invertible, which the fault-tolerant policy uses.
+:func:`solve_ber_model` fits the curve through three (delay, BER) anchors
+(the physics calibration's step 3).
 """
 from __future__ import annotations
 
@@ -63,3 +64,35 @@ class BerModel:
     @classmethod
     def from_dict(cls, d: Dict[str, Any]) -> "BerModel":
         return cls(**d)
+
+
+def solve_ber_model(anchors: Dict[float, float], *, t_clk: float = T_CLK,
+                    sat_cap: float | None = None) -> BerModel:
+    """Solve ``(log10_sat, a, tau)`` through three (delay [s], BER)
+    anchors: the ``tau`` ratio equation by 200 geometric bisection steps
+    in Python floats, then ``a`` and ``log10_sat`` linearly.  ``sat_cap``
+    (a BER) raises if the saturation BER exceeds it."""
+    (d1, b1), (d2, b2), (d3, b3) = sorted(anchors.items())
+    l1, l2, l3 = (math.log10(b) for b in (b1, b2, b3))
+    x1, x2, x3 = (d - t_clk for d in (d1, d2, d3))
+    target = (l2 - l1) / (l3 - l2)
+
+    def ratio(tau):
+        e1, e2, e3 = (math.exp(-x / tau) for x in (x1, x2, x3))
+        return (e1 - e2) / max(e2 - e3, 1e-300)
+
+    lo, hi = 1e-12, 5e-9
+    for _ in range(200):
+        mid = math.sqrt(lo * hi)
+        if ratio(mid) > target:
+            lo = mid
+        else:
+            hi = mid
+    tau = math.sqrt(lo * hi)
+    e1, e2 = math.exp(-x1 / tau), math.exp(-x2 / tau)
+    a = (l2 - l1) / (e1 - e2)
+    log10_sat = l1 + a * e1
+    if sat_cap is not None and log10_sat > math.log10(sat_cap):
+        raise ValueError(
+            f"BER saturation 1e{log10_sat:.2f} exceeds cap {sat_cap:g}")
+    return BerModel(log10_sat=log10_sat, a=a, tau=tau, t_clk=t_clk)

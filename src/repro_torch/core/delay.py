@@ -1,21 +1,94 @@
-"""Critical-path delay: the fitted ternary degree-6 polynomial
-``delay(dp, dn, V)`` the AVS loop evaluates.
+"""Critical-path delay (port of ``repro.core.delay``).
 
-Port of ``repro.core.delay`` (evaluation and ``from_dict``; the
-alpha-power-law ground-truth path model and the least-squares fit stay in
-the reference).
+The AVS loop evaluates a fitted ternary degree-6 polynomial
+``delay(dp, dn, V)`` (:class:`DelayPolynomial`).  Its ground truth is an
+alpha-power-law path model (:class:`PathModel`, standing in for the
+paper's HSPICE characterisation of the worst timing paths), and
+:func:`fit_delay_polynomial` is the paper's least-squares fit of the
+polynomial to it over the fitting box — what the physics calibration
+(:mod:`repro_torch.core.calibrate`) refits per candidate path model.
 """
 from __future__ import annotations
 
 import dataclasses
+import itertools
 from typing import Any, Dict
 
 import numpy as np
 import torch
 
 from .. import fmath
+from .constants import D_CRIT_NOM, V_NOM
 
+# the fitting box: dVth in [0, 150] mV, V_DD in [0.88, 1.06] V
+DP_RANGE = (0.0, 0.150)
+DN_RANGE = (0.0, 0.150)
+V_RANGE = (0.88, 1.06)
 TOTAL_DEGREE = 6
+
+
+def _f32(v) -> torch.Tensor:
+    return torch.as_tensor(v, dtype=torch.float32)
+
+
+@dataclasses.dataclass(frozen=True)
+class PathModel:
+    """Alpha-power-law ground-truth model of the worst-path population."""
+    alpha: float = 1.30
+    vth_p0: float = 0.38
+    vth_n0: float = 0.36
+    wire_frac: float = 0.30   # fraction of nominal delay that is RC / non-FET
+    pn_split: float = 0.50    # PMOS share of the FET-limited delay
+    n_paths: int = 100
+    spread: float = 0.035     # relative spread of the worst-path population
+    seed: int = 20260715
+
+    def stage_delay(self, V, dp, dn) -> torch.Tensor:
+        """Normalised (w_i = 1) path delay [s], float32, each operation
+        rounded as the reference's eager float32 operations round it (the
+        Python constants to float32 first, ``**`` as glibc's ``powf``)."""
+        V, dp, dn = _f32(V), _f32(dp), _f32(dn)
+        alpha = _f32(self.alpha)
+        f_p = V / fmath.pow(torch.clamp_min(V - _f32(self.vth_p0) - dp,
+                                            1e-3), alpha)
+        f_n = V / fmath.pow(torch.clamp_min(V - _f32(self.vth_n0) - dn,
+                                            1e-3), alpha)
+        f_p0 = V_NOM / (V_NOM - self.vth_p0) ** self.alpha
+        f_n0 = V_NOM / (V_NOM - self.vth_n0) ** self.alpha
+        fet = (_f32(self.pn_split) * f_p / _f32(f_p0)
+               + _f32(1.0 - self.pn_split) * f_n / _f32(f_n0))
+        return _f32(D_CRIT_NOM) * (_f32(self.wire_frac)
+                                   + _f32(1.0 - self.wire_frac) * fet)
+
+    def path_weights(self) -> np.ndarray:
+        """Per-path scale factors, sorted descending; w_0 = 1 (critical)."""
+        rng = np.random.default_rng(self.seed)
+        eps = np.abs(rng.normal(0.0, self.spread, self.n_paths - 1))
+        return np.concatenate([[1.0], 1.0 - np.sort(eps)])
+
+    def path_delays(self, V, dp, dn) -> torch.Tensor:
+        """All worst-path delays [s], ``(n_paths,)`` (+ broadcasts)."""
+        return _f32(self.path_weights()) * self.stage_delay(V, dp, dn)
+
+    def critical_delay(self, V, dp, dn) -> torch.Tensor:
+        """The critical (w_0 = 1) path's delay, the quantity the AVS loop
+        watches and the polynomial is fitted to."""
+        return self.stage_delay(V, dp, dn)
+
+    def to_dict(self) -> Dict[str, Any]:
+        return dataclasses.asdict(self)
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "PathModel":
+        return cls(**d)
+
+
+def _monomial_exponents(total_degree: int = TOTAL_DEGREE):
+    """All (a, b, c) with a + b + c <= total_degree (84 terms for 6)."""
+    return [(a, b, c)
+            for a, b, c in itertools.product(range(total_degree + 1),
+                                             repeat=3)
+            if a + b + c <= total_degree]
 
 
 def _integer_pow(x: torch.Tensor, y: int) -> torch.Tensor:
@@ -92,6 +165,15 @@ class DelayPolynomial:
                  * pows[..., e[:, 2], 2])
         return dot_like_xla(terms, self.coeffs)
 
+    def to_dict(self) -> Dict[str, Any]:
+        return {
+            "coeffs": self.coeffs.cpu().double().tolist(),
+            "exponents": self.exponents.cpu().tolist(),
+            "centers": self.centers.cpu().double().tolist(),
+            "halfspans": self.halfspans.cpu().double().tolist(),
+            "rmse": float(self.rmse),
+        }
+
     def to(self, device) -> "DelayPolynomial":
         return DelayPolynomial(self.coeffs.to(device),
                                self.exponents.to(device),
@@ -106,3 +188,33 @@ class DelayPolynomial:
                    exponents=torch.tensor(d["exponents"], dtype=torch.int64),
                    centers=f32(d["centers"]), halfspans=f32(d["halfspans"]),
                    rmse=float(d["rmse"]))
+
+
+def fit_delay_polynomial(path_model: PathModel, *, grid: int = 13,
+                         total_degree: int = TOTAL_DEGREE) -> DelayPolynomial:
+    """Least-squares fit of the critical-path delay over the fitting box
+    (a ``grid x grid x (grid + 1)`` lattice), in float64 numpy on the path
+    model's float32 delays, as the reference fits it."""
+    dps = np.linspace(*DP_RANGE, grid)
+    dns = np.linspace(*DN_RANGE, grid)
+    vs = np.linspace(*V_RANGE, grid + 1)
+    DP, DN, VV = np.meshgrid(dps, dns, vs, indexing="ij")
+    y = path_model.critical_delay(VV.ravel(), DP.ravel(),
+                                  DN.ravel()).numpy().astype(np.float64)
+    centers = np.array([np.mean(DP_RANGE), np.mean(DN_RANGE),
+                        np.mean(V_RANGE)])
+    halfspans = np.array([np.ptp(DP_RANGE) / 2, np.ptp(DN_RANGE) / 2,
+                          np.ptp(V_RANGE) / 2])
+    X = np.stack([DP.ravel(), DN.ravel(), VV.ravel()], axis=-1)
+    Xs = (X - centers) / halfspans
+    exps = _monomial_exponents(total_degree)
+    basis = np.stack([Xs[:, 0] ** a * Xs[:, 1] ** b * Xs[:, 2] ** c
+                      for a, b, c in exps], axis=-1)
+    coeffs, *_ = np.linalg.lstsq(basis, y, rcond=None)
+    rmse = float(np.sqrt(np.mean((basis @ coeffs - y) ** 2)))
+    return DelayPolynomial(
+        coeffs=torch.tensor(coeffs, dtype=torch.float32),
+        exponents=torch.tensor(np.array(exps), dtype=torch.int64),
+        centers=torch.tensor(centers, dtype=torch.float32),
+        halfspans=torch.tensor(halfspans, dtype=torch.float32),
+        rmse=rmse)

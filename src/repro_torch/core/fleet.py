@@ -33,7 +33,8 @@ from .aging import N_POP
 from .artifacts import Calibration, load_calibration
 from .avs import simulate
 from .constants import DEFAULT_MAX_LOSS_PCT
-from .policy import BaselinePolicy, FaultTolerantPolicy
+from .policy import (BaselinePolicy, FaultTolerantPolicy,
+                     MeasuredResiliencePolicy, get_policy)
 from .resilience import OPERATORS, default_curves, operators_for
 from .scenario import LifetimeTrajectory, Scenario
 
@@ -87,13 +88,19 @@ class FleetRuntime:
         self.cal = cal or load_calibration()
         self.operators = tuple(operators)
         if policy == "fault_tolerant":
+            # the budget is not pinned: thresholds read the scenario's
+            # max_loss_pct, so per-device budgets batch
             policy = FaultTolerantPolicy(ber_model=self.cal.ber,
                                          curves=curves)
         elif policy == "baseline":
             policy = BaselinePolicy(t_clk=self.cal.lifetime_cfg.t_clk)
+        elif policy == "measured":
+            # the artifact's curves for the policy's default model; pass a
+            # MeasuredResiliencePolicy (or use for_model) to pick another
+            policy = get_policy("measured", ber_model=self.cal.ber,
+                                curves=curves)
         elif isinstance(policy, str):
-            raise KeyError(f"policy {policy!r} is not ported; pass a policy "
-                           "object, 'fault_tolerant' or 'baseline'")
+            policy = get_policy(policy)
         self.policy = policy
         if scenario is None:
             scenario = Scenario.from_lifetime_config(self.cal.lifetime_cfg,
@@ -124,8 +131,15 @@ class FleetRuntime:
     def for_model(cls, cfg, **kw) -> "FleetRuntime":
         """Fleet with the architecture family's operator-domain set (an MoE
         model adds its ``router`` domain) and those domains' default
-        resilience curves."""
+        resilience curves; with ``policy="measured"``, the measured curves
+        of this model (``cfg.name``), the defaults for any domain the
+        artifact lacks."""
         ops = operators_for(cfg.family)
+        if kw.get("policy") == "measured":
+            cal = kw.setdefault("cal", load_calibration())
+            kw["policy"] = MeasuredResiliencePolicy(ber_model=cal.ber,
+                                                    model=cfg.name)
+            return cls(operators=ops, **kw)
         return cls(operators=ops, curves=default_curves(ops), **kw)
 
     def _ensure_trajs(self) -> LifetimeTrajectory:

@@ -10,9 +10,12 @@ one batched :func:`simulate` (:func:`sweep_policy`).
 * :class:`FaultTolerantPolicy` — per-operator ``delay_max`` from inverting
   the resilience curve at the accuracy budget, then the BER curve.
 
+* :class:`MeasuredResiliencePolicy` — the fault-tolerant policy on
+  curves measured in-repo by the fault-injection sweep (the artifact of
+  :mod:`repro_torch.calibrate.resilience_sweep`).
+
 Policies register by name (:func:`register_policy`) and are built with
-:func:`get_policy`.  The reference's ``"measured"`` policy (curves fitted
-by the fault-injection sweep) is not ported yet.
+:func:`get_policy`.
 """
 from __future__ import annotations
 
@@ -29,7 +32,7 @@ from .constants import DEFAULT_MAX_LOSS_PCT, T_CLK
 from .delay import DelayPolynomial
 from .power import PowerModel, batched_lifetime_stats
 from .resilience import (OPERATORS, ResilienceCurve, default_curves,
-                         tolerable_bers)
+                         measured_curves, tolerable_bers)
 from .scenario import LifetimeTrajectory, Scenario
 
 _F32 = torch.float32
@@ -51,8 +54,6 @@ class Policy(Protocol):
 
 
 POLICY_REGISTRY: Dict[str, type] = {}
-# registered in the reference, not ported yet (ROADMAP §A)
-UNPORTED_POLICIES = ("measured",)
 
 
 def register_policy(cls):
@@ -63,10 +64,6 @@ def register_policy(cls):
 
 def get_policy(name: str, **kw):
     """Instantiate a registered policy by name."""
-    if name in UNPORTED_POLICIES:
-        raise NotImplementedError(f"the {name!r} policy needs the measured "
-                                  "resilience curves, which are not ported "
-                                  "yet")
     try:
         return POLICY_REGISTRY[name](**kw)
     except KeyError:
@@ -139,6 +136,27 @@ class FaultTolerantPolicy:
         d = self.ber_model.delay_for_ber(tol)
         t_clk = _broadcast_leaf(scenario.t_clk, batch)[..., None]
         return torch.maximum(d, t_clk).to(_F32)
+
+
+@register_policy
+@dataclasses.dataclass(frozen=True)
+class MeasuredResiliencePolicy(FaultTolerantPolicy):
+    """The fault-tolerant policy driven by curves measured in-repo: the
+    per-``model`` fits of the fault-injection sweep, read from the
+    measured-resilience artifact (``artifact_path``, default the port's
+    ``resilience_calibrated.json``).  Operators the artifact does not
+    cover take the published defaults; explicit ``curves`` override the
+    artifact entirely."""
+    name = "measured"
+    model: str = "llama3_8b"
+    artifact_path: str | None = None
+
+    def _curves_for(self, operators) -> Mapping[str, ResilienceCurve]:
+        if self.curves is not None:
+            return FaultTolerantPolicy._curves_for(self, operators)
+        measured = measured_curves(self.model, self.artifact_path)
+        defaults = default_curves(tuple(operators))
+        return {op: measured.get(op, defaults[op]) for op in operators}
 
 
 def sweep_policy(policy: Policy, params: AgingParams, poly: DelayPolynomial,

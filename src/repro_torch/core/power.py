@@ -1,11 +1,11 @@
-"""Accelerator power model (port of ``repro.core.power``; the calibration
-fit ``calibrate_power`` stays in the reference).
+"""Accelerator power model (port of ``repro.core.power``).
 
     P(V, dVth) = P_dyn0 * (V / V0)**2
                + P_leak0 * (V / V0) * 10**((k_dibl * (V - V0) - dVth_mean) / S)
 
 evaluated in float32; the lifetime averages are float64 numpy, as in the
-reference.
+reference.  :func:`calibrate_power` solves ``(P_dyn0, P_leak0)`` against
+two lifetime-average anchors (the physics calibration's step 4).
 """
 from __future__ import annotations
 
@@ -57,6 +57,30 @@ class PowerModel:
     @classmethod
     def from_dict(cls, d: Dict[str, Any]) -> "PowerModel":
         return cls(**d)
+
+
+def calibrate_power(traj_nom, traj_avs, target_nom: float = 0.85,
+                    target_avs: float = 1.03, **kw) -> PowerModel:
+    """Solve the 2x2 linear system for ``(p_dyn0, p_leak0)`` so the
+    time-weighted lifetime averages of ``traj_nom`` and ``traj_avs`` (dicts
+    of ``t, V, dvp, dvn`` series) hit the two targets [W]."""
+    probe = PowerModel(p_dyn0=1.0, p_leak0=0.0, **kw)
+    probe2 = PowerModel(p_dyn0=0.0, p_leak0=1.0, **kw)
+
+    def basis_avgs(traj):
+        t = np.asarray(traj["t"], np.float64)
+        wdt = np.diff(t, prepend=0.0)
+        wdt = wdt / wdt.sum()
+        dyn = probe.power(traj["V"], 0.0, 0.0).double().numpy()
+        leak = probe2.power(traj["V"], traj["dvp"],
+                            traj["dvn"]).double().numpy()
+        return float((dyn * wdt).sum()), float((leak * wdt).sum())
+
+    a11, a12 = basis_avgs(traj_nom)
+    a21, a22 = basis_avgs(traj_avs)
+    sol = np.linalg.solve(np.array([[a11, a12], [a21, a22]]),
+                          np.array([target_nom, target_avs]))
+    return PowerModel(p_dyn0=float(sol[0]), p_leak0=float(sol[1]), **kw)
 
 
 def batched_lifetime_stats(power_model: PowerModel, traj

@@ -25,10 +25,16 @@ weight once, and every lane runs at its own row of the fleet's BER matrix
 with its own fault and sampling streams.  Built with ``router=``, it first
 ages the fleet under routed traffic (:meth:`FleetRuntime.apply_load`), so
 the lanes serve traffic-aged BERs.
+
+Telemetry is the reference's: ``generate`` returns the logit taps, and
+records the call into :data:`repro_torch.obs.metrics.REGISTRY`, only
+under :func:`repro_torch.obs.taps.enable_taps`; the tokens are the same
+either way.
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -40,8 +46,46 @@ from ..core.fleet import FleetRuntime
 from ..device import resolve_device
 from ..models import transformer as tf
 from ..models.layers import FaultConfig
+from ..obs import metrics as obs_metrics
+from ..obs.taps import taps_enabled
 from ..train.steps import softmax_xent
 from . import steps
+
+
+class _ServedShapes:
+    """The keys a generate function has served in this process, counted
+    as the reference counts its compile cache (registered with
+    :func:`repro_torch.obs.metrics.register_cache` under the reference's
+    cache name).  The port compiles nothing per shape: a call is "cold"
+    (recorded as ``*_compile_s``) the first time its key is served, which
+    is also when kernels are built and libraries load."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self._keys: set = set()
+        self.hits = self.misses = self.evictions = 0
+        obs_metrics.register_cache(self)
+
+    def __call__(self, *key) -> bool:
+        """Count one call of ``key``; True when it is the first."""
+        if key in self._keys:
+            self.hits += 1
+            return False
+        self.misses += 1
+        self._keys.add(key)
+        return True
+
+    def clear(self) -> None:
+        self._keys.clear()
+
+    def stats(self) -> Dict[str, int]:
+        return {"currsize": len(self._keys), "maxsize": -1,
+                "hits": self.hits, "misses": self.misses,
+                "evictions": self.evictions}
+
+
+_GENERATE = _ServedShapes("generate")
+_FLEET_GENERATE = _ServedShapes("fleet_generate")
 
 
 @dataclasses.dataclass
@@ -50,7 +94,8 @@ class GenerateResult:
     bers: Dict[str, float]       # per-operator BER used
     age_years: float
     power_w: float
-    # per-step serving-health series {name: (n_steps,)} (logit taps)
+    # per-step serving-health series {name: (n_steps,)} (logit taps),
+    # None unless taps are enabled
     telemetry: Optional[Dict[str, np.ndarray]] = None
     # host-clock phase times of the call: {"prefill_s", "decode_s"}
     timings: Optional[Dict[str, float]] = None
@@ -113,10 +158,17 @@ class ServeEngine:
         fi = self._fault_config()
         self._key, call_key = prandom.split(self._key)
         temperature = self._temperature(greedy, temperature)
+        cold = _GENERATE(self.cfg, self.max_len, int(n_steps), top_k)
+        t0 = time.perf_counter()
         tokens, telemetry, timings = steps.generate(
             self.params, self.cfg, self._tokens(prompts), fi, call_key,
             max_len=self.max_len, n_steps=int(n_steps),
             temperature=temperature, top_k=top_k)
+        span = time.perf_counter() - t0
+        if taps_enabled():
+            self._record(tokens, telemetry, span, cold)
+        else:
+            telemetry = None
         rt = self.runtime
         bers = rt.op_bers() if rt else {}
         return GenerateResult(
@@ -124,6 +176,25 @@ class ServeEngine:
             age_years=rt.age_years if rt else 0.0,
             power_w=rt.total_power() if rt else 0.0,
             telemetry=telemetry, timings=timings)
+
+    def _record(self, tokens, telemetry, span_s: float, cold: bool) -> None:
+        """Fold one generate call into the metrics registry, as the
+        reference's engine does."""
+        reg = obs_metrics.REGISTRY
+        reg.counter("serve_generate_calls", "generate() dispatches").inc()
+        reg.counter("serve_tokens", "tokens generated").inc(tokens.size)
+        obs_metrics.observe_span("serve_generate_compile_s" if cold
+                                 else "serve_generate_warm_s", span_s)
+        for sig in ("logit_max", "logit_margin"):
+            if telemetry and sig in telemetry:
+                reg.histogram("serve_" + sig, "per-step serving health") \
+                   .observe_many(np.asarray(telemetry[sig]).ravel())
+        if self.runtime is not None:
+            bers = self.runtime.op_bers()
+            if bers:
+                reg.gauge("serve_admitted_ber_max",
+                          "worst per-operator BER served") \
+                   .set(max(float(v) for v in bers.values()))
 
     @torch.no_grad()
     def score(self, tokens) -> float:
@@ -144,7 +215,8 @@ class FleetGenerateResult:
     operators: Tuple[str, ...]   # column order of ``bers``
     ages_years: np.ndarray       # (N,)
     power_w: np.ndarray          # (N,)
-    # per-lane serving-health series {name: (N, steps)} (logit taps)
+    # per-lane serving-health series {name: (N, steps)} (logit taps),
+    # None unless taps are enabled
     telemetry: Optional[Dict[str, np.ndarray]] = None
     # host-clock phase times of the call: {"prefill_s", "decode_s"}
     timings: Optional[Dict[str, float]] = None
@@ -233,11 +305,23 @@ class FleetServeEngine:
         prompts = self._shard(prompts)
         fi = self._fleet_fault_config(call_key)
         keys = prandom.split(prandom.fold_in(call_key, 1), N)
+        cold = _FLEET_GENERATE(self.cfg, self.max_len, int(n_steps), top_k)
+        t0 = time.perf_counter()
         tokens, telemetry, timings = steps.generate(
             self.params, self.cfg,
             prompts.reshape(-1, prompts.shape[-1]).to(self.device), fi, keys,
             max_len=self.max_len, n_steps=int(n_steps),
             temperature=float(temperature), top_k=top_k, lanes=N)
+        span = time.perf_counter() - t0
+        if taps_enabled():
+            reg = obs_metrics.REGISTRY
+            reg.counter("fleet_generate_calls",
+                        "fleet generate() dispatches").inc()
+            reg.counter("serve_tokens", "tokens generated").inc(tokens.size)
+            obs_metrics.observe_span("fleet_generate_compile_s" if cold
+                                     else "fleet_generate_warm_s", span)
+        else:
+            telemetry = None
         return FleetGenerateResult(
             tokens=tokens, bers=self.fleet.op_ber_array(),
             operators=self.fleet.operators,

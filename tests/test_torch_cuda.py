@@ -451,3 +451,74 @@ def test_cuda_fmath_pow_and_delay_sum_match_cpu(cuda_device):
     got = poly.to(cuda_device)(dp.to(cuda_device), dn.to(cuda_device),
                                V.to(cuda_device)).cpu()
     assert torch.equal(got, want)
+
+
+def _sweep_losses(dev, chunk, plain=False):
+    """One seed of a 40-lane grid (8 BERs x the 5 weight-side domains q, k,
+    v, qkt, down) on reduced llama3_8b (float32, seed 0), fused route, on
+    ``dev``; ``plain`` swaps the wrappers for their plain versions (on the
+    same card tensors)."""
+    import numpy as np
+    from repro_torch.calibrate import resilience_sweep as rs
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models.transformer import init_params
+    cfg = get_config("llama3_8b").reduced()
+    from repro_torch.tree import tree_map
+    params = tree_map(lambda x: x.to(dev), init_params(
+        cfg, seed=0, dtype=torch.float32, device="cpu"))
+    tokens = SyntheticLM(vocab=cfg.vocab, seq_len=16,
+                         global_batch=2).batch_at(0).tokens
+    grid = tuple(float(b) for b in np.logspace(-5, -1.5, 8))
+    saved = (ops._fused_aged_matmul_kernel, ops.fused_aged_matmul_lanes,
+             ops.bitflip_draw, ops.bitflip_draw_lanes)
+    if plain:
+        (ops._fused_aged_matmul_kernel, ops.fused_aged_matmul_lanes,
+         ops.bitflip_draw, ops.bitflip_draw_lanes) = (
+            ref.fused_aged_matmul_ref, ref.fused_aged_matmul_lanes_ref,
+            ref.bitflip_draw_ref, ref.bitflip_draw_lanes_ref)
+    try:
+        kernels.reset_launch_counts()
+        res = rs.run_sweep(cfg, params, tokens, ber_grid=grid,
+                           operators=("q", "k", "v", "qkt", "down"),
+                           n_seeds=1, use_kernel=True, fused=True,
+                           chunk=chunk, device=dev)
+        return res.loss_pct, kernels.launch_counts(), cfg.n_layers
+    finally:
+        (ops._fused_aged_matmul_kernel, ops.fused_aged_matmul_lanes,
+         ops.bitflip_draw, ops.bitflip_draw_lanes) = saved
+
+
+@pytest.mark.cuda
+def test_cuda_sweep_grid_matches_plain(cuda_device):
+    """A 40-lane reduced grid on the fused lane kernels equals the same
+    sweep through the plain versions on the card; one forward of 40 lanes
+    makes two launches a faulted op (the 32-lane split)."""
+    got, counts, L = _sweep_losses(cuda_device, 40)
+    want, plain_counts, _ = _sweep_losses(cuda_device, 40, plain=True)
+    assert (got == want).all()
+    assert counts["fused_aged_matmul_lanes"] == 7 * L * 2
+    assert counts["bitflip_draw_lanes"] == 2 * L * 2
+    assert plain_counts["fused_aged_matmul_lanes"] == 0
+    assert ((got >= 0) & (got <= 100)).all() and got.max() > 0
+
+
+@pytest.mark.cuda
+def test_cuda_sweep_chunk_changes_no_loss(cuda_device):
+    """The same grid at 8 and at 40 lanes a forward."""
+    a, ca, L = _sweep_losses(cuda_device, 8)
+    b, cb, _ = _sweep_losses(cuda_device, 40)
+    assert (a == b).all()
+    assert ca["fused_aged_matmul_lanes"] == 7 * L * 5
+
+
+@pytest.mark.cuda
+def test_cuda_argmax_takes_the_first_maximum(cuda_device):
+    """The sweep's predictions: ties and +inf go to the first maximal
+    index and NaN counts as the maximum, as ``jnp.argmax`` (numpy's rule)."""
+    import numpy as np
+    x = np.array([[1.0, 3.0, 3.0, 2.0], [np.inf, 1.0, np.inf, 0.0],
+                  [0.0, np.nan, 5.0, np.nan], [-np.inf, -np.inf, -1.0, -1.0],
+                  [2.0, 2.0, 2.0, 2.0]], np.float32)
+    got = torch.as_tensor(x, device=cuda_device).argmax(dim=-1).cpu()
+    assert got.tolist() == np.argmax(x, axis=-1).tolist()

@@ -32,6 +32,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.bitflip import bitflip_draw_lanes
 from repro_torch.kernels.fused_aged_matmul import fused_aged_matmul_lanes
 from repro_torch.models.layers import FaultConfig
+from repro_torch.obs.taps import enable_taps
 from repro_torch.serve import steps
 from repro_torch.serve.engine import FleetServeEngine
 
@@ -99,8 +100,8 @@ def test_fleet_arrays_match_reference(policy):
 def test_unported_fleet_options_raise():
     with pytest.raises(NotImplementedError, match="n_shards"):
         FleetRuntime(n_devices=2, n_shards=2, device="cpu")
-    with pytest.raises(KeyError, match="measured"):
-        FleetRuntime(policy="measured", device="cpu")
+    with pytest.raises(KeyError, match="nonesuch"):
+        FleetRuntime(policy="nonesuch", device="cpu")
     grid = Scenario(duty=np.full((2, 3), 0.5, np.float32))
     with pytest.raises(ValueError, match="batch shape"):
         FleetRuntime(scenario=grid, device="cpu")
@@ -308,7 +309,8 @@ def test_fleet_tokens_match_reference(model, route):
     lane_prompts = model[4]
     jeng, peng = _engines(model, route, seed=5)
     want = jeng.generate(lane_prompts, 4)
-    got = peng.generate(lane_prompts, 4)
+    with enable_taps():
+        got = peng.generate(lane_prompts, 4)
     assert got.tokens.shape == (3, 2, 4)
     np.testing.assert_array_equal(got.tokens, want.tokens)
     assert got.operators == tuple(want.operators)
@@ -362,7 +364,8 @@ def test_fleet_lanes_equal_single_lane_replay(model, sample):
     cfg, params, lane_prompts = model[1], model[3], model[4]
     eng = FleetServeEngine(cfg, params, model[6], max_len=32, seed=6,
                            use_systolic_kernel=True, device="cpu")
-    res = eng.generate(lane_prompts, 4, **sample)
+    with enable_taps():
+        res = eng.generate(lane_prompts, 4, **sample)
     _, call_key = prandom.split(prandom.PRNGKey(6))
     fi = eng._fleet_fault_config(call_key)
     keys = prandom.split(prandom.fold_in(call_key, 1), 3)

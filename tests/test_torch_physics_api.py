@@ -202,7 +202,8 @@ def test_per_population_finals_match_reference(trajs):
 def test_policy_registry_matches_reference(cals):
     """``get_policy`` builds the registered policies, whose thresholds
     equal the reference's; a registered custom policy is found by name;
-    ``measured`` is not ported yet; unknown names raise ``KeyError``."""
+    ``measured`` builds the measured policy; unknown names raise
+    ``KeyError``."""
     jc, pc = cals
     assert {"baseline", "fault_tolerant"} <= set(policy.POLICY_REGISTRY)
     grid = scenario.scenario_grid(**GRID)
@@ -232,8 +233,9 @@ def test_policy_registry_matches_reference(cals):
             pytest.approx(1.65e-9)
     finally:
         policy.POLICY_REGISTRY.pop("fixed_for_test")
-    with pytest.raises(NotImplementedError, match="measured"):
-        policy.get_policy("measured", ber_model=pc.ber)
+    measured = policy.get_policy("measured", ber_model=pc.ber)
+    assert isinstance(measured, policy.MeasuredResiliencePolicy)
+    assert measured.model == "llama3_8b"
     with pytest.raises(KeyError, match="registered"):
         policy.get_policy("nonesuch")
 
