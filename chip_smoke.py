@@ -135,9 +135,28 @@ Phases (any failure exits non-zero):
    against the checked-in calibration (Table I within 1 %) and the
    checked-in path model's polynomial refitted (within 1e-6 relative of
    the checked-in one: the host's least squares);
+12. the hybrid, SSM, VLM and enc-dec families, each at its full published
+   config with bf16 random params (prefix / frame embeddings from numpy):
+   recurrentgemma_2b, rwkv6_3b, paligemma_3b (256 prefix embeddings) and
+   whisper_large_v3 (``(2, 1500, 1280)`` frames) served B=2, prompt 16, 8
+   greedy tokens on a ``FleetRuntime.for_model`` device aged 9 years on the
+   fused route, with the fused-GEMM and draw launches equal to the counts
+   read from the models' code (``FAMILY_LAUNCHES``), every GEMM on the fast
+   path, peak memory under 20 GB, no host-device synchronisation in a
+   decode step, a profiled prefill + decode step and ``score``;
+   recurrentgemma also at B=1 with a 2,064-token prompt (past its 2,048
+   window: the mask, the prefill roll and the decode ring wrap) and rwkv
+   with a 300-token prompt (three WKV chunks); a 4-lane
+   ``FleetServeEngine`` each (ages 0/3/6/9.5 y, one device's launches,
+   every lane == its single-lane replay); the reduced models (single
+   device and 3 lanes) and, for paligemma and whisper, a reduced-grid
+   ``run_sweep`` with extras on the card against the CPU; and the GEMM
+   and draw at the shapes these models add, bit-exact against their plain
+   versions, beside their bounds and ``torch._int_mm`` on a column-major
+   ``b``;
 11. a ``{"kernels": [...]}`` line (launches summed over the runs of [4],
-   [5], [6], [6b], [7], [8], [10] and [10b]), the ``nvidia-smi`` line, and
-   as the last line ``{"ok": true, "device": {...}}``.
+   [5], [6], [6b], [7], [8], [10], [10b] and [12]), the ``nvidia-smi``
+   line, and as the last line ``{"ok": true, "device": {...}}``.
 
 Details go to ``chiprun_out/chip_smoke.json``.  The port never calls
 ``torch._int_mm``; it is timed here only as a yardstick.
@@ -2743,6 +2762,568 @@ def resilience_phase(dev, cfg, params) -> dict:
     return res
 
 
+# --------------------------------------------------------------------------- #
+# [12] the hybrid, SSM, VLM and enc-dec families
+# --------------------------------------------------------------------------- #
+FAMILY_ARCHS = ("recurrentgemma_2b", "rwkv6_3b", "paligemma_3b",
+                "whisper_large_v3")
+# (fused GEMM, draw) launches a forward, counted from the models' code:
+# recurrentgemma 18 rec layers x 8 (g, v, r, k, o, gate, up, down) + 8
+# attention layers x 7, 2 draws an attention layer; rwkv 32 x (5 time-mix
+# + 2 channel-mix), no attention; paligemma 18 x 7 (prefix_proj clean);
+# whisper's prefill encoder 32 x 6, cross k/v 32 x 2, decoder 32 x 8 and
+# its decode step the decoder alone, 2 draws an encoder layer and 4 a
+# decoder layer (self + cross) at prefill, 4 a decoder layer a step
+FAMILY_LAUNCHES = {
+    "recurrentgemma_2b": {"prefill": (200, 16), "decode": (200, 16)},
+    "rwkv6_3b": {"prefill": (224, 0), "decode": (224, 0)},
+    "paligemma_3b": {"prefill": (126, 36), "decode": (126, 36)},
+    "whisper_large_v3": {"prefill": (512, 192), "decode": (256, 128)},
+}
+FAMILY_BATCH, FAMILY_PROMPT, FAMILY_STEPS = 2, 16, 8
+FAMILY_PEAK_LIMIT = 20e9       # bytes: each model alone (~6 GB of bf16 weights)
+
+
+def family_extras(cfg, lead: tuple, seed: int) -> dict:
+    """The family's extra input (frames for enc-dec, prefix embeddings
+    for a VLM, nothing otherwise) of shape ``lead + extra_shape``, drawn
+    with numpy from ``seed``."""
+    import numpy as np
+    from repro_torch.models import family
+    name = family.extra_name(cfg)
+    if name is None:
+        return {}
+    rng = np.random.default_rng(seed)
+    return {name: rng.normal(size=lead + family.extra_shape(cfg)).astype(
+        np.float32)}
+
+
+def family_reduced_vs_cpu(arch, dev) -> dict:
+    """Greedy tokens of the reduced model on the card's kernel route
+    against the port on the CPU, single device and a 3-lane fleet, at BER
+    1e-3 (fleet lanes 1e-3 / 0 / 3e-3) on every domain of the family."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core.resilience import operators_for
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import family
+    from repro_torch.serve.engine import FleetServeEngine, ServeEngine
+    from repro_torch.tree import tree_map
+    small = get_config(arch).reduced()
+    ops = operators_for(small.family)
+    p_cpu = family.init_params(small, 1, __import__("torch").float32, "cpu")
+    p_gpu = tree_map(lambda t: t.to(dev), p_cpu)
+    prompts = SyntheticLM(vocab=small.vocab, seq_len=12,
+                          global_batch=6).batch_at(0).tokens
+    ex = family_extras(small, (6,), 3)
+    out = {}
+    for name, p, d in (("cuda", p_gpu, dev), ("cpu", p_cpu, "cpu")):
+        single = ServeEngine(small, p, runtime=_Forced(1e-3, ops),
+                             max_len=32, use_systolic_kernel=True, seed=5,
+                             device=d).generate(
+            prompts[:2], 6, **{k: v[:2] for k, v in ex.items()}).tokens
+        fleet = FleetServeEngine(
+            small, p, _ForcedFleet([1e-3, 0.0, 3e-3], ops), max_len=32,
+            use_systolic_kernel=True, seed=5, device=d).generate(
+            prompts, 6, **ex).tokens
+        out[name] = (single, fleet)
+    for i, what in enumerate(("single", "3-lane fleet")):
+        check(np.array_equal(out["cuda"][i], out["cpu"][i]),
+              f"reduced {arch} {what}: card tokens {out['cuda'][i].tolist()}"
+              f" != CPU tokens {out['cpu'][i].tolist()}")
+    return {"single": out["cuda"][0].tolist(),
+            "fleet": out["cuda"][1].tolist(), "equal_to_cpu": True}
+
+
+def family_sweep_vs_cpu(arch, dev) -> dict:
+    """``run_sweep`` of the reduced model with its extra input over
+    ``QUICK_BER_GRID`` x the family's domains on the fused route: the
+    card's loss surface equals the CPU's."""
+    import numpy as np
+    import torch
+    from repro_torch.calibrate import resilience_sweep as rs
+    from repro_torch.configs import get_config
+    from repro_torch.models import family
+    from repro_torch.tree import tree_map
+    small = get_config(arch).reduced()
+    p_cpu = family.init_params(small, 2, torch.float32, "cpu")
+    p_gpu = tree_map(lambda t: t.to(dev), p_cpu)
+    tokens = np.random.default_rng(4).integers(0, small.vocab, (2, 12))
+    extras = tuple(family_extras(small, (2,), 5).values())
+    t0 = time.perf_counter()
+    surf = {name: rs.run_sweep(small, p, tokens, ber_grid=rs.QUICK_BER_GRID,
+                               n_seeds=1, extras=extras, use_kernel=True,
+                               fused=True, device=d).loss_pct
+            for name, p, d in (("cuda", p_gpu, dev), ("cpu", p_cpu, "cpu"))}
+    check(np.array_equal(surf["cuda"], surf["cpu"]),
+          f"{arch} sweep with extras: card {surf['cuda'].tolist()} != CPU "
+          f"{surf['cpu'].tolist()}")
+    return {"lanes": int(surf["cuda"].size), "seconds":
+            time.perf_counter() - t0, "loss_pct": surf["cuda"].tolist()}
+
+
+def family_fleet(dev, cfg, params, max_len: int, single_counts) -> dict:
+    """A 4-lane ``FleetServeEngine`` (``FleetRuntime.for_model`` aged
+    ``FLEET_AGES``) at full width: lane-mode launches a forward equal to
+    one device's, every lane equal to its single-lane replay."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch import random as prandom
+    from repro_torch.core.fleet import FleetRuntime
+    from repro_torch.data import SyntheticLM
+    from repro_torch.serve import steps
+    from repro_torch.serve.engine import FleetServeEngine
+    N, B, S, T = len(FLEET_AGES), FAMILY_BATCH, FAMILY_PROMPT, FAMILY_STEPS
+    fleet = FleetRuntime.for_model(cfg, n_devices=N, device=dev)
+    for i, age in enumerate(FLEET_AGES):
+        fleet.set_age(years=age, device=i)
+    prompts = SyntheticLM(vocab=cfg.vocab, seq_len=S,
+                          global_batch=N * B).batch_at(1).tokens \
+        .reshape(N, B, S)
+    ex = family_extras(cfg, (N, B), 11)
+    make = lambda: FleetServeEngine(cfg, params, fleet, max_len=max_len,
+                                    use_systolic_kernel=True, device=dev)
+    make().generate(prompts, 2, **ex)                    # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    eng = make()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = eng.generate(prompts, T, **ex)
+    gen_s = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    check(counts["fused_aged_matmul_lanes"] == single_counts[
+        "fused_aged_matmul"] and counts["bitflip_draw_lanes"]
+        == single_counts["bitflip_draw"] and counts["fused_aged_matmul"]
+        == 0 and counts["bitflip_draw"] == 0,
+        f"{cfg.name} fleet launches {counts} != one device's "
+        f"{single_counts}")
+    _, call_key = prandom.split(prandom.PRNGKey(0))
+    fi = eng._fleet_fault_config(call_key)
+    keys = prandom.split(prandom.fold_in(call_key, 1), N)
+    diverged = []
+    for i in range(N):
+        lane_ex = {k: torch.as_tensor(v[i], device=dev)
+                   for k, v in ex.items()}
+        toks = steps.generate(params, cfg, torch.as_tensor(
+            prompts[i], device=dev), fi.lane(i), keys[i], max_len=max_len,
+            n_steps=T, **lane_ex)[0]
+        diverged += [(i, b, t) for b in range(B) for t in range(T)
+                     if toks[b, t] != res.tokens[i, b, t]]
+    check(not diverged, f"{cfg.name} fleet lanes != single-lane replay at "
+          f"(lane, row, step) {diverged[:8]}")
+    return {"ages": list(FLEET_AGES), "generate_s": gen_s,
+            "prefill_s": res.timings["prefill_s"],
+            "decode_s_per_token": res.timings["decode_s"] / (T - 1),
+            "tokens_per_s": N * B * T / gen_s, "peak_gb": peak / 1e9,
+            "launches": counts, "lanes_equal_replay": True,
+            "tokens": res.tokens.tolist()}
+
+
+def family_run(dev, arch) -> dict:
+    """One family at its full published config: B = 2, prompt 16, 8
+    greedy tokens on a device aged 9 years (fused route), launches, host
+    syncs, a profiled prefill + decode step, ``score``, the family's long
+    prompt, a 4-lane fleet; then the reduced model on the card against
+    the CPU."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.core.fleet import FleetRuntime
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import family
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.tree import leaves
+    cfg = get_config(arch)
+    B, S, T = FAMILY_BATCH, FAMILY_PROMPT, FAMILY_STEPS
+    max_len = cfg.prefix_tokens + S + T + 8
+    t0 = time.perf_counter()
+    params = family.init_params(cfg, 0, torch.bfloat16, dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in leaves(params))
+    init_s = time.perf_counter() - t0
+    rt = FleetRuntime.for_model(cfg, n_devices=1, device=dev)
+    rt.set_age(years=9.0)
+    prompts = SyntheticLM(vocab=cfg.vocab, seq_len=S,
+                          global_batch=B).batch_at(0).tokens
+    ex = family_extras(cfg, (B,), 7)
+    make = lambda: ServeEngine(cfg, params, runtime=rt, max_len=max_len,
+                               use_systolic_kernel=True, device=dev)
+    make().generate(prompts, 2, **ex)                    # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    eng = make()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = eng.generate(prompts, T, **ex)
+    gen_s = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    by_path = kernels.launch_counts_by_path()
+    peak = torch.cuda.max_memory_allocated(dev)
+    per = FAMILY_LAUNCHES[arch]
+    want = tuple(per["prefill"][j] + (T - 1) * per["decode"][j]
+                 for j in (0, 1))
+    tok = out.tokens
+    check(tok.shape == (B, T) and bool(((tok >= 0) & (tok < cfg.vocab))
+                                       .all()), f"{arch} tokens {tok}")
+    check((counts["fused_aged_matmul"], counts["bitflip_draw"]) == want,
+          f"{arch} launches {counts} != counted (fused, draw) {want}")
+    check(by_path["fused_aged_matmul"] == {"fast": want[0], "generic": 0},
+          f"{arch} GEMM launches off the fast path: {by_path}")
+    check(peak < FAMILY_PEAK_LIMIT, f"{arch} peak {peak / 1e9:.2f} GB")
+    run = {"params_b": n_params / 1e9, "init_s": init_s, "batch": B,
+           "prompt": S, "n_steps": T, "max_len": max_len,
+           "generate_s": gen_s, "prefill_s": out.timings["prefill_s"],
+           "decode_s_per_token": out.timings["decode_s"] / (T - 1),
+           "tokens_per_s": B * T / gen_s, "peak_gb": peak / 1e9,
+           "launches": counts, "launches_per_forward": per,
+           "tokens": tok.tolist()}
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    nll = eng.score(np.concatenate([prompts, tok], axis=1), **ex)
+    run["score_s"] = time.perf_counter() - t0
+    run["score_nll"] = nll
+    score_counts = kernels.launch_counts()
+    check(math.isfinite(nll) and nll > 0, f"{arch} score {nll}")
+    check((score_counts["fused_aged_matmul"], score_counts["bitflip_draw"])
+          == per["prefill"], f"{arch} score launches {score_counts}")
+    run["host_syncs"] = decode_syncs(eng, prompts, **ex)
+    want_gemm = per["prefill"][0] + per["decode"][0]
+    prof = profile_generate(eng, prompts, want_gemm, **ex)
+    prof["other_device_ms"] = prof["device_busy_ms"] - prof["gemm_device_ms"]
+    run["profile"] = prof
+    # the family's long prompt
+    long = {"recurrentgemma_2b": (1, 2064), "rwkv6_3b": (B, 300)}.get(arch)
+    if long is not None:
+        lb, ls = long
+        lp = np.random.default_rng(8).integers(0, cfg.vocab, (lb, ls))
+        leng = ServeEngine(cfg, params, runtime=rt, max_len=ls + T,
+                           use_systolic_kernel=True, device=dev)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        lo = leng.generate(lp, T)
+        lc = kernels.launch_counts()
+        check(lc["fused_aged_matmul"] == want[0] and lc["bitflip_draw"]
+              == want[1], f"{arch} long-prompt launches {lc}")
+        check(lo.tokens.shape == (lb, T), f"{arch} long tokens")
+        run["long_prompt"] = {
+            "batch": lb, "prompt": ls, "generate_s": time.perf_counter() - t0,
+            "prefill_s": lo.timings["prefill_s"],
+            "decode_s_per_token": lo.timings["decode_s"] / (T - 1),
+            "tokens": lo.tokens.tolist(), "launches": lc}
+        if cfg.window:
+            run["long_prompt"]["window"] = cfg.window
+            run["long_prompt"]["ring_wraps"] = ls + T - 1 >= cfg.window
+        del leng
+    run["fleet"] = family_fleet(dev, cfg, params, max_len, counts)
+    del eng, params
+    torch.cuda.empty_cache()
+    run["reduced_vs_cpu"] = family_reduced_vs_cpu(arch, dev)
+    return run
+
+
+def launch_dev_ms(fn, match, iters: int = 20):
+    """Device time of one kernel launch of ``fn()`` (those whose name holds
+    ``match``; every kernel with ``None``), averaged over the launches the
+    profiler recorded in ``iters`` calls (it drops some in a long run);
+    ``None`` if it recorded none."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.key_averages()
+           if getattr(e, "device_type", None) == DeviceType.CUDA
+           and (match is None or match in e.key)]
+    n = sum(e.count for e in evs)
+    return sum(_dev_us(e) for e in evs) / 1e3 / n if n else None
+
+
+def recurrence_ms(dev) -> dict:
+    """Device time (CUDA events) of the two recurrences, plain PyTorch as
+    in the reference, at the full-width shapes [12] runs: the RG-LRU scan
+    over (B, S, 2560) at the prompt of 16 (B=2) and 2,064 (B=1) tokens, and
+    the WKV chunk loop over (2, S, 40, 64) at 16 and 300 tokens (zero-padded
+    to one and three 128-token chunks)."""
+    import torch
+    from repro_torch.models import rglru, rwkv6
+    gen = torch.Generator(device=dev).manual_seed(5)
+    rnd = lambda *shape: torch.rand(shape, device=dev, generator=gen)
+    out = {}
+    for B, S in ((2, 16), (1, 2064)):
+        a, x, h0 = rnd(B, S, 2560) * 0.5 + 0.5, rnd(B, S, 2560), rnd(B, 2560)
+        out[f"rglru_scan_B{B}_S{S}"] = cuda_time_ms(
+            lambda: rglru._rglru_scan(x, a, h0), iters=10)
+    for S in (16, 300):
+        Sp = -(-S // 128) * 128
+        r, k, v = (rnd(2, Sp, 40, 64) for _ in range(3))
+        w = -(rnd(2, Sp, 40, 64) * 0.25)
+        u, s0 = rnd(40, 64) * 0.1, rnd(2, 40, 64, 64)
+        out[f"chunked_wkv_S{S}"] = cuda_time_ms(
+            lambda: rwkv6._chunked_wkv(r, k, v, w, u, 128, s0), iters=10)
+    return out
+
+
+def family_kernel_rows(dev) -> dict:
+    """The kernels at the shapes this phase's models add: the fused GEMM
+    at every family's projections, prefill and decode, each K-split plan
+    among them (recurrentgemma and rwkv at K 2,560 / 7,680 / 8,960 with
+    N 256 to 8,960, the long prompts' 2,064 and 300 rows, paligemma's
+    prefill M = 544 and its K 16,384 down projection, whisper's encoder
+    M = 3,000 and its decoder at K 1,280 / 5,120); its lane mode at
+    whisper's 4-lane encoder (4 x 3,000 rows, K 1,280 and 5,120); the
+    draw over whisper's encoder qkt words (2 x 20 x 1,500^2 = 90 M).
+    Each bit-exact against its plain version (the lane mode also against
+    4 single-lane launches), on the fast path, timed beside its bound and
+    ``torch._int_mm`` on a column-major ``b``."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch import random as prandom
+    from repro_torch.kernels import _cuda, ops, ref
+    from repro_torch.kernels.bitflip import bitflip_draw
+    from repro_torch.kernels.fused_aged_matmul import (
+        fused_aged_matmul, fused_aged_matmul_lanes, upset_probability)
+    gen = torch.Generator(device=dev).manual_seed(2024)
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    ber, q = 1e-3, upset_probability(1e-3)
+    rows = {"fused_aged_matmul": [], "bitflip_draw": []}
+    for model, M, K, N, what in (
+            ("recurrentgemma_2b", 32, 2560, 256, "k/v (MQA)"),
+            ("recurrentgemma_2b", 32, 2560, 2560, "q, rec g/v/r/k/o"),
+            ("recurrentgemma_2b", 32, 2560, 7680, "gate/up"),
+            ("recurrentgemma_2b", 32, 7680, 2560, "down"),
+            ("recurrentgemma_2b", 2064, 7680, 2560, "down, long prompt"),
+            ("rwkv6_3b", 32, 2560, 8960, "up"),
+            ("rwkv6_3b", 32, 8960, 2560, "down"),
+            ("rwkv6_3b", 300, 8960, 2560, "down, 300-token prompt"),
+            ("paligemma_3b", 544, 2048, 16384, "gate/up prefill"),
+            ("paligemma_3b", 544, 16384, 2048, "down prefill"),
+            ("paligemma_3b", 2, 16384, 2048, "down decode"),
+            ("whisper_large_v3", 3000, 1280, 1280, "encoder q/k/v/o"),
+            ("whisper_large_v3", 3000, 1280, 5120, "encoder up"),
+            ("whisper_large_v3", 3000, 5120, 1280, "encoder down"),
+            ("whisper_large_v3", 2, 1280, 1280, "decoder q/k/v/o decode"),
+            ("whisper_large_v3", 2, 5120, 1280, "decoder down decode")):
+        a = torch.randint(-127, 128, (M, K), dtype=torch.int8, device=dev,
+                          generator=gen)
+        b = torch.randint(-127, 128, (K, N), dtype=torch.int8, device=dev,
+                          generator=gen)
+        xs = torch.rand((M, 1), device=dev, generator=gen) * 0.01 + 1e-3
+        ws = torch.rand((1, N), device=dev, generator=gen) * 0.01 + 1e-3
+        bm, bn, _ = ops._resolve_blocks(M, N, K, 256, 256, 256)
+        plan = _cuda.gemm_plan(M, N, K, n_sms)
+        kernels.reset_launch_counts()
+        out = fused_aged_matmul(a, b, xs, ws, ber, 77, bm=bm, bn=bn)
+        exp = ref.fused_aged_matmul_ref(a, b, xs, ws, ber, 77, bm=bm, bn=bn)
+        torch.cuda.synchronize()
+        err = max_abs_err(out, exp)
+        check(torch.equal(out, exp), f"fused_aged_matmul M={M} K={K} N={N}:"
+              f" max |err| {err}")
+        by_path = kernels.launch_counts_by_path()["fused_aged_matmul"]
+        check(by_path == {"fast": 1, "generic": 0},
+              f"GEMM M={M} K={K} N={N} off the fast path: {by_path}")
+        bs = itertools.cycle([b] + [b.clone() for _ in range(
+            -(-120_000_000 // b.numel()) - 1)])
+        fk = lambda: fused_aged_matmul(a, next(bs), xs, ws, ber, 77, bm=bm,
+                                       bn=bn)
+        b_cm = b.t().contiguous().t()              # column-major b
+        lk = lambda: torch._int_mm(a, b_cm)
+        int_mm = M > 16                  # _int_mm takes more than 16 rows
+        dev_ms = launch_dev_ms(fk, "int8_gemm")
+        t_b, by = bound(M * K + K * N + 4 * (M + N) + 4 * M * N,
+                        2.0 * M * K * N)
+        rows["fused_aged_matmul"].append(dict(
+            model=model, op=what, M=M, K=K, N=N, max_abs_err=err,
+            plan={"path": plan.path, "bm": plan.bm, "bn": plan.bn,
+                  "splits": plan.splits, "ctas": plan.ctas},
+            ms=cuda_time_ms(fk), dev_ms=dev_ms,
+            plain_ms=cuda_time_ms(lambda: ref.fused_aged_matmul_ref(
+                a, b, xs, ws, ber, 77, bm=bm, bn=bn), iters=3, warmup=1),
+            bound_ms=t_b, bound_by=by, library_ms=None,
+            int_mm_colmajor_ms=cuda_time_ms(lk) if int_mm else None,
+            int_mm_colmajor_dev_ms=launch_dev_ms(lk, None) if int_mm
+            else None))
+    rows["fused_aged_matmul_lanes"] = []
+    L, Ml = len(LANE_BERS), 3000
+    for K, N, what in ((1280, 1280, "encoder q/k/v/o"),
+                       (1280, 5120, "encoder up"),
+                       (5120, 1280, "encoder down")):
+        M = L * Ml
+        a = torch.randint(-127, 128, (M, K), dtype=torch.int8, device=dev,
+                          generator=gen)
+        b = torch.randint(-127, 128, (K, N), dtype=torch.int8, device=dev,
+                          generator=gen)
+        xs = torch.rand((M, 1), device=dev, generator=gen) * 0.01 + 1e-3
+        ws = torch.rand((1, N), device=dev, generator=gen) * 0.01 + 1e-3
+        seeds = [int(v) for v in torch.randint(
+            -2 ** 31, 2 ** 31 - 1, (L,), generator=gen, device=dev)]
+        bm, bn, _ = ops._resolve_blocks(Ml, N, K, 256, 256, 256)
+        lanes = lambda xs_, ws_: fused_aged_matmul_lanes(
+            a, b, xs_, ws_, LANE_BERS, seeds, lanes=L, bm=bm, bn=bn)
+        err = 0.0
+        for kind, (xs_, ws_) in (("float32", (xs, ws)),
+                                 ("int32", (None, None))):
+            kernels.reset_launch_counts()
+            got = lanes(xs_, ws_)
+            counts = kernels.launch_counts_by_path()[
+                "fused_aged_matmul_lanes"]
+            plain = ref.fused_aged_matmul_lanes_ref(
+                a, b, xs_, ws_, LANE_BERS, seeds, lanes=L, bm=bm, bn=bn)
+            one = torch.cat([fused_aged_matmul(
+                a[l * Ml:(l + 1) * Ml], b,
+                None if xs_ is None else xs_[l * Ml:(l + 1) * Ml], ws_,
+                LANE_BERS[l], seeds[l], bm=bm, bn=bn) for l in range(L)])
+            torch.cuda.synchronize()
+            err = max(err, max_abs_err(got, plain))
+            check(torch.equal(got, plain) and torch.equal(got, one),
+                  f"fused_aged_matmul_lanes M={L}x{Ml} K={K} N={N} {kind}: "
+                  f"max |err| {max_abs_err(got, plain)}, == single-lane "
+                  f"launches {torch.equal(got, one)}")
+            check(counts == {"fast": 1, "generic": 0},
+                  f"lane GEMM M={L}x{Ml} K={K} N={N} off the fast path: "
+                  f"{counts}")
+            del plain, one
+        fk = lambda: lanes(xs, ws)
+        t_b, by = bound(M * K + K * N + 4 * (M + N) + 4 * M * N,
+                        2.0 * M * K * N)
+        rows["fused_aged_matmul_lanes"].append(dict(
+            model="whisper_large_v3", op=what, M=M, lanes=L, M_lane=Ml, K=K,
+            N=N, max_abs_err=err, ms=cuda_time_ms(fk),
+            dev_ms=launch_dev_ms(fk, "int8_gemm"),
+            plain_ms=cuda_time_ms(lambda: ref.fused_aged_matmul_lanes_ref(
+                a, b, xs, ws, LANE_BERS, seeds, lanes=L, bm=bm, bn=bn),
+                iters=2, warmup=1),
+            bound_ms=t_b, bound_by=by, library_ms=None))
+        del a, b, xs, ws
+    int_rate = int32_issue_per_s(dev)
+    shape = (2, 20, 1, 1500, 1500)
+    n = math.prod(shape)
+    x = torch.randint(-2 ** 31, 2 ** 31 - 1, shape, dtype=torch.int32,
+                      device=dev, generator=gen)
+    words = ops.flip_key_words(prandom.PRNGKey(n))
+    out = bitflip_draw(x, words, q)
+    exp = ref.bitflip_draw_ref(x, words, q)
+    torch.cuda.synchronize()
+    err = max_abs_err(out, exp)
+    check(torch.equal(out, exp), f"bitflip_draw n={n}: max |err| {err}")
+    flips = int((out != x).sum())
+    del exp
+    bk = lambda: bitflip_draw(x, words, q)
+    dev_ms = launch_dev_ms(bk, "bitflip_draw", iters=5)
+    int_ops = THREEFRY_INT_OPS * (n + flips)
+    t_b, by = bound(8 * n, int_ops=int_ops, int_rate=int_rate)
+    rows["bitflip_draw"].append(dict(
+        model="whisper_large_v3", op="encoder qkt", n=n, shape=list(shape),
+        flips=flips, max_abs_err=err, ms=cuda_time_ms(bk, iters=5),
+        dev_ms=dev_ms, plain_ms=cuda_time_ms(
+            lambda: ref.bitflip_draw_ref(x, words, q), iters=2, warmup=1),
+        bound_ms=t_b, bound_by=by, library_ms=None))
+    del x, out
+    torch.cuda.empty_cache()
+    return rows
+
+
+def families_phase(dev) -> dict:
+    """[12] the four families at their full published configs, then the
+    reduced sweeps with extras, then the kernels at the new shapes."""
+    import torch
+    from repro_torch import kernels
+    t_phase = time.perf_counter()
+    res = {"runs": {}}
+    totals = dict.fromkeys(kernels.KERNEL_NAMES, 0)
+    for arch in FAMILY_ARCHS:
+        t0 = time.perf_counter()
+        run = family_run(dev, arch)
+        run["phase_s"] = time.perf_counter() - t0
+        res["runs"][arch] = run
+        for part in (run["launches"], run["fleet"]["launches"]):
+            for k in totals:
+                totals[k] += part[k]
+        prof = run["profile"]
+        print(f"[12] {arch} full config ({run['params_b']:.2f} B bf16 "
+              f"params, init {run['init_s']:.1f} s), age 9 y, B=2, prompt "
+              f"16, 8 tokens: launches {run['launches']['fused_aged_matmul']}"
+              f" fused + {run['launches']['bitflip_draw']} draw (as counted:"
+              f" {run['launches_per_forward']}); tokens {run['tokens']}",
+              flush=True)
+        print(f"    {arch} prefill {run['prefill_s'] * 1e3:.1f} ms, decode "
+              f"{run['decode_s_per_token'] * 1e3:.1f} ms/token, "
+              f"{run['tokens_per_s']:.2f} tokens/s, peak "
+              f"{run['peak_gb']:.2f} GB, busy "
+              f"{100 * prof['device_busy_share']:.1f}% over "
+              f"{prof['n_kernel_launches']} launches a prefill + decode "
+              f"step (int8 GEMM {prof['gemm_device_ms']:.2f} ms, the rest "
+              f"{prof['other_device_ms']:.2f} ms), score "
+              f"{run['score_nll']:.4f} in {run['score_s'] * 1e3:.1f} ms, "
+              f"host syncs 2 / 8 tokens "
+              f"{run['host_syncs']['generate_2_tokens']} / "
+              f"{run['host_syncs']['generate_8_tokens']}", flush=True)
+        if "long_prompt" in run:
+            lp = run["long_prompt"]
+            ring = (f" (window {lp['window']}, ring wraps)"
+                    if lp.get("window") else "")
+            print(f"    {arch} long prompt B={lp['batch']} S={lp['prompt']}"
+                  f"{ring}:"
+                  f" prefill {lp['prefill_s'] * 1e3:.1f} ms, decode "
+                  f"{lp['decode_s_per_token'] * 1e3:.1f} ms/token",
+                  flush=True)
+        fl = run["fleet"]
+        print(f"    {arch} 4-lane fleet (ages {fl['ages']}): lanes == "
+              f"replay, launches {fl['launches']['fused_aged_matmul_lanes']}"
+              f" lane GEMM + {fl['launches']['bitflip_draw_lanes']} lane "
+              f"draw (one device's), prefill {fl['prefill_s'] * 1e3:.1f} "
+              f"ms, decode {fl['decode_s_per_token'] * 1e3:.1f} ms/token, "
+              f"{fl['tokens_per_s']:.2f} tokens/s, peak {fl['peak_gb']:.2f}"
+              f" GB; reduced model card == CPU (single and 3 lanes); "
+              f"{run['phase_s']:.1f} s", flush=True)
+    for arch in ("paligemma_3b", "whisper_large_v3"):
+        sw = family_sweep_vs_cpu(arch, dev)
+        res["runs"][arch]["sweep_vs_cpu"] = sw
+        print(f"    {arch} reduced run_sweep with extras ({sw['lanes']} "
+              f"lanes, fused route): card == CPU ({sw['seconds']:.1f} s)",
+              flush=True)
+    res["recurrence_ms"] = recurrence_ms(dev)
+    print("    recurrences a layer (plain PyTorch, CUDA events): " + ", ".join(
+        f"{k} {v:.3f} ms" for k, v in res["recurrence_ms"].items()),
+        flush=True)
+    res["kernel_rows"] = family_kernel_rows(dev)
+    us = lambda v: "n/a" if v is None else f"{v * 1e3:.1f}"
+    for r in res["kernel_rows"]["fused_aged_matmul"]:
+        print(f"    fused_aged_matmul M={r['M']} K={r['K']} N={r['N']} "
+              f"{r['model'][:11]} {r['op']}: {r['ms'] * 1e3:.1f} us a call "
+              f"(dev {us(r['dev_ms'])} us), bound "
+              f"{r['bound_ms'] * 1e3:.1f} us ({r['bound_by']}), _int_mm "
+              f"(column-major b) {us(r['int_mm_colmajor_ms'])} us "
+              f"(dev {us(r['int_mm_colmajor_dev_ms'])}), plain "
+              f"{r['plain_ms']:.3f} ms; plan {r['plan']}", flush=True)
+    for r in res["kernel_rows"]["fused_aged_matmul_lanes"]:
+        print(f"    fused_aged_matmul_lanes M={r['lanes']}x{r['M_lane']} "
+              f"K={r['K']} N={r['N']} ({r['op']}): {r['ms'] * 1e3:.1f} us a "
+              f"call (dev {us(r['dev_ms'])} us), bound "
+              f"{r['bound_ms'] * 1e3:.1f} us ({r['bound_by']}), plain "
+              f"{r['plain_ms']:.3f} ms", flush=True)
+    for r in res["kernel_rows"]["bitflip_draw"]:
+        dev_us = ("n/a" if r["dev_ms"] is None
+                  else f"{r['dev_ms'] * 1e3:.1f}")
+        print(f"    bitflip_draw n={r['n']} ({r['op']}): "
+              f"{r['ms'] * 1e3:.1f} us a call (dev {dev_us}"
+              f" us), bound {r['bound_ms'] * 1e3:.1f} us ({r['bound_by']}), "
+              f"plain {r['plain_ms']:.1f} ms", flush=True)
+    res["launches"] = totals
+    res["seconds"] = time.perf_counter() - t_phase
+    print(f"    [12] done in {res['seconds']:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+    return res
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--layers", type=int, default=32,
@@ -3049,6 +3630,10 @@ def main(argv=None) -> int:
     del trained
     torch.cuda.empty_cache()
 
+    # 12. the hybrid, SSM, VLM and enc-dec families ----------------------
+    report["families"] = families_phase(dev)
+    family_counts = report["families"]["launches"]
+
     # 11. summary ---------------------------------------------------------
     # launches summed over the eight paths' runs, each counted from 0; the
     # explicit-randoms bitflip_words is on no path any more: it stays the
@@ -3057,7 +3642,7 @@ def main(argv=None) -> int:
     launches = {name: main_counts[name] + counts3[name] + fleet_counts[name]
                 + load_counts[name] + moe_counts[name]
                 + moe_fleet_counts[name] + train_counts[name]
-                + resilience_counts[name]
+                + resilience_counts[name] + family_counts[name]
                 for name in kernels.KERNEL_NAMES}
     # the representative shape of each kernel: the decode weight matmul
     # that dominates the fused route (gate/up, M = 2; 4 x 2 in lane mode),
@@ -3100,14 +3685,14 @@ def main(argv=None) -> int:
 
 class _Forced:
     """A runtime that admits one BER on every operator domain (the MoE
-    router's included)."""
+    router's included, unless ``operators`` names others)."""
     age_years = 9.0
 
-    def __init__(self, ber: float):
-        self.ber = ber
+    def __init__(self, ber: float, operators=(*TABLE2, "router")):
+        self.ber, self.operators = ber, tuple(operators)
 
     def op_bers(self):
-        return {op: self.ber for op in (*TABLE2, "router")}
+        return {op: self.ber for op in self.operators}
 
     def total_power(self) -> float:
         return 0.0

@@ -42,6 +42,7 @@ from ..core.resilience import (DEFAULT_LMAX, MEASURED_PATH, ResilienceCurve,
                                operators_for)
 from ..device import resolve_device
 from ..kernels import _cuda
+from ..models import family
 from ..models import transformer as tf
 from ..models.layers import FaultConfig
 
@@ -127,23 +128,34 @@ def chunk_of(fi: FaultConfig, l0: int, l1: int) -> FaultConfig:
         key=fi.key[l0:l1], seeds=None)
 
 
+def _lane_rows(x: torch.Tensor, lanes) -> torch.Tensor:
+    """``x``'s rows repeated lane-major, once per lane."""
+    return x if lanes is None else x.repeat(lanes, *([1] * (x.dim() - 1)))
+
+
 @torch.no_grad()
 def predict(params, cfg: ModelConfig, tokens: torch.Tensor,
-            fi: FaultConfig) -> torch.Tensor:
+            fi: FaultConfig, extras: tuple = ()) -> torch.Tensor:
     """Top-1 predictions of a teacher-forced forward, ``(B, S)`` (lane
-    config: ``(lanes * B, S)`` for ``tokens`` repeated lane-major).  Ties
-    go to the first maximal index, as ``jnp.argmax``."""
+    config: ``(lanes * B, S)`` for ``tokens`` repeated lane-major; a
+    VLM's prefix embeddings or an enc-dec model's frames in ``extras``,
+    repeated alike).  Ties go to the first maximal index, as
+    ``jnp.argmax``."""
     lanes = fi.lanes
-    rows = tokens if lanes is None else tokens.repeat(lanes, 1)
-    logits, _, _ = tf.forward_logits(params, cfg, rows, fi=fi.with_seeds())
+    kw = {}
+    if extras:
+        kw[family.extra_name(cfg)] = _lane_rows(extras[0], lanes)
+    logits, _ = family.text_logits(params, cfg, _lane_rows(tokens, lanes),
+                                   fi=fi.with_seeds(), **kw)
     return logits.argmax(dim=-1)
 
 
 def lane_losses(params, cfg: ModelConfig, tokens: torch.Tensor,
-                ref_pred: np.ndarray, fi: FaultConfig) -> np.ndarray:
+                ref_pred: np.ndarray, fi: FaultConfig,
+                extras: tuple = ()) -> np.ndarray:
     """float32 loss [%] of every lane of ``fi`` in one forward:
     ``100 * (1 - mean(pred == ref_pred))`` over the lane's ``(B, S)``."""
-    pred = predict(params, cfg, tokens, fi).cpu().numpy()
+    pred = predict(params, cfg, tokens, fi, extras).cpu().numpy()
     agree = (pred.reshape((fi.lanes,) + ref_pred.shape) == ref_pred)
     n = np.float32(ref_pred.size)
     mean = agree.reshape(fi.lanes, -1).sum(axis=1).astype(np.float32) / n
@@ -152,12 +164,12 @@ def lane_losses(params, cfg: ModelConfig, tokens: torch.Tensor,
 
 def grid_losses(params, cfg: ModelConfig, tokens: torch.Tensor,
                 ref_pred: np.ndarray, fi: FaultConfig,
-                chunk: int) -> np.ndarray:
+                chunk: int, extras: tuple = ()) -> np.ndarray:
     """Every lane's loss, ``chunk`` lanes a forward; ``(L,)`` float32."""
     n = fi.lanes
     return np.concatenate([
         lane_losses(params, cfg, tokens, ref_pred,
-                    chunk_of(fi, l0, min(n, l0 + chunk)))
+                    chunk_of(fi, l0, min(n, l0 + chunk)), extras)
         for l0 in range(0, n, chunk)])
 
 
@@ -177,10 +189,9 @@ def run_sweep(cfg: ModelConfig, params, tokens, *,
     serving path; else the three-pass route), and the qkt/sv domains on
     the draw bitflip; otherwise the plain route.  ``chunk`` is the lanes a
     forward (0 or ``None``: :func:`default_chunk`); it changes no loss.
-    ``params`` must live on ``device``.  ``extras`` serve the families
-    the port refuses (prefix, enc-dec; :func:`repro_torch.models.
-    transformer.check_supported` raises for them) and are unused
-    otherwise, as in the reference.
+    ``params`` must live on ``device``.  ``extras`` is ``(prefix_embeds,)``
+    for a VLM and ``(frames,)`` for an enc-dec model (broadcast to every
+    lane), unused otherwise, as in the reference.
     """
     tf.check_supported(cfg)
     device = resolve_device(device)
@@ -190,10 +201,15 @@ def run_sweep(cfg: ModelConfig, params, tokens, *,
     operators = tuple(operators or operators_for(cfg.family))
     tokens = torch.as_tensor(np.asarray(tokens), dtype=torch.int64,
                              device=device)
+    if family.extra_name(cfg):
+        extras = tuple(torch.as_tensor(np.asarray(e, np.float32),
+                                       device=device) for e in extras[:1])
+    else:
+        extras = ()
     key = prandom.PRNGKey(seed)
     ref_fi = _reference_fault_config(operators, key, use_kernel=use_kernel,
                                      fused=fused)
-    ref_pred = predict(params, cfg, tokens, ref_fi).cpu().numpy()
+    ref_pred = predict(params, cfg, tokens, ref_fi, extras).cpu().numpy()
     n_lanes = len(ber_grid) * len(operators)
     if not chunk:
         chunk = default_chunk(cfg, tokens.numel(), n_lanes, device)
@@ -203,7 +219,7 @@ def run_sweep(cfg: ModelConfig, params, tokens, *,
         fi = grid_fault_config(operators, ber_grid, prandom.fold_in(key, s),
                                use_kernel=use_kernel, fused=fused)
         per_seed.append(grid_losses(params, cfg, tokens, ref_pred, fi,
-                                    chunk))
+                                    chunk, extras))
     loss = np.mean(per_seed, axis=0).reshape(len(ber_grid), len(operators))
     return SweepResult(model=model or cfg.name, family=cfg.family,
                        operators=operators,

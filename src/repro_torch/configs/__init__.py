@@ -1,10 +1,9 @@
 """Model configs (own copy of ``repro.configs``).
 
-``get_config(arch_id)`` returns the exact published dims of a ported
-architecture; ``reduced()`` yields the reference's small same-family
-config for CPU tests.  The dataclasses carry the reference's full field
-set, so a config of a family that is not ported yet is still a valid
-value; :func:`repro_torch.models.transformer.init_params` refuses it.
+``get_config(arch_id)`` returns the exact published dims of each of the
+reference's eleven architectures (dense, MoE, hybrid, SSM, VLM and
+enc-dec families); ``reduced()`` yields the reference's small same-family
+config for CPU tests.
 """
 from __future__ import annotations
 
@@ -112,13 +111,15 @@ class ModelConfig:
         return ModelConfig(**kw)
 
 
-ARCH_IDS = ("arctic_480b", "qwen3_moe_235b", "deepseek_7b",
-            "command_r_plus_104b", "starcoder2_7b", "granite_20b",
-            "llama3_8b")
+ARCH_IDS = (
+    "arctic_480b", "qwen3_moe_235b", "recurrentgemma_2b", "whisper_large_v3",
+    "deepseek_7b", "command_r_plus_104b", "starcoder2_7b", "granite_20b",
+    "rwkv6_3b", "paligemma_3b", "llama3_8b",
+)
 
 
 def get_config(arch_id: str) -> ModelConfig:
     arch_id = arch_id.replace("-", "_")
     if arch_id not in ARCH_IDS:
-        raise KeyError(f"{arch_id!r} is not ported; ported: {ARCH_IDS}")
+        raise KeyError(f"unknown architecture {arch_id!r}; known: {ARCH_IDS}")
     return importlib.import_module(f"repro_torch.configs.{arch_id}").CONFIG

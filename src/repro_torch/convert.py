@@ -1,13 +1,18 @@
 """Carry a reference (JAX) param tree, given as numpy arrays, into the
 port's tree.
 
-The reference stacks a decoder's layers on a leading ``groups`` axis
-under the key ``b0_attn`` and scans over it; the port keeps one dict per
-layer in ``params["layers"]``.  Leaf layouts are unchanged (``wq (d, H,
-hd)``, ``wo (H, hd, d)``, ``w_gate (d, f)``, experts ``(E, d, f)``, ...),
-so the port's public functions see the reference's layouts.  Every leaf
-takes ``dtype`` except the MoE router ``w_router``, which stays float32 as
-in the reference; a tied-embedding tree has no ``lm_head``.
+The reference stacks a decoder's layers: ``groups`` holds one period of
+``cfg.block_pattern`` under keys ``b{i}_{kind}``, each leaf with a
+leading group axis, and ``tail`` the layers past the last full period;
+the port keeps one dict per layer in ``params["layers"]``, in layer order
+(group ``g``'s block ``i`` is layer ``g * period + i``, tail block ``t``
+is layer ``n_groups * period + t``).  An enc-dec tree's stacked
+``enc_layers`` / ``dec_layers`` become lists the same way.  Leaf layouts
+are unchanged (``wq (d, H, hd)``, ``wo (H, hd, d)``, ``w_gate (d, f)``,
+experts ``(E, d, f)``, ...), so the port's public functions see the
+reference's layouts.  Every leaf takes ``dtype`` except those the
+reference keeps in float32 (:data:`FLOAT32_LEAVES`); a tied-embedding
+tree has no ``lm_head``.
 """
 from __future__ import annotations
 
@@ -33,20 +38,45 @@ def _map(tree, fn):
                          tree)
 
 
+# the MoE router, the RG-LRU's lam, RWKV's decay base and bonus
+FLOAT32_LEAVES = ("w_router", "lam", "decay_base", "bonus_u")
+
+
+def _unstack(stacked, n: int, leaf) -> list:
+    """The ``n`` slices of a stacked subtree along its leading axis."""
+    return [_map(stacked, lambda x, name, g=g: leaf(np.asarray(x)[g], name))
+            for g in range(n)]
+
+
 def params_from_reference(np_params: Dict[str, Any], cfg: ModelConfig, *,
                           dtype=torch.float32, device="cuda") -> Dict:
     """Reference tree (``jax.tree.map(np.asarray, params)``) -> port tree."""
     device = resolve_device(device)
 
     def leaf(x, name):
-        return _tensor(x, torch.float32 if name == "w_router" else dtype,
+        return _tensor(x, torch.float32 if name in FLOAT32_LEAVES else dtype,
                        device)
 
-    out = {k: _map(np_params[k], leaf)
-           for k in ("embed", "final_norm", "lm_head") if k in np_params}
-    groups = np_params["groups"]["b0_attn"]
-    layers = [_map(groups, lambda x, name, g=g: leaf(np.asarray(x)[g], name))
-              for g in range(int(np.shape(groups["norm1"]["scale"])[0]))]
+    top = ("embed", "final_norm", "lm_head", "prefix_proj", "dec_pos",
+           "enc_final")
+    out = {k: _map(np_params[k], leaf) for k in top if k in np_params}
+    if "enc_layers" in np_params:
+        out["enc_layers"] = _unstack(np_params["enc_layers"],
+                                     cfg.n_encoder_layers, leaf)
+        out["dec_layers"] = _unstack(np_params["dec_layers"], cfg.n_layers,
+                                     leaf)
+        return out
+    pat = cfg.block_pattern
+    n_groups = cfg.n_layers // len(pat)
+    layers = [None] * (n_groups * len(pat))
+    for i, kind in enumerate(pat):
+        if n_groups:
+            blocks = _unstack(np_params["groups"][f"b{i}_{kind}"], n_groups,
+                              leaf)
+            layers[i::len(pat)] = blocks
+    for t in np_params.get("tail", []):
+        (key,) = t.keys()
+        layers.append(_map(t[key], leaf))
     if len(layers) != cfg.n_layers:
         raise ValueError(f"tree holds {len(layers)} layers, config "
                          f"{cfg.n_layers}")

@@ -19,6 +19,7 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 
+from .. import fmath
 from .. import random as prandom
 from ..device import true_div
 from ..kernels import ops as kops
@@ -191,8 +192,13 @@ def _row_mean(x: torch.Tensor) -> torch.Tensor:
     rows, so a float32 sum could round differently for a row served alone
     and the same row in a lane-batched forward; summed in float64, its
     float32 rounding no longer depends on the order (nor on the device).
+    A sum beyond float32's range is +-inf, as the reference's float32 sum
+    is (ROADMAP C.5: accumulator upsets can push a row there).
     """
-    return x.to(torch.float64).mean(dim=-1, keepdim=True).to(torch.float32)
+    s = x.to(torch.float64).sum(dim=-1, keepdim=True)
+    s32 = s.to(torch.float32)
+    return torch.where(torch.isinf(s32), s32,
+                       (s / x.shape[-1]).to(torch.float32))
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
@@ -243,6 +249,18 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoid_positions(seq: int, d: int, device) -> torch.Tensor:
+    """(seq, d) float32 sinusoidal positions, ``[sin(ang), cos(ang)]`` with
+    ``ang = pos / 10000 ** (i / (d // 2))``.  The power and the sine are
+    :mod:`repro_torch.fmath`'s, bit-equal to the reference's on every
+    device; the cosine is ``torch.cos`` (within an ulp of it)."""
+    half = d // 2
+    pos = torch.arange(seq, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(half, dtype=torch.float32, device=device)[None, :]
+    ang = pos / fmath.pow(10000.0, true_div(dim, half))
+    return torch.cat([fmath.sin(ang), torch.cos(ang)], dim=-1)
 
 
 # --------------------------------------------------------------------------- #

@@ -40,16 +40,33 @@ class OptState(NamedTuple):
     step: torch.Tensor            # int32, 0-d, on the params' device
 
 
-def ref_order_groups(tree) -> Iterator[List[torch.Tensor]]:
+def ref_order_groups(tree, period: int = 1
+                     ) -> Iterator[List[torch.Tensor]]:
     """The leaves in the reference's flattening order, one group per
-    reference leaf: dict keys sorted, and a ``layers`` list folded as the
-    reference stacks it (one group per in-layer path, layers in order)."""
-    for k in sorted(tree):
-        v = tree[k]
+    reference leaf: dict keys sorted, and a per-layer list folded as the
+    reference stacks it.  ``enc_layers`` / ``dec_layers`` stack every
+    layer (one group per in-layer path).  A decoder's ``layers`` stand for
+    the reference's ``groups`` and ``tail``: with a block pattern of
+    ``period`` kinds, ``groups["b{i}_{kind}"]`` stacks the layers at
+    pattern position ``i`` of the first ``n // period`` periods, and each
+    tail layer is a leaf group of its own, at the ``tail`` key's sorted
+    place."""
+    items = []
+    for k, v in tree.items():
         if k == "layers":
-            paths = list(_paths(v[0]))
-            for p in paths:
-                yield [_get(layer, p) for layer in v]
+            n = len(v) // period * period
+            items += [("groups", [v[i:n:period] for i in sorted(
+                range(period if n else 0), key=lambda i: f"b{i}_")]),
+                      ("tail", [[layer] for layer in v[n:]])]
+        elif k in ("enc_layers", "dec_layers"):
+            items.append((k, [v]))
+        else:
+            items.append((k, v))
+    for k, v in sorted(items, key=lambda kv: kv[0]):
+        if isinstance(v, list):
+            for stack in v:                    # layers stacked into leaves
+                for p in _paths(stack[0]):
+                    yield [_get(layer, p) for layer in stack]
         elif isinstance(v, dict):
             yield from ref_order_groups(v)
         else:
@@ -95,11 +112,12 @@ def cosine_schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
     return cfg.lr * torch.where(step < cfg.warmup_steps, warm, cos)
 
 
-def global_norm(tree) -> torch.Tensor:
+def global_norm(tree, period: int = 1) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, in float32, the per-leaf
-    sums added in the reference's flattening order."""
+    sums added in the reference's flattening order (``period``: the
+    model's block-pattern length, see :func:`ref_order_groups`)."""
     total = None
-    for group in ref_order_groups(tree):
+    for group in ref_order_groups(tree, period):
         s = None
         for g in group:
             g = g.to(_F32)
@@ -110,12 +128,14 @@ def global_norm(tree) -> torch.Tensor:
 
 
 @torch.no_grad()
-def adamw_update(grads, opt: OptState, params, cfg: AdamWConfig
+def adamw_update(grads, opt: OptState, params, cfg: AdamWConfig, *,
+                 period: int = 1
                  ) -> Tuple[Any, OptState, Dict[str, torch.Tensor]]:
     """One AdamW step; returns ``(params, opt, metrics)`` with params and
-    moments updated in place."""
+    moments updated in place.  ``period`` orders the clip norm's sum
+    (:func:`global_norm`)."""
     step = opt.step + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, period)
     scale = torch.clamp(_scalar(cfg.clip_norm, gnorm)
                         / torch.clamp_min(gnorm, 1e-9), max=1.0)
     stepf = step.to(_F32)

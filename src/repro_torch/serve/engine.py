@@ -44,6 +44,7 @@ from .. import random as prandom
 from ..configs import ModelConfig
 from ..core.fleet import FleetRuntime
 from ..device import resolve_device
+from ..models import family
 from ..models import transformer as tf
 from ..models.layers import FaultConfig
 from ..obs import metrics as obs_metrics
@@ -147,14 +148,18 @@ class ServeEngine:
                                device=self.device)
 
     @torch.no_grad()
-    def generate(self, prompts, n_steps: int, *, greedy: bool = True,
+    def generate(self, prompts, n_steps: int, *, prefix_embeds=None,
+                 frames=None, greedy: bool = True,
                  temperature: Optional[float] = None,
                  top_k: Optional[int] = None) -> GenerateResult:
         """prompts: (B, S) int.  Returns ``n_steps`` generated tokens.
+        A VLM takes ``prefix_embeds`` (B, prefix_tokens, d), an enc-dec
+        model ``frames`` (B, encoder_seq, d).
 
         ``temperature=0`` (or the legacy ``greedy=True``) is the exact
         argmax; a positive temperature samples ``softmax(logits / T)``
         restricted to the ``top_k`` highest logits when given."""
+        extras = _extras(self.cfg, prefix_embeds, frames, self.device)
         fi = self._fault_config()
         self._key, call_key = prandom.split(self._key)
         temperature = self._temperature(greedy, temperature)
@@ -163,7 +168,7 @@ class ServeEngine:
         tokens, telemetry, timings = steps.generate(
             self.params, self.cfg, self._tokens(prompts), fi, call_key,
             max_len=self.max_len, n_steps=int(n_steps),
-            temperature=temperature, top_k=top_k)
+            temperature=temperature, top_k=top_k, **extras)
         span = time.perf_counter() - t0
         if taps_enabled():
             self._record(tokens, telemetry, span, cold)
@@ -197,15 +202,33 @@ class ServeEngine:
                    .set(max(float(v) for v in bers.values()))
 
     @torch.no_grad()
-    def score(self, tokens) -> float:
+    def score(self, tokens, *, prefix_embeds=None, frames=None) -> float:
         """Mean next-token NLL of a token batch (B, S) under the aged
         device: one forward over ``tokens[:, :-1]`` against
-        ``tokens[:, 1:]``, with a fault config of its own."""
+        ``tokens[:, 1:]``, with a fault config of its own (an enc-dec
+        model encodes ``frames`` first; a VLM's prefix logits are
+        dropped)."""
         fi = self._fault_config()
         tokens = self._tokens(tokens)
-        logits, _, _ = tf.forward_logits(self.params, self.cfg,
-                                         tokens[:, :-1], fi=fi)
+        extras = _extras(self.cfg, prefix_embeds, frames, self.device)
+        logits, _ = family.text_logits(self.params, self.cfg,
+                                       tokens[:, :-1], fi=fi, **extras)
         return float(softmax_xent(logits, tokens[:, 1:]))
+
+
+def _extras(cfg: ModelConfig, prefix_embeds, frames, device) -> Dict:
+    """``{"frames": ...}`` for an enc-dec model, ``{"prefix_embeds":
+    ...}`` for a prefix model (float32 tensors on ``device``), ``{}``
+    otherwise; raises when the family's extra is missing."""
+    name = family.extra_name(cfg)
+    if name is None:
+        return {}
+    x = frames if name == "frames" else prefix_embeds
+    if x is None:
+        raise ValueError(f"the {cfg.family} family needs {name}=")
+    return {name: torch.as_tensor(np.asarray(x, np.float32)
+                                  if not isinstance(x, torch.Tensor) else x,
+                                  dtype=torch.float32, device=device)}
 
 
 @dataclasses.dataclass
@@ -277,32 +300,43 @@ class FleetServeEngine:
                            step=0, use_systolic_kernel=self.use_kernel,
                            fused=self.use_fused)
 
-    def _shard(self, prompts) -> torch.Tensor:
-        """``(N, B, S)`` per-lane prompts pass through; a flat ``(N * B,
-        S)`` batch is split over the lanes.  Dispatch is by rank: a flat
-        ``(N, S)`` batch is one prompt per lane."""
+    def _shard(self, x, name: str, lane_ndim: int) -> torch.Tensor:
+        """A per-lane input (rank ``lane_ndim``, leading N) passes through;
+        a flat batch (one rank lower) is split over the lanes.  Dispatch
+        is by rank: a flat ``(N, S)`` prompt batch is one prompt per
+        lane."""
         N = self.n_devices
-        x = torch.as_tensor(np.asarray(prompts), dtype=torch.int64)
-        if x.dim() == 3:
+        x = torch.as_tensor(np.asarray(x) if not isinstance(
+            x, torch.Tensor) else x)
+        if x.dim() == lane_ndim:
             if x.shape[0] != N:
-                raise ValueError(f"prompts lane dim {x.shape[0]} != fleet "
+                raise ValueError(f"{name} lane dim {x.shape[0]} != fleet "
                                  f"size {N}")
             return x
-        if x.dim() != 2 or x.shape[0] % N:
-            raise ValueError(f"prompts must be (N, B, S) per lane or a flat "
-                             f"(N * B, S) batch for N = {N}, got "
+        if x.dim() != lane_ndim - 1 or x.shape[0] % N:
+            raise ValueError(f"{name} must be rank {lane_ndim} (per lane) "
+                             f"or a flat rank-{lane_ndim - 1} batch that "
+                             f"splits over N = {N} lanes, got "
                              f"{tuple(x.shape)}")
-        return x.reshape(N, x.shape[0] // N, x.shape[1])
+        return x.reshape(N, x.shape[0] // N, *x.shape[1:])
 
     @torch.no_grad()
-    def generate(self, prompts, n_steps: int, *, temperature: float = 0.0,
+    def generate(self, prompts, n_steps: int, *, prefix_embeds=None,
+                 frames=None, temperature: float = 0.0,
                  top_k: Optional[int] = None) -> FleetGenerateResult:
         """prompts: ``(N, B, S)`` per lane, or ``(N * B, S)`` sharded over
-        the lanes.  Returns each lane's ``n_steps`` tokens and the
-        ``(N, O)`` BER matrix served."""
+        the lanes; a VLM's ``prefix_embeds`` and an enc-dec model's
+        ``frames`` likewise ``(N, B, ...)`` or ``(N * B, ...)``.  Returns
+        each lane's ``n_steps`` tokens and the ``(N, O)`` BER matrix
+        served."""
         N = self.n_devices
         self._key, call_key = prandom.split(self._key)
-        prompts = self._shard(prompts)
+        prompts = self._shard(prompts, "prompts", lane_ndim=3).to(
+            torch.int64)
+        extras = {k: self._shard(v, k, lane_ndim=4).flatten(0, 1)
+                  for k, v in _extras(self.cfg, prefix_embeds, frames,
+                                      "cpu").items()}
+        extras = {k: v.to(self.device) for k, v in extras.items()}
         fi = self._fleet_fault_config(call_key)
         keys = prandom.split(prandom.fold_in(call_key, 1), N)
         cold = _FLEET_GENERATE(self.cfg, self.max_len, int(n_steps), top_k)
@@ -311,7 +345,7 @@ class FleetServeEngine:
             self.params, self.cfg,
             prompts.reshape(-1, prompts.shape[-1]).to(self.device), fi, keys,
             max_len=self.max_len, n_steps=int(n_steps),
-            temperature=float(temperature), top_k=top_k, lanes=N)
+            temperature=float(temperature), top_k=top_k, lanes=N, **extras)
         span = time.perf_counter() - t0
         if taps_enabled():
             reg = obs_metrics.REGISTRY

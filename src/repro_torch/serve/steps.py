@@ -7,7 +7,10 @@ fault-stream derivation exactly — ``fi.with_seeds()`` once per call, one
 ``t`` — as a Python loop of eager steps (no compiled scan).  With
 ``lanes=N`` it is the reference's generation under ``jax.vmap`` over N
 devices: the lanes fold into the batch axis of one forward per step, and
-each lane keeps its own sampling-key chain.
+each lane keeps its own sampling-key chain.  A VLM's prefill takes the
+prefix embeddings (``prefix_embeds``) and its cache counts the prefix;
+an enc-dec model's prefill encodes the ``frames`` and computes the
+cross-attention K/V once, which every decode step reuses.
 """
 from __future__ import annotations
 
@@ -20,27 +23,51 @@ import torch
 from .. import random as prandom
 from ..configs import ModelConfig
 from ..device import true_div
+from ..models import encdec
 from ..models import transformer as tf
 from ..models.layers import FaultConfig
 from ..obs.taps import logit_taps
 
 
 def prefill(params, cfg: ModelConfig, tokens: torch.Tensor,
-            fi: Optional[FaultConfig], max_len: int):
-    """-> (logits of the last position (B, vocab), cache at ``max_len``)."""
+            fi: Optional[FaultConfig], max_len: int, *, prefix_embeds=None,
+            frames=None):
+    """-> (logits of the last position (B, vocab), cache at ``max_len``),
+    and for an enc-dec model also the cross-attention K/V
+    (:func:`repro_torch.models.encdec.cross_kv`) the decode steps reuse.
+    The cache is in the params' dtype (the enc-dec cache is written slot
+    by slot)."""
     B, S = tokens.shape
-    cache = tf.init_cache(cfg, B, max_len, dtype=params["embed"].dtype,
-                          device=tokens.device)
+    dtype = params["embed"].dtype
+    if cfg.n_encoder_layers:
+        if frames is None:
+            raise ValueError(f"{cfg.name} needs frames (B, "
+                             f"{cfg.encoder_seq}, {cfg.d_model})")
+        enc = encdec.encode(params, cfg, frames, fi=fi)
+        kv = encdec.cross_kv(params, cfg, enc, fi=fi)
+        cache = encdec.init_cache(cfg, B, max_len, dtype=dtype,
+                                  device=tokens.device)
+        logits, cache = encdec.decode(params, cfg, tokens, kv=kv, fi=fi,
+                                      cache=cache, cache_len=S)
+        return logits[:, -1], cache, kv
+    cache = tf.init_cache(cfg, B, max_len, dtype=dtype, device=tokens.device)
     logits, cache, _ = tf.forward_logits(params, cfg, tokens, states=cache,
-                                         cache_len=S, fi=fi)
+                                         cache_len=S + cfg.prefix_tokens,
+                                         fi=fi, prefix_embeds=prefix_embeds)
     return logits[:, -1], cache
 
 
 def decode(params, cfg: ModelConfig, token: torch.Tensor, cache,
-           cache_len: int, fi: Optional[FaultConfig]):
-    """token (B, 1) -> (logits (B, vocab), cache)."""
-    logits, cache = tf.decode_step(params, cfg, token, cache, cache_len,
-                                   fi=fi)
+           cache_len: int, fi: Optional[FaultConfig], kv=None):
+    """token (B, 1) -> (logits (B, vocab), cache); ``kv`` is an enc-dec
+    model's cross-attention K/V from :func:`prefill`."""
+    if cfg.n_encoder_layers:
+        logits, cache = encdec.decode(params, cfg, token, kv=kv, fi=fi,
+                                      cache=cache, cache_len=cache_len,
+                                      pos_offset=cache_len - 1)
+    else:
+        logits, cache = tf.decode_step(params, cfg, token, cache, cache_len,
+                                       fi=fi)
     return logits[:, -1], cache
 
 
@@ -84,8 +111,10 @@ def _split_keys(key: torch.Tensor, lanes: Optional[int]):
 def generate(params, cfg: ModelConfig, prompts: torch.Tensor,
              fi: Optional[FaultConfig], key: torch.Tensor, *,
              max_len: int, n_steps: int, temperature: float = 0.0,
-             top_k: Optional[int] = None,
-             lanes: Optional[int] = None) -> Tuple[np.ndarray, Dict, Dict]:
+             top_k: Optional[int] = None, lanes: Optional[int] = None,
+             prefix_embeds: Optional[torch.Tensor] = None,
+             frames: Optional[torch.Tensor] = None
+             ) -> Tuple[np.ndarray, Dict, Dict]:
     """Prefill + ``n_steps - 1`` decode steps + sampling.
 
     Returns ``(tokens (B, n_steps), telemetry {name: (n_steps,)}, timings
@@ -93,7 +122,9 @@ def generate(params, cfg: ModelConfig, prompts: torch.Tensor,
     ended by a device synchronisation.  With ``lanes=N``, ``prompts`` is
     ``(N * B, S)`` lane-major, ``fi`` a lane config, ``key`` the lanes'
     ``(N, 2)`` sampling keys, and the result ``(tokens (N, B, n_steps),
-    telemetry {name: (N, n_steps)}, timings)``.
+    telemetry {name: (N, n_steps)}, timings)``.  ``prefix_embeds`` (VLM)
+    and ``frames`` (enc-dec) are the extras of the prompts' rows, folded
+    the same way.
     """
     S = prompts.shape[1]
     if fi is not None:
@@ -101,7 +132,11 @@ def generate(params, cfg: ModelConfig, prompts: torch.Tensor,
     sync = (torch.cuda.synchronize if prompts.device.type == "cuda"
             else (lambda: None))
     t0 = time.perf_counter()
-    logits, cache = prefill(params, cfg, prompts, fi, max_len)
+    out = prefill(params, cfg, prompts, fi, max_len,
+                  prefix_embeds=prefix_embeds, frames=frames)
+    logits, cache = out[0], out[1]
+    kv = out[2] if cfg.n_encoder_layers else None
+    cache_len0 = S + cfg.prefix_tokens
     key, sub = _split_keys(key, lanes)
     tok = sample_token(logits, sub, temperature, top_k, lanes=lanes)
     toks, taps = [tok], [logit_taps(logits, lanes)]
@@ -109,7 +144,8 @@ def generate(params, cfg: ModelConfig, prompts: torch.Tensor,
     t1 = time.perf_counter()
     for t in range(1, n_steps):
         fi_t = None if fi is None else fi.for_step(t)
-        logits, cache = decode(params, cfg, tok[:, None], cache, S + t, fi_t)
+        logits, cache = decode(params, cfg, tok[:, None], cache,
+                               cache_len0 + t, fi_t, kv)
         key, sub = _split_keys(key, lanes)
         tok = sample_token(logits, sub, temperature, top_k, lanes=lanes)
         toks.append(tok)

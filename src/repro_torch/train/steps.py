@@ -19,6 +19,7 @@ import torch
 
 from ..configs import ModelConfig
 from ..device import resolve_device
+from ..models import family
 from ..models import transformer as tf
 from ..optim import AdamWConfig, OptState, adamw_init, adamw_update
 from ..tree import leaves, tree_map
@@ -33,13 +34,15 @@ class TrainState(NamedTuple):
 def init_train_state(cfg: ModelConfig, seed: int = 0, *,
                      dtype=torch.float32, device="cuda",
                      compressed: bool = False) -> TrainState:
-    """Random params (:func:`repro_torch.models.transformer.init_params`
-    from ``seed``) and a fresh optimizer state on ``device``."""
+    """Random params of the config's family from ``seed``
+    (:func:`repro_torch.models.family.init_params`) and a fresh optimizer
+    state on ``device``."""
     if compressed:
         raise NotImplementedError(
             "compressed data-parallel residuals are not ported (ROADMAP "
             "A.8)")
-    params = tf.init_params(cfg, seed, dtype, device=resolve_device(device))
+    params = family.init_params(cfg, seed, dtype,
+                                device=resolve_device(device))
     return TrainState(params=params, opt=adamw_init(params))
 
 
@@ -57,14 +60,18 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 def make_loss_fn(cfg: ModelConfig, *, remat: bool = False,
                  aux_weight: float = 0.01) -> Callable:
     """``(params, batch) -> (loss, {"loss", "xent", "aux"})``; batch keys
-    ``tokens`` and ``labels`` (tensors on the params' device).  ``aux`` is
-    the MoE load-balance loss :func:`forward_logits` returns (0 for a
-    dense model); it reaches the router's softmax in the backward pass."""
+    ``tokens`` and ``labels`` (tensors on the params' device), and
+    ``frames`` for an enc-dec model or ``prefix_embeds`` for a VLM (whose
+    prefix logits are dropped).  ``aux`` is the MoE load-balance loss
+    :func:`forward_logits` returns (0 for other models); it reaches the
+    router's softmax in the backward pass."""
     tf.check_supported(cfg)
 
     def loss_fn(params, batch):
-        logits, _, aux = tf.forward_logits(params, cfg, batch["tokens"],
-                                           remat=remat)
+        name = family.extra_name(cfg)
+        extra = {name: batch[name]} if name else {}
+        logits, aux = family.text_logits(params, cfg, batch["tokens"],
+                                         remat=remat, **extra)
         xent = softmax_xent(logits, batch["labels"])
         loss = xent + aux_weight * aux
         return loss, {"loss": loss, "xent": xent, "aux": aux}
@@ -120,8 +127,9 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, *,
                     g.div_(microbatches)
         metrics = mets[0] if microbatches == 1 else {
             k: torch.stack([m[k] for m in mets]).mean() for k in mets[0]}
-        new_params, new_opt, opt_m = adamw_update(grads, state.opt, params,
-                                                  opt_cfg)
+        new_params, new_opt, opt_m = adamw_update(
+            grads, state.opt, params, opt_cfg,
+            period=len(cfg.block_pattern))
         for p in ps:
             p.grad = None
         return (TrainState(new_params, new_opt, state.residuals),

@@ -522,3 +522,100 @@ def test_cuda_argmax_takes_the_first_maximum(cuda_device):
                   [2.0, 2.0, 2.0, 2.0]], np.float32)
     got = torch.as_tensor(x, device=cuda_device).argmax(dim=-1).cpu()
     assert got.tolist() == np.argmax(x, axis=-1).tolist()
+
+
+# the shapes the hybrid, SSM, VLM and enc-dec families add, prefill (B = 2
+# x 16 tokens) and decode (M 2), with every K-split plan among them (an
+# uneven last split at rwkv's K 8,960, paligemma's decode K 16,384 and
+# whisper's decode K 1,280 / 5,120): recurrentgemma's MQA k/v (N 256),
+# q and rec projections, gate/up (N 7,680) and down (K 7,680, also at its
+# 2,064-token prompt); rwkv's up (N 8,960) and down (K 8,960, also at its
+# 300-token prompt); paligemma's prefill (M 544 = 2 x (256 + 16)) gate/up
+# and down (K 16,384); whisper's encoder (M 3,000 = 2 x 1,500 frames) and
+# decoder at K 1,280 / 5,120
+FAMILY_SHAPES = [(32, 2560, 256), (2, 2560, 2560), (32, 2560, 7680),
+                 (32, 7680, 2560), (2064, 7680, 2560), (32, 2560, 8960),
+                 (32, 8960, 2560), (300, 8960, 2560), (544, 2048, 16384),
+                 (544, 16384, 2048), (2, 16384, 2048), (3000, 1280, 1280),
+                 (3000, 1280, 5120), (3000, 5120, 1280), (2, 1280, 1280),
+                 (2, 5120, 1280)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N", FAMILY_SHAPES)
+def test_cuda_fused_gemm_family_shapes(cuda_device, M, K, N):
+    """The fused GEMM at the new families' shapes, on the fast path, bit
+    for bit against its plain version."""
+    a, b, xs, ws = _operands(cuda_device, M, K, N, seed=M + K + N)
+    bm, bn, _ = ops._resolve_blocks(M, N, K, 256, 256, 256)
+    kernels.reset_launch_counts()
+    got = pfam.fused_aged_matmul(a, b, xs, ws, 1e-3, 7, bm=bm, bn=bn)
+    assert kernels.launch_counts_by_path()["fused_aged_matmul"] == {
+        "fast": 1, "generic": 0}
+    want = ref.fused_aged_matmul_ref(a, b, xs, ws, 1e-3, 7, bm=bm, bn=bn)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,N", [(1280, 1280), (1280, 5120), (5120, 1280)],
+                         ids=["q/k/v/o", "up", "down"])
+def test_cuda_family_fleet_lane_gemm_matches_plain(cuda_device, K, N):
+    """The lane GEMM at whisper's 4-lane fleet encoder (4 lanes of 3,000
+    rows), int32 and dequantised, equals the plain lane version and 4
+    single-lane launches bit for bit, in one launch on the fast path."""
+    L, Ml = 4, 3000
+    a, b, xs, ws = _operands(cuda_device, L * Ml, K, N, K + N)
+    bers, seeds = _lane_params(L, K * N)
+    bm, bn, _ = ops._resolve_blocks(Ml, N, K, 256, 256, 256)
+    for xs_, ws_ in ((None, None), (xs, ws)):
+        kernels.reset_launch_counts()
+        got = pfam.fused_aged_matmul_lanes(a, b, xs_, ws_, bers, seeds,
+                                           lanes=L, bm=bm, bn=bn)
+        by_path = kernels.launch_counts_by_path()["fused_aged_matmul_lanes"]
+        want = ref.fused_aged_matmul_lanes_ref(a, b, xs_, ws_, bers, seeds,
+                                               lanes=L, bm=bm, bn=bn)
+        singles = torch.cat([pfam.fused_aged_matmul(
+            a[l * Ml:(l + 1) * Ml], b,
+            None if xs_ is None else xs_[l * Ml:(l + 1) * Ml], ws_, bers[l],
+            seeds[l], bm=bm, bn=bn) for l in range(L)])
+        torch.cuda.synchronize()
+        assert torch.equal(got, want) and torch.equal(got, singles)
+        assert by_path == {"fast": 1, "generic": 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["recurrentgemma_2b", "rwkv6_3b",
+                                  "paligemma_3b", "whisper_large_v3"])
+def test_cuda_family_generate_matches_cpu(cuda_device, arch):
+    """A reduced model of each new family on the card's kernel route gives
+    the CPU's greedy tokens at BER 1e-3 on every domain."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models import family
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.tree import tree_map
+
+    class Forced:
+        age_years = 9.0
+
+        def op_bers(self):
+            return dict.fromkeys(("q", "k", "v", "qkt", "sv", "o", "gate",
+                                  "up", "down", "r", "g"), 1e-3)
+
+        def total_power(self):
+            return 0.0
+
+    cfg = get_config(arch).reduced()
+    p_cpu = family.init_params(cfg, seed=1, dtype=torch.float32,
+                               device="cpu")
+    p_gpu = tree_map(lambda t: t.to(cuda_device), p_cpu)
+    rng = np.random.default_rng(2)
+    prompts = rng.integers(0, cfg.vocab, (2, 10))
+    name = family.extra_name(cfg)
+    extra = {} if name is None else {name: rng.normal(
+        size=(2,) + family.extra_shape(cfg)).astype(np.float32)}
+    out = [ServeEngine(cfg, p, runtime=Forced(), max_len=32,
+                       use_systolic_kernel=True, seed=4, device=d)
+           .generate(prompts, 5, **extra).tokens
+           for p, d in ((p_gpu, cuda_device), (p_cpu, "cpu"))]
+    np.testing.assert_array_equal(out[0], out[1])

@@ -93,51 +93,85 @@ def test_configs_are_copies_of_the_reference():
         assert cfg.active_param_count() == ref.active_param_count(), arch
 
 
-def test_unported_families_are_refused():
-    with pytest.raises(KeyError, match="not ported"):
-        get_config("recurrentgemma_2b")
-    hybrid = dataclasses.replace(get_config("llama3_8b").reduced(),
-                                 family="hybrid")
-    with pytest.raises(NotImplementedError, match="hybrid"):
-        tf.init_params(hybrid, device="cpu")
+NEW_FAMILIES = ("recurrentgemma_2b", "rwkv6_3b", "paligemma_3b",
+                "whisper_large_v3")
 
 
-# config fields the port does not implement (ROADMAP §C.1): the reference
-# applies each in any family, so the port must refuse rather than serve
-# the config as if the field were unset
-UNPORTED_FIELDS = {"window": 4, "prefix_tokens": 8, "n_encoder_layers": 2,
-                   "block_pattern": ("rec", "rec", "attn")}
+def test_new_family_configs_match_reference():
+    """The hybrid, SSM, VLM and enc-dec configs (full and reduced) equal
+    the reference's, and ``get_config`` knows every reference arch."""
+    from repro.configs import ARCH_IDS as JAX_ARCH_IDS
+    assert tuple(ARCH_IDS) == tuple(JAX_ARCH_IDS)
+    for arch in NEW_FAMILIES:
+        cfg, ref = get_config(arch), jax_get_config(arch)
+        assert dataclasses.asdict(cfg) == dataclasses.asdict(ref), arch
+        assert (dataclasses.asdict(cfg.reduced())
+                == dataclasses.asdict(ref.reduced())), arch
+        assert cfg.param_count() == ref.param_count(), arch
 
 
-@pytest.mark.parametrize("field", list(UNPORTED_FIELDS))
-def test_unported_config_fields_are_refused(field):
-    """A reduced llama3_8b with ``window=4`` (C.1's reproduction), prefix
-    tokens, encoder layers or a hybrid block pattern raises, naming the
-    field, at ``init_params``, ``forward_logits``, ``serve.steps.prefill``,
-    ``ServeEngine`` and ``FleetServeEngine`` (before the repair the
-    windowed prefill returned the unwindowed logits)."""
-    base = get_config("llama3_8b").reduced()
-    cfg = dataclasses.replace(base, **{field: UNPORTED_FIELDS[field]})
-    params = tf.init_params(base, seed=2, dtype=torch.float32, device="cpu")
-    prompts = torch.as_tensor(SyntheticLM(
-        vocab=cfg.vocab, seq_len=8, global_batch=2).batch_at(0).tokens)
-    calls = {
-        "init_params": lambda: tf.init_params(cfg, device="cpu"),
-        "forward_logits": lambda: tf.forward_logits(params, cfg, prompts),
-        "prefill": lambda: steps.prefill(params, cfg, prompts, None, 32),
-        "ServeEngine": lambda: ServeEngine(cfg, params, device="cpu"),
-        "FleetServeEngine": lambda: FleetServeEngine(
-            cfg, params, FleetRuntime(n_devices=2, device="cpu"),
-            device="cpu")}
-    for name, call in calls.items():
-        with pytest.raises(NotImplementedError, match=field):
-            call()
-    steps.prefill(params, base, prompts, None, 32)      # the base serves
+# config fields the port used to refuse (ROADMAP §C.1): the reference
+# applies each in any family; a reduced llama3_8b with the field set now
+# gives the reference's logits
+CONFIG_FIELDS = {"window": 4, "prefix_tokens": 8, "n_encoder_layers": 2,
+                 "block_pattern": ("rec", "rec", "attn")}
+
+
+@pytest.mark.parametrize("field", list(CONFIG_FIELDS))
+def test_config_fields_match_reference(field):
+    """C.1's reproduction (``window=4``, where the port once returned the
+    unwindowed logits), prefix embeddings, encoder layers and a hybrid
+    block pattern (two ``rec`` tail layers): the prefill logits on the
+    fused route at BER 1e-3 (and the clean logits) equal the reference's
+    within 1e-4."""
+    from repro.models import encdec as jax_encdec
+    from repro_torch.models import encdec
+    base_j, base = (get_config("llama3_8b").reduced(),
+                    jax_get_config("llama3_8b").reduced())[::-1]
+    cfg_j = dataclasses.replace(base_j, **{field: CONFIG_FIELDS[field]})
+    cfg = dataclasses.replace(base, **{field: CONFIG_FIELDS[field]})
+    enc = field == "n_encoder_layers"
+    init = jax_encdec.init_params if enc else jax_tf.init_params
+    params_j = init(cfg_j, jax.random.PRNGKey(2), dtype=jnp.float32)
+    params = params_from_reference(jax.tree.map(np.asarray, params_j), cfg,
+                                   device="cpu")
+    rng = np.random.default_rng(6)
+    prompts = rng.integers(0, cfg.vocab, (2, 12))
+    extra = rng.normal(size=(2, cfg.encoder_seq if enc else
+                             cfg.prefix_tokens, cfg.d_model)).astype(
+        np.float32)
+    for fused in (None, True):
+        jfi, pfi = _fault_configs(True) if fused else (None, None)
+        if enc:      # op by op: see tests/test_torch_families_common.py::EAGER
+            with jax.disable_jit():
+                want, _ = jax_encdec.decode(
+                    params_j, cfg_j, jnp.asarray(prompts),
+                    enc_out=jax_encdec.encode(params_j, cfg_j,
+                                              jnp.asarray(extra), fi=jfi),
+                    fi=jfi)
+            got, _ = encdec.decode(
+                params, cfg, torch.as_tensor(prompts),
+                enc_out=encdec.encode(params, cfg, torch.from_numpy(extra),
+                                      fi=pfi), fi=pfi)
+        else:
+            pe = extra if cfg.prefix_tokens else None
+            want, _, _ = jax_tf.forward_logits(
+                params_j, cfg_j, jnp.asarray(prompts), fi=jfi,
+                prefix_embeds=None if pe is None else jnp.asarray(pe))
+            got, _, _ = tf.forward_logits(
+                params, cfg, torch.as_tensor(prompts), fi=pfi,
+                prefix_embeds=None if pe is None else torch.from_numpy(pe))
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                                   atol=LOGIT_ATOL)
+    if field == "window":                       # the window really bites
+        unwindowed, _, _ = tf.forward_logits(params, base,
+                                             torch.as_tensor(prompts))
+        assert not torch.allclose(unwindowed, got, atol=1e-3)
 
 
 def test_family_operators_match_reference():
     assert resilience.FAMILY_OPERATORS == jax_resilience.FAMILY_OPERATORS
-    for fam in ("dense", "moe", "ssm", "unknown"):
+    for fam in ("dense", "moe", "hybrid", "ssm", "encdec", "vlm", "unknown"):
         assert resilience.operators_for(fam) \
             == jax_resilience.operators_for(fam)
 

@@ -359,10 +359,15 @@ def test_resilience_bench_cpu(tmp_path):
     assert all(c["ok"] for c in rec["checks"])
 
 
-def test_refused_family_raises(setup):
+def test_windowed_sweep_matches_reference(setup):
+    """A sliding window (reduced llama3_8b at ``window=4``, which the port
+    used to refuse) changes the surface as it does the reference's."""
     import dataclasses
-    _, cfg, _, params, tokens = setup
-    windowed = dataclasses.replace(cfg, window=4)
-    with pytest.raises(NotImplementedError, match="window"):
-        rs.run_sweep(windowed, params, tokens, ber_grid=(1e-3,),
-                     n_seeds=1, device="cpu")
+    jcfg, cfg, jparams, params, tokens = setup
+    kw = dict(ber_grid=(1e-3, 1e-2), operators=("qkt", "sv", "o"),
+              n_seeds=1)
+    want = jrs.run_sweep(dataclasses.replace(jcfg, window=4), jparams,
+                         tokens, **kw)
+    got = rs.run_sweep(dataclasses.replace(cfg, window=4), params, tokens,
+                       device="cpu", **kw)
+    np.testing.assert_array_equal(got.loss_pct, want.loss_pct)
