@@ -154,9 +154,28 @@ Phases (any failure exits non-zero):
    and draw at the shapes these models add, bit-exact against their plain
    versions, beside their bounds and ``torch._int_mm`` on a column-major
    ``b``;
+13. ROADMAP C.6 at full width and the port's entry points: llama3_8b at
+   its published widths (32 layers, bf16, no runtime) prefilling clean at
+   S = 2047 (full attention) and 2048 / 8192 (chunked attention), with
+   prefill ms, peak GB and CUDA kernels a prefill; the card's chunked
+   attention against its full attention in float32 at one layer's shapes
+   (S = 2064: padded keys; causal and windowed; within 1e-5); reduced
+   llama3_8b and recurrentgemma_2b (window 16) prefilling 2,064 tokens
+   clean, card against CPU; then, each through its ``main(argv)`` in this
+   process with its output in ``chiprun_out/entry_points/``: the serve
+   CLI on reduced llama3_8b's kernel route as a 4-lane wear_level fleet
+   and as lane 2 of a static fleet (tokens == the same call with
+   ``--torch-device cpu``, the lane / single-lane fused and draw launches
+   counted), ``launch.sweep``, ``launch.schedule --epochs 96``,
+   ``examples.quickstart`` (tokens == the CPU's), ``launch.train --arch
+   recurrentgemma_2b --full --steps 2 --batch 2 --seq 256`` (finite loss,
+   peak under 76 GB), ``benchmarks.kernel_bench`` (the full list, every
+   row bit-exact), ``benchmarks.run --only serve,scenarios --quick`` and
+   ``run --summary``;
 11. a ``{"kernels": [...]}`` line (launches summed over the runs of [4],
-   [5], [6], [6b], [7], [8], [10], [10b] and [12]), the ``nvidia-smi``
-   line, and as the last line ``{"ok": true, "device": {...}}``.
+   [5], [6], [6b], [7], [8], [10], [10b], [12] and [13]), the
+   ``nvidia-smi`` line, and as the last line ``{"ok": true, "device":
+   {...}}``.
 
 Details go to ``chiprun_out/chip_smoke.json``.  The port never calls
 ``torch._int_mm``; it is timed here only as a yardstick.
@@ -3324,6 +3343,275 @@ def families_phase(dev) -> dict:
     return res
 
 
+# --------------------------------------------------------------------------- #
+# [13] C.6 at full width, and the port's entry points on the card
+CHUNK_SEQS = (2047, 2048, 8192)   # full attention below 2048, chunked from it
+CHUNK_F32_ATOL = 1e-5             # chunked vs full attention, float32, card
+LOGIT_ATOL = 1e-4                 # reduced float32 logits, card vs CPU
+TRAIN_ARCH = "recurrentgemma_2b"  # [13]'s full-width CLI training run
+ENTRY_DIR = ROOT / "chiprun_out" / "entry_points"
+
+
+def _captured(name: str, fn):
+    """``fn()`` with its standard output kept in ``ENTRY_DIR/<name>.log``;
+    returns ``(result, seconds)``."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        out = fn()
+    seconds = time.perf_counter() - t0
+    ENTRY_DIR.mkdir(parents=True, exist_ok=True)
+    (ENTRY_DIR / f"{name}.log").write_text(buf.getvalue())
+    return out, seconds
+
+
+def chunked_prefills(dev) -> dict:
+    """A clean prefill of llama3_8b at its published widths (32 layers,
+    bf16, no runtime) at S = 2047 (full attention) and 2048 / 8192
+    (chunked): prefill ms, peak GB, CUDA kernels a prefill."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serve.engine import ServeEngine
+    cfg = get_config("llama3_8b")
+    params = init_params(cfg, seed=0, dtype=torch.bfloat16, device=dev)
+    out = {}
+    for i, S in enumerate(CHUNK_SEQS):
+        prompts = SyntheticLM(vocab=cfg.vocab, seq_len=S,
+                              global_batch=1).batch_at(0).tokens
+        eng = ServeEngine(cfg, params, max_len=S + 1, device=dev)
+        if i == 0:
+            eng.generate(prompts, 1)                     # warm-up
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        res = eng.generate(prompts, 1)
+        peak = torch.cuda.max_memory_allocated(dev)
+        check(res.tokens.shape == (1, 1) and 0 <= int(res.tokens[0, 0])
+              < cfg.vocab, f"prefill S={S}: tokens {res.tokens}")
+        _, kernels_a_prefill = device_ms(lambda: eng.generate(prompts, 1),
+                                         iters=1)
+        out[S] = {"prefill_ms": res.timings["prefill_s"] * 1e3,
+                  "peak_gb": peak / 1e9, "kernels": kernels_a_prefill,
+                  "token": int(res.tokens[0, 0])}
+        del eng
+        torch.cuda.empty_cache()
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def chunked_vs_full(dev) -> dict:
+    """The card's chunked attention against its full attention in float32
+    at one llama3_8b layer's shapes (32 / 8 heads x 128), S = 2064 (the
+    padded keys masked through ``kv_valid``), causal and windowed."""
+    import torch
+    from repro_torch.models import attention as attn
+    gen = torch.Generator(device=dev).manual_seed(13)
+    S = 2064
+    q = torch.randn((1, S, 32, 128), device=dev, generator=gen)
+    k = torch.randn((1, S, 8, 128), device=dev, generator=gen)
+    v = torch.randn((1, S, 8, 128), device=dev, generator=gen)
+    errs = {}
+    for name, kw in (("causal", {}), ("window 512", {"window": 512})):
+        got = attn.attention(q, k, v, causal=True, **kw)
+        want = attn.full_attention(q, k, v, causal=True, **kw)
+        errs[name] = max_abs_err(got, want)
+        check(errs[name] <= CHUNK_F32_ATOL,
+              f"chunked vs full attention ({name}) on the card: max |err| "
+              f"{errs[name]}")
+    return errs
+
+
+def chunked_reduced_vs_cpu(dev) -> dict:
+    """Reduced llama3_8b and reduced recurrentgemma_2b (window 16: whole
+    KV chunks masked) prefill 2,064 tokens clean (chunked) and decode 3:
+    last-position logits within LOGIT_ATOL and the tokens, card vs CPU."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import family
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.tree import tree_map
+    out = {}
+    for arch in ("llama3_8b", "recurrentgemma_2b"):
+        cfg = get_config(arch).reduced()
+        p_cpu = family.init_params(cfg, 1, torch.float32, device="cpu")
+        p_gpu = tree_map(lambda t: t.to(dev), p_cpu)
+        prompts = SyntheticLM(vocab=cfg.vocab, seq_len=2064,
+                              global_batch=1).batch_at(0).tokens
+        logits, toks = {}, {}
+        for name, p, d in (("cuda", p_gpu, dev), ("cpu", p_cpu, "cpu")):
+            with torch.no_grad():
+                lg = family.text_logits(p, cfg, torch.as_tensor(
+                    prompts, device=d))[0]
+            logits[name] = lg[:, -1].float().cpu()
+            toks[name] = ServeEngine(cfg, p, max_len=2070, device=d
+                                     ).generate(prompts, 3).tokens
+        err = max_abs_err(logits["cuda"], logits["cpu"])
+        check(err <= LOGIT_ATOL and np.array_equal(toks["cuda"],
+                                                   toks["cpu"]),
+              f"reduced {arch} S=2064 clean: logits |err| {err}, tokens "
+              f"{toks['cuda'].tolist()} vs CPU {toks['cpu'].tolist()}")
+        out[arch] = {"logit_err": err, "tokens": toks["cuda"].tolist()}
+    return out
+
+
+def serve_cli_vs_cpu(dev, name: str, argv: list) -> dict:
+    """``repro_torch.launch.serve.main(argv)`` on the card, its kernel
+    launches counted, against the same call with ``--torch-device cpu``."""
+    import numpy as np
+    from repro_torch import kernels
+    from repro_torch.launch import serve
+    kernels.reset_launch_counts()
+    res, seconds = _captured(name, lambda: serve.main(argv))
+    counts = kernels.launch_counts()
+    cpu, cpu_s = _captured(name + "_cpu", lambda: serve.main(
+        argv + ["--torch-device", "cpu"]))
+    check(np.array_equal(res.tokens, cpu.tokens),
+          f"{name}: card tokens {res.tokens.tolist()} != CPU "
+          f"{cpu.tokens.tolist()}")
+    return {"argv": argv, "seconds": seconds, "cpu_seconds": cpu_s,
+            "launches": counts, "tokens": res.tokens.tolist()}
+
+
+def entry_points(dev) -> dict:
+    """The port's CLIs, example and benchmarks on the card, each through
+    its ``main(argv)`` in this process, output under ENTRY_DIR."""
+    import math
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.benchmarks import kernel_bench, run
+    from repro_torch.configs import get_config
+    from repro_torch.examples import quickstart
+    from repro_torch.launch import schedule, sweep, train
+    res = {}
+    L = get_config("llama3_8b").reduced().n_layers
+    gen_len = 8
+    small = ["--arch", "llama3_8b", "--use-kernel", "--gen-len",
+             str(gen_len), "--prompt-len", "16", "--batch", "2"]
+    fleet = serve_cli_vs_cpu(dev, "serve_fleet_wear_level",
+                             small + ["--n-devices", "4", "--router",
+                                      "wear_level"])
+    lane = serve_cli_vs_cpu(dev, "serve_lane2_static",
+                            small + ["--n-devices", "4", "--device", "2",
+                                     "--router", "static"])
+    want = {"fused_aged_matmul_lanes": 7 * L * gen_len,
+            "bitflip_draw_lanes": 2 * L * gen_len}
+    check(all(fleet["launches"][k] == v for k, v in want.items()),
+          f"serve fleet CLI launches {fleet['launches']} != {want}")
+    want = {"fused_aged_matmul": 7 * L * gen_len,
+            "bitflip_draw": 2 * L * gen_len}
+    check(all(lane["launches"][k] == v for k, v in want.items()),
+          f"serve lane CLI launches {lane['launches']} != {want}")
+    res["serve_fleet"], res["serve_lane"] = fleet, lane
+    launches = {k: fleet["launches"][k] + lane["launches"][k]
+                for k in kernels.KERNEL_NAMES}
+
+    sw, res_s = _captured("sweep", lambda: sweep.main([]))
+    check(sw["saving"].shape == (3, 3)
+          and bool(np.isfinite(sw["saving"]).all()), "sweep savings grid")
+    res["sweep"] = {"seconds": res_s,
+                    "saving_pct": np.asarray(sw["saving"]).tolist()}
+    sc, sc_s = _captured("schedule", lambda: schedule.main(
+        ["--epochs", "96"]))
+    check(sc["wear_level"]["fleet_max_dvp_mv"]
+          < sc["round_robin"]["fleet_max_dvp_mv"],
+          "schedule: wear_level's fleet-max dVth not below round_robin's")
+    res["schedule"] = {"seconds": sc_s, "fleet_max_dvp_mv": {
+        r: sc[r]["fleet_max_dvp_mv"] for r in sc}}
+    qs, qs_s = _captured("quickstart", lambda: quickstart.main([]))
+    qs_cpu, _ = _captured("quickstart_cpu", lambda: quickstart.main(
+        ["--device", "cpu"]))
+    check(np.array_equal(qs["serve"].tokens, qs_cpu["serve"].tokens),
+          f"quickstart tokens {qs['serve'].tokens.tolist()} != CPU "
+          f"{qs_cpu['serve'].tokens.tolist()}")
+    res["quickstart"] = {"seconds": qs_s,
+                         "tokens": qs["serve"].tokens.tolist()}
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    loop, tr_s = _captured("train", lambda: train.main(
+        ["--arch", TRAIN_ARCH, "--full", "--steps", "2", "--batch", "2",
+         "--seq", "256"]))
+    peak = torch.cuda.max_memory_allocated(dev)
+    losses = [h["loss"] for h in loop.history]
+    check(len(losses) == 2 and all(math.isfinite(x) for x in losses)
+          and peak < TRAIN_PEAK_LIMIT,
+          f"train {TRAIN_ARCH} --full: losses {losses}, peak {peak / 1e9:.2f}"
+          f" GB")
+    res["train"] = {"seconds": tr_s, "losses": losses, "peak_gb": peak / 1e9}
+    del loop
+    torch.cuda.empty_cache()
+
+    bench_dir = ENTRY_DIR / "bench"
+    bench_dir.mkdir(parents=True, exist_ok=True)
+    kb, kb_s = _captured("kernel_bench", lambda: kernel_bench.main(
+        ["--out", str(bench_dir / "kernels.json")]))
+    check(kb == 0, "kernel_bench: a check FAILED (see kernel_bench.log)")
+    rc, rc_s = _captured("run", lambda: run.main(
+        ["--only", "serve,scenarios", "--quick", "--out-dir",
+         str(bench_dir)]))
+    check(rc == 0, "benchmarks.run serve,scenarios: a check FAILED")
+    rs, _ = _captured("run_summary", lambda: run.main(
+        ["--summary", "--out-dir", str(bench_dir)]))
+    summary = json.loads((bench_dir / "summary.json").read_text())
+    check(rs == 0 and summary["sections"] == ["kernels", "scenarios",
+                                              "serve"],
+          f"run --summary sections {summary['sections']}")
+    res["kernel_bench"] = {"seconds": kb_s}
+    res["serve_scenario_bench"] = {"seconds": rc_s,
+                                   "serve": summary["records"]["serve"],
+                                   "scenarios":
+                                   summary["records"]["scenarios"]["rows"]}
+    res["launches"] = launches
+    return res
+
+
+def entry_phase(dev) -> dict:
+    """[13] C.6 at full width, then the port's entry points."""
+    import torch
+    t_phase = time.perf_counter()
+    res = {"chunked_prefill": chunked_prefills(dev)}
+    for S, r in res["chunked_prefill"].items():
+        print(f"[13] llama3_8b full width, clean prefill B=1 S={S} "
+              f"({'chunked' if S >= 2048 else 'full'} attention): "
+              f"{r['prefill_ms']:.1f} ms, peak {r['peak_gb']:.2f} GB, "
+              f"{r['kernels']:.0f} CUDA kernels", flush=True)
+    res["chunked_vs_full"] = chunked_vs_full(dev)
+    res["chunked_reduced_vs_cpu"] = chunked_reduced_vs_cpu(dev)
+    print(f"    chunked vs full attention on the card (float32, S=2064, 32 "
+          f"heads x 128): max |err| {res['chunked_vs_full']}; reduced "
+          f"llama3_8b / recurrentgemma_2b S=2064 clean: card == CPU tokens, "
+          f"logits |err| "
+          + " / ".join(f"{v['logit_err']:.2e}" for v in
+                       res["chunked_reduced_vs_cpu"].values()), flush=True)
+    ep = entry_points(dev)
+    res.update(ep)
+    print(f"    serve CLI fleet (4 lanes, wear_level, kernel route) "
+          f"{ep['serve_fleet']['seconds']:.1f} s and lane 2 (static) "
+          f"{ep['serve_lane']['seconds']:.1f} s: tokens == CPU's; launches "
+          f"{ep['launches']}", flush=True)
+    print(f"    sweep {ep['sweep']['seconds']:.1f} s, schedule (96 epochs) "
+          f"{ep['schedule']['seconds']:.1f} s, quickstart "
+          f"{ep['quickstart']['seconds']:.1f} s (tokens == CPU's), train "
+          f"{TRAIN_ARCH} --full 2 steps {ep['train']['seconds']:.1f} s "
+          f"(losses {ep['train']['losses']}, peak "
+          f"{ep['train']['peak_gb']:.2f} GB), kernel_bench "
+          f"{ep['kernel_bench']['seconds']:.1f} s, serve_bench --quick + "
+          f"scenario_bench {ep['serve_scenario_bench']['seconds']:.1f} s; "
+          f"logs in {ENTRY_DIR.relative_to(ROOT)}", flush=True)
+    res["seconds"] = time.perf_counter() - t_phase
+    print(f"    [13] done in {res['seconds']:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+    return res
+
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--layers", type=int, default=32,
@@ -3634,8 +3922,12 @@ def main(argv=None) -> int:
     report["families"] = families_phase(dev)
     family_counts = report["families"]["launches"]
 
+    # 13. C.6 at full width and the port's entry points -------------------
+    report["entry"] = entry_phase(dev)
+    entry_counts = report["entry"]["launches"]
+
     # 11. summary ---------------------------------------------------------
-    # launches summed over the eight paths' runs, each counted from 0; the
+    # launches summed over the nine paths' runs, each counted from 0; the
     # explicit-randoms bitflip_words is on no path any more: it stays the
     # Pallas kernel's counterpart signature for signature, held against
     # its plain version in [3], with 0 launches on the paths
@@ -3643,7 +3935,7 @@ def main(argv=None) -> int:
                 + load_counts[name] + moe_counts[name]
                 + moe_fleet_counts[name] + train_counts[name]
                 + resilience_counts[name] + family_counts[name]
-                for name in kernels.KERNEL_NAMES}
+                + entry_counts[name] for name in kernels.KERNEL_NAMES}
     # the representative shape of each kernel: the decode weight matmul
     # that dominates the fused route (gate/up, M = 2; 4 x 2 in lane mode),
     # the prefill gate/up GEMM (M = 32, where torch._int_mm computes the

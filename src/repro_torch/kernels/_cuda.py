@@ -38,7 +38,8 @@ NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 GEMM_PLAIN, GEMM_UPSET, GEMM_UPSET_DEQUANT = 0, 1, 2
-FAST, GENERIC = "fast", "generic"
+FAST = "fast"
+GENERIC = "generic"
 _PATH_CODE = {GENERIC: 0, FAST: 1}
 FAST_BK = 128        # K depth of one stage of the fast path's copy ring
 GENERIC_TILE = (32, 128, 64)   # (bm, bn, bk) of the generic path

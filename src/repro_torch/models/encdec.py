@@ -78,8 +78,7 @@ def _self_attn(h, ap, cfg: ModelConfig, *, causal: bool, fi=None, salt=0,
                                         cache_len, fi=fi, salt=salt)
         new_cache = cache
     else:
-        out = attn_lib.full_attention(q, k, v, causal=causal, fi=fi,
-                                      salt=salt)
+        out = attn_lib.attention(q, k, v, causal=causal, fi=fi, salt=salt)
         if cache is not None:    # prefill: the prompt's K/V in [0, S)
             pad = (0, 0, 0, 0, 0, cache["k"].shape[1] - k.shape[1])
             new_cache = {
@@ -90,8 +89,8 @@ def _self_attn(h, ap, cfg: ModelConfig, *, causal: bool, fi=None, salt=0,
 
 def _cross_attn(h, enc_kv, ap, cfg: ModelConfig, *, fi=None, salt=0):
     q = op_einsum("bsd,dhk->bshk", h, ap["wq"], "q", fi, salt)
-    return attn_lib.full_attention(q, enc_kv["k"], enc_kv["v"],
-                                   causal=False, fi=fi, salt=salt)
+    return attn_lib.attention(q, enc_kv["k"], enc_kv["v"], causal=False,
+                              fi=fi, salt=salt)
 
 
 def _maybe_remat(fn, remat: bool):

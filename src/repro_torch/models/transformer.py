@@ -151,9 +151,8 @@ def _attn_block(x, bp, cfg: ModelConfig, *, positions, prefix_len: int = 0,
                                         cache_len, fi=fi, salt=salt)
         new_cache = cache
     else:
-        out = attn_lib.full_attention(q, k, v, causal=True,
-                                      window=cfg.window,
-                                      prefix_len=prefix_len, fi=fi, salt=salt)
+        out = attn_lib.attention(q, k, v, causal=True, window=cfg.window,
+                                 prefix_len=prefix_len, fi=fi, salt=salt)
         if cache is not None:    # prefill: stash K/V
             kv_len, S = cache["k"].shape[1], k.shape[1]
             if S >= kv_len:      # keep the last kv_len tokens at t % kv_len

@@ -619,3 +619,61 @@ def test_cuda_family_generate_matches_cpu(cuda_device, arch):
            .generate(prompts, 5, **extra).tokens
            for p, d in ((p_gpu, cuda_device), (p_cpu, "cpu"))]
     np.testing.assert_array_equal(out[0], out[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [{}, {"window": 512}, {"prefix_len": 256}],
+                         ids=["causal", "window", "prefix"])
+def test_cuda_chunked_attention_matches_cpu(cuda_device, kw):
+    """ROADMAP C.6: chunked attention (a clean call of 2,064 queries, the
+    keys padded to whole chunks) on the card against its CPU result, in
+    float32 (TF32 off) and bf16; and the card's own full attention."""
+    from repro_torch.models import attention as attn
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        gen = torch.Generator().manual_seed(21)
+        q = torch.randn((1, 2064, 4, 64), generator=gen) * 2
+        k = torch.randn((1, 2064, 2, 64), generator=gen) * 2
+        v = torch.randn((1, 2064, 2, 64), generator=gen)
+        for dtype, atol in ((torch.float32, 1e-5), (torch.bfloat16, 2 ** -7)):
+            args = [x.to(dtype) for x in (q, k, v)]
+            want = attn.attention(*args, **kw).float()
+            got = attn.attention(*(x.to(cuda_device) for x in args),
+                                 **kw).float().cpu()
+            assert float((got - want).abs().max()) <= atol
+            if dtype == torch.bfloat16:
+                assert float((got != want).float().mean()) <= 0.01
+        full = attn.full_attention(*(x.to(cuda_device) for x in (q, k, v)),
+                                   **kw).cpu()
+        assert float((full - attn.chunked_attention(q, k, v, **kw)).abs()
+                     .max()) <= 1e-5
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+@pytest.mark.cuda
+def test_cuda_chunked_attention_refuses_tf32(cuda_device):
+    from repro_torch.models import attention as attn
+    q = torch.zeros((1, 2048, 2, 16), device=cuda_device)
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with pytest.raises(NotImplementedError, match="TF32"):
+            attn.attention(q, q[:, :, :1], q[:, :, :1])
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_bench_quick_rows_are_exact(cuda_device):
+    """``kernel_bench --quick`` on the card: its GEMM and draw rows equal
+    their plain versions, the GEMM on the fast path, each row timed."""
+    from repro_torch.benchmarks import kernel_bench
+    res = kernel_bench.evaluate(device="cuda", quick=True)
+    rows = res["rows"]["rows"]
+    assert [r["kernel"] for r in rows] == ["fused_aged_matmul",
+                                           "bitflip_draw"]
+    assert all(r["exact"] and r["ms"] > 0 for r in rows)
+    assert rows[0]["fast_path"] and rows[0]["library_ms"] > 0
+    assert all(c["ok"] for c in res["checks"])

@@ -18,6 +18,7 @@ import torch
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch import kernels
+from repro_torch.benchmarks import kernel_bench
 from repro_torch.kernels import fused_aged_matmul as pfam
 from repro_torch.kernels import ref
 from repro_torch.kernels._cuda import FAST_BK, gemm_plan
@@ -252,3 +253,27 @@ def test_cpu_gemm_wrappers_count_no_path():
         "fused_aged_matmul": {"fast": 0, "generic": 0},
         "fused_aged_matmul_lanes": {"fast": 0, "generic": 0},
         "systolic_matmul": {"fast": 0, "generic": 0}}
+
+
+# benchmarks.kernel_bench's list: every weight GEMM of the serve paths
+# (llama3_8b, qwen3_moe_235b, the hybrid / SSM / VLM / enc-dec models) at
+# M = 2, 32, 544 and 3,000, and llama3_8b's with 4 lanes of 2 and 32 rows
+BENCH = sorted({(M, K, N) for M in kernel_bench.GEMM_MS
+                for _, _, K, N in kernel_bench.GEMM_SHAPES}
+               | {(4 * M, K, N) for M in kernel_bench.LANE_MS
+                  for _, _, K, N in kernel_bench.GEMM_SHAPES[:4]})
+
+
+@pytest.mark.parametrize("M,K,N", BENCH)
+def test_kernel_bench_shapes_take_the_fast_path(M, K, N):
+    """kernel_bench's shapes: the fast path, K split into whole stages
+    that cover it once, and at least one CTA per SM of an H100 where the
+    shape has that many tiles and stages."""
+    plan = gemm_plan(M, N, K, H100_SMS)
+    assert plan.path == "fast"
+    ranges = plan.k_ranges()
+    assert ranges[0][0] == 0 and ranges[-1][1] == K
+    assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+    assert all(k0 % FAST_BK == 0 for k0, _ in ranges)
+    assert plan.ctas >= min(H100_SMS, plan.tiles * -(-K // FAST_BK))
+
