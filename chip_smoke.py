@@ -172,8 +172,28 @@ Phases (any failure exits non-zero):
    peak under 76 GB), ``benchmarks.kernel_bench`` (the full list, every
    row bit-exact), ``benchmarks.run --only serve,scenarios --quick`` and
    ``run --summary``;
+14. continuous-batching online serving at llama3_8b's full width (cells
+   13 and 14; [4]'s widths and depth, bf16 random params, the fused-GEMM
+   and draw-bitflip kernels): the no-arrival contract (8 slots filled at
+   step 0, 9 sampled tokens at chunks of 4 == ``ServeEngine.generate``);
+   ``OnlineServeEngine`` (8 slots, chunks of 8, 16-token prompts and
+   budgets, queue 16, T = 0.7, 9 years) on a ``requests_from_workload``
+   diurnal trace at 0.6 (2 epochs x 32 steps), and ``OnlineFleetEngine``
+   over [6]'s 4-device fleet (4 slots a lane, wear_level, one epoch of the
+   trace over 4 devices), each with 7 fused-GEMM and 2 draw launches a layer for every
+   refill and decode step (lane modes for the fleet, not 4x), on the fast
+   path; the fleet's measured ``lane_utilization`` replayed into its
+   ``apply_load`` (1 year) on the card against the same replay on the
+   CPU; a chunk's host syncs at 2 and 8 steps (equal) and the busy share
+   of a profiled 2-step chunk; the online GEMM shapes (M = 8 / 128, lanes
+   4 x 4 / 4 x 64) bit-exact against their plain versions (kernel_bench's
+   rows from [13]); reduced llama3_8b and qwen3_moe_235b and a 3-lane reduced
+   fleet serving mid-decode arrivals, card == CPU (tokens, times,
+   occupancy); tok/s, p50/p99 latency, drop rate, ms a decode step and a
+   refill, launches a chunk and peak GB printed beside the card's name and
+   power limit;
 11. a ``{"kernels": [...]}`` line (launches summed over the runs of [4],
-   [5], [6], [6b], [7], [8], [10], [10b], [12] and [13]), the
+   [5], [6], [6b], [7], [8], [10], [10b], [12], [13] and [14]), the
    ``nvidia-smi`` line, and as the last line ``{"ok": true, "device":
    {...}}``.
 
@@ -3612,6 +3632,423 @@ def entry_phase(dev) -> dict:
 
 
 
+# --------------------------------------------------------------------------- #
+# [14] continuous-batching online serving at llama3_8b's full width
+ONLINE_SLOTS = 8                 # cell 13: slots of the one-device engine
+ONLINE_FLEET_SLOTS = 4           # cell 14: slots a lane, 4 lanes
+ONLINE_CHUNK = 8                 # decode steps a chunk
+ONLINE_PROMPT = 16
+ONLINE_MAX_NEW = 16
+ONLINE_QUEUE = 16
+ONLINE_EPOCHS = 2                # cell 13's diurnal trace: 2 epochs x 32
+#                                  steps (one drew 3 requests: no churn)
+ONLINE_FLEET_EPOCHS = 1          # cell 14's: 1 epoch (~20 requests over
+#                                  4 lanes; 2 took the smoke past 1,000 s
+#                                  on a slow host)
+ONLINE_STEPS_PER_EPOCH = 32
+ONLINE_UTIL = 0.6
+ONLINE_TEMPERATURE = 0.7
+
+
+class _ForcedOnlineFleet(_ForcedFleet):
+    """A :class:`_ForcedFleet` with the wear signal the online router reads
+    (lane ``i`` at ``10 * i`` mV)."""
+
+    def snapshot(self):
+        import numpy as np
+        wear = np.repeat(10.0 * np.arange(self.n_devices)[:, None],
+                         len(self.operators), axis=1)
+        return type("Snapshot", (), {"dvth_p_mv": wear})()
+
+
+def _online_schedule(Request, prompts):
+    """Four requests on two slots with arrivals mid-decode and budgets of
+    1-9 tokens (one completes at prefill)."""
+    return [Request(id=0, prompt=prompts[0], max_new=5, arrival=0),
+            Request(id=1, prompt=prompts[1], max_new=9, arrival=0),
+            Request(id=2, prompt=prompts[2], max_new=1, arrival=2),
+            Request(id=3, prompt=prompts[3], max_new=7, arrival=3),
+            Request(id=4, prompt=prompts[0], max_new=6, arrival=9)]
+
+
+def _online_same(a, b) -> bool:
+    import numpy as np
+    by = lambda res: sorted(res.completed, key=lambda r: r.id)
+    return ([(r.id, r.lane, r.t_start, r.t_done, r.tokens.tolist())
+             for r in by(a)] == [(r.id, r.lane, r.t_start, r.t_done,
+                                  r.tokens.tolist()) for r in by(b)]
+            and np.array_equal(a.occupancy, b.occupancy))
+
+
+def online_reduced_vs_cpu(dev) -> dict:
+    """Reduced llama3_8b and qwen3_moe_235b (sampled, BER 1e-3 on every
+    domain) serve a schedule with mid-decode arrivals on the card's kernel
+    route and on the CPU: tokens, lanes, t_start, t_done and occupancy
+    equal; then a 3-lane reduced llama3_8b fleet (BERs 1e-3 / 0 / 3e-3)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.resilience import operators_for
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serve.online import (OnlineFleetEngine,
+                                          OnlineServeEngine, Request)
+    from repro_torch.tree import tree_map
+    out = {}
+    for arch in ("llama3_8b", "qwen3_moe_235b", "llama3_8b fleet"):
+        small = get_config(arch.split()[0]).reduced()
+        p_cpu = init_params(small, seed=1, dtype=torch.float32, device="cpu")
+        p_gpu = tree_map(lambda t: t.to(dev), p_cpu)
+        prompts = np.random.default_rng(3).integers(
+            0, small.vocab, (4, 12)).astype(np.int32)
+        kw = dict(max_len=32, max_new_cap=12, chunk_steps=4, seed=5,
+                  use_systolic_kernel=True)
+        res = {}
+        for name, p, d in (("cuda", p_gpu, dev), ("cpu", p_cpu, "cpu")):
+            if arch.endswith("fleet"):
+                fleet = _ForcedOnlineFleet([1e-3, 0.0, 3e-3],
+                                           operators_for(small.family))
+                eng = OnlineFleetEngine(small, p, fleet, n_slots=2,
+                                        router="wear_level", device=d, **kw)
+                reqs = [Request(id=i, prompt=prompts[i % 4], max_new=4 + i % 5,
+                                arrival=i) for i in range(9)]
+            else:
+                eng = OnlineServeEngine(small, p, runtime=_Forced(1e-3),
+                                        n_slots=2, device=d, **kw)
+                reqs = _online_schedule(Request, prompts)
+            res[name] = eng.serve(reqs, greedy=False, temperature=0.8)
+        check(_online_same(res["cuda"], res["cpu"]),
+              f"reduced {arch} online: card != CPU (tokens, times or "
+              f"occupancy): " + str([(r.id, r.tokens.tolist()) for r in
+                                     res["cuda"].completed]))
+        out[arch] = {"completed": res["cuda"].n_completed,
+                     "steps": res["cuda"].total_steps}
+    return out
+
+
+def replay_card_vs_cpu(fleet, util) -> dict:
+    """The measured ``(E, 4)`` duty replayed into ``apply_load`` (1 year)
+    of the fleet that served it, on the card, and of the same fleet
+    (``FLEET_AGES``) on the CPU: supplies equal, shifts within
+    ``SHIFT_RTOL``."""
+    import numpy as np
+    runs = {}
+    for f in (fleet, _aged_fleet("cpu")):
+        t0 = time.perf_counter()
+        cos = f.apply_load(util_trace=util, horizon_s=YEAR_S)
+        runs["cuda" if f is fleet else "cpu"] = (
+            cos, time.perf_counter() - t0)
+    (g, g_s), (c, c_s) = runs["cuda"], runs["cpu"]
+    check(np.array_equal(g.V, c.V) and np.allclose(
+        g.dvp.astype(np.float64), c.dvp, rtol=SHIFT_RTOL, atol=1e-6),
+        f"online replay: card vs CPU supplies or shifts differ (max "
+        f"|dV| {float(np.max(np.abs(g.V - c.V)))})")
+    check(np.allclose(np.asarray(g.util), util, atol=1e-6),
+          "online replay: the co-sim's util is not the measured duty")
+    wear = g.device_wear()[-1]
+    return {"card_s": g_s, "cpu_s": c_s, "epochs": g.n_epochs,
+            "fleet_max_dvp_mv": float(wear.max()),
+            "spread_mv": float(wear.max() - wear.min()),
+            "exact": bool(np.array_equal(g.dvp, c.dvp))}
+
+
+def online_gemm_rows(dev) -> list:
+    """The GEMM shapes the online slots add at llama3_8b's widths (decode M
+    = 8, refill M = 8 x 16 = 128; the fleet's 4 lanes of 4 and of 4 x 16 =
+    64 rows), each held against its plain version bit for bit and timed
+    beside its bound and ``torch._int_mm``: kernel_bench's rows, read from
+    the record [13] wrote (measured here when [14] runs alone)."""
+    import torch
+    from repro_torch.benchmarks import kernel_bench as kb
+    shapes = {("fused_aged_matmul", M, K, N)
+              for M in (ONLINE_SLOTS, ONLINE_SLOTS * ONLINE_PROMPT)
+              for _, _, K, N in kb.GEMM_SHAPES[:4]}
+    shapes |= {("fused_aged_matmul_lanes", 4 * Ml, K, N)
+               for Ml in (ONLINE_FLEET_SLOTS,
+                          ONLINE_FLEET_SLOTS * ONLINE_PROMPT)
+               for _, _, K, N in kb.GEMM_SHAPES[:4]}
+    record = ENTRY_DIR / "bench" / "kernels.json"
+    if record.exists():
+        rows = [r for r in json.loads(record.read_text())["rows"]["rows"]
+                if (r["kernel"], r.get("M"), r.get("K"), r.get("N"))
+                in shapes and r.get("model") == "llama3_8b"]
+        check(len(rows) == len(shapes),
+              f"kernel_bench record holds {len(rows)} of the {len(shapes)} "
+              f"online GEMM shapes")
+    else:
+        clock = kb.sm_clock_hz(dev)
+        gen = torch.Generator(device=dev).manual_seed(14)
+        rows = []
+        for model, op, K, N in kb.GEMM_SHAPES[:4]:
+            for M in (ONLINE_SLOTS, ONLINE_SLOTS * ONLINE_PROMPT):
+                rows.append(kb._gemm_row(model, op, M, K, N, dev, gen,
+                                         clock))
+            for Ml in (ONLINE_FLEET_SLOTS,
+                       ONLINE_FLEET_SLOTS * ONLINE_PROMPT):
+                rows.append(kb._lane_gemm_row(Ml, model, op, K, N, dev, gen,
+                                              clock))
+    bad = [(r["kernel"], r["M"], r["K"], r["N"]) for r in rows
+           if not r["exact"] or r.get("fast_path") is False]
+    check(not bad, f"online GEMM shapes off their plain version or the fast "
+                   f"path: {bad}")
+    return rows
+
+
+def _online_engine_run(eng, reqs, L: int, lanes: bool) -> dict:
+    """Serve ``reqs`` with the launch counts set to 0 just before and read
+    just after; fails unless every forward (a refill or a decode step)
+    made 7 fused-GEMM and 2 draw launches a layer on the fast path (lane
+    modes for a fleet)."""
+    import torch
+    from repro_torch import kernels
+    dev = eng.device
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launch_counts()
+    res = eng.serve(reqs, greedy=False, temperature=ONLINE_TEMPERATURE,
+                    max_steps=4 * ONLINE_EPOCHS * ONLINE_STEPS_PER_EPOCH)
+    counts = kernels.launch_counts()
+    by_path = kernels.launch_counts_by_path()
+    peak = torch.cuda.max_memory_allocated(dev)
+    t = res.timings
+    forwards = t["n_refills"] + t["n_chunks"] * eng.chunk_steps
+    gemm, draw = (("fused_aged_matmul_lanes", "bitflip_draw_lanes") if lanes
+                  else ("fused_aged_matmul", "bitflip_draw"))
+    want = {gemm: 7 * L * forwards, draw: 2 * L * forwards}
+    others = {k: v for k, v in counts.items() if k not in want and v}
+    check(all(counts[k] == v for k, v in want.items()) and not others
+          and by_path[gemm] == {"fast": want[gemm], "generic": 0},
+          f"online launches {counts} (by path {by_path[gemm]}) != {want} "
+          f"over {forwards} forwards")
+    s = res.summary()
+    check(res.n_completed + res.n_dropped == res.n_arrived and all(
+        r.tokens is not None and r.n_generated == min(r.max_new,
+                                                      ONLINE_MAX_NEW)
+        for r in res.completed), "online run: requests lost or cut short")
+    steps = t["n_chunks"] * eng.chunk_steps
+    return {"summary": s, "launches": counts, "forwards": forwards,
+            "launches_per_chunk": 9 * L * eng.chunk_steps,
+            "ms_per_decode_step": t["chunk_s"] / max(steps, 1) * 1e3,
+            "ms_per_refill": t["refill_s"] / max(t["n_refills"], 1) * 1e3,
+            "harvest_ms_per_chunk": t["harvest_s"] / max(t["n_chunks"], 1)
+            * 1e3, "timings": t, "peak_gb": peak / 1e9,
+            "n_requests": len(reqs), "result": res}
+
+
+def _fresh_slots(eng, prompts, fi):
+    """All slots refilled with ``prompts`` at step 0 (a chunk's input)."""
+    import torch
+    from repro_torch import random as prandom
+    from repro_torch.serve import slots as slots_mod
+    dev = eng.device
+    K = prompts.shape[0]
+    state = slots_mod.init_slots(eng.cfg, K, eng.max_len, eng.max_new_cap,
+                                 prandom.PRNGKey(1),
+                                 dtype=eng.params["embed"].dtype, device=dev)
+    return slots_mod.refill(
+        eng.params, eng.cfg, state,
+        torch.as_tensor(prompts, dtype=torch.int64, device=dev),
+        torch.ones(K, dtype=torch.bool, device=dev),
+        torch.arange(K, dtype=torch.int32, device=dev),
+        torch.full((K,), ONLINE_MAX_NEW, dtype=torch.int32, device=dev), fi,
+        temperature=ONLINE_TEMPERATURE, eos=-1, max_len=eng.max_len)
+
+
+PROFILE_STEPS = 2                # steps of the profiled chunk (~10 k
+#                                  kernels a step: the profiler digests
+#                                  a 2-step chunk in a few seconds)
+
+
+def online_chunk_profile(eng, prompts, L: int) -> dict:
+    """Decode chunks of the cell-13 engine on fresh slots: host syncs at 2
+    and 8 steps (sync debug mode; must be equal), and a chunk of
+    ``PROFILE_STEPS`` steps timed on the host clock and profiled (its
+    device busy share)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serve import slots as slots_mod
+    fi = eng._fault_config()
+    chunk = lambda st, n: slots_mod.decode_chunk(
+        eng.params, eng.cfg, st, fi, chunk_steps=n,
+        temperature=ONLINE_TEMPERATURE, eos=-1)
+    syncs = {}
+    for n in (2, ONLINE_CHUNK):
+        st = _fresh_slots(eng, prompts, fi)
+        syncs[n] = host_syncs(lambda: chunk(st, n))
+    check(syncs[2] == syncs[ONLINE_CHUNK],
+          f"online decode chunk syncs at 2 / {ONLINE_CHUNK} steps: "
+          f"{syncs[2]} / {syncs[ONLINE_CHUNK]} (a decode step synchronises)")
+    st = _fresh_slots(eng, prompts, fi)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    chunk(st, PROFILE_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    st = _fresh_slots(eng, prompts, fi)
+    torch.cuda.synchronize()
+    # device activity only: host events would multiply the trace
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        chunk(st, PROFILE_STEPS)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if getattr(e, "device_type", None) == DeviceType.CUDA]
+    gemm = [e for e in kernels if "int8_gemm" in e.key]
+    busy = sum(_dev_us(e) for e in kernels) / 1e3
+    top = sorted(kernels, key=_dev_us, reverse=True)[:8]
+    return {"syncs": syncs, "chunk_wall_ms": wall * 1e3,
+            "device_busy_ms": busy, "device_busy_share": busy / (wall * 1e3),
+            "n_kernel_launches": sum(e.count for e in kernels),
+            "gemm_launches": sum(e.count for e in gemm),
+            "gemm_device_ms": sum(_dev_us(e) for e in gemm) / 1e3,
+            "steps": PROFILE_STEPS,
+            "complete": sum(e.count for e in gemm) == 7 * L * PROFILE_STEPS,
+            "top": [{"name": e.key[:100], "device_ms": _dev_us(e) / 1e3,
+                     "calls": e.count} for e in top]}
+
+
+def online_phase(dev, layers: int) -> dict:
+    """[14] cells 13 and 14: ``OnlineServeEngine`` and ``OnlineFleetEngine``
+    at llama3_8b's full width on the fused-GEMM and draw-bitflip kernels."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.core.fleet import FleetRuntime
+    from repro_torch.models.transformer import init_params
+    from repro_torch.sched.workload import get_workload
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.online import (OnlineFleetEngine,
+                                          OnlineServeEngine, Request,
+                                          requests_from_workload)
+    t_phase = time.perf_counter()
+    parts = {}
+
+    def lap(name):
+        parts[name] = time.perf_counter() - t_phase - sum(parts.values())
+    cfg = dataclasses.replace(get_config("llama3_8b"), n_layers=layers)
+    L = cfg.n_layers
+    params = init_params(cfg, seed=0, dtype=torch.bfloat16, device=dev)
+    runtime = FleetRuntime(n_devices=1, device=dev)
+    runtime.set_age(years=9.0)
+    max_len = ONLINE_PROMPT + ONLINE_MAX_NEW + 1
+    kw = dict(max_len=max_len, max_new_cap=ONLINE_MAX_NEW,
+              chunk_steps=ONLINE_CHUNK, use_systolic_kernel=True,
+              use_fused_kernel=True, seed=0, device=dev)
+    res = {"layers": L, "parts_s": parts}
+    lap("init")
+    rng = np.random.default_rng(14)
+    prompts = rng.integers(0, cfg.vocab, (ONLINE_SLOTS, ONLINE_PROMPT)
+                           ).astype(np.int32)
+
+    # the no-arrival contract: every slot filled at step 0, no EOS
+    n_tok = 9
+    ref = ServeEngine(cfg, params, runtime=runtime, max_len=max_len, seed=3,
+                      use_systolic_kernel=True, device=dev).generate(
+        prompts, n_tok, temperature=ONLINE_TEMPERATURE).tokens
+    eng = OnlineServeEngine(cfg, params, runtime=runtime,
+                            n_slots=ONLINE_SLOTS, **dict(kw, chunk_steps=4,
+                                                         seed=3))
+    got = eng.serve([Request(id=i, prompt=prompts[i], max_new=n_tok)
+                     for i in range(ONLINE_SLOTS)], greedy=False,
+                    temperature=ONLINE_TEMPERATURE)
+    got = np.stack([r.tokens for r in sorted(got.completed,
+                                             key=lambda r: r.id)])
+    check(np.array_equal(got, ref), f"online no-arrival tokens "
+          f"{got.tolist()} != generate's {ref.tolist()}")
+    res["no_arrival_tokens"] = ref.tolist()
+    lap("no_arrival")
+
+    # cell 13: one device
+    wl = get_workload("diurnal", n_devices=1, utilization=ONLINE_UTIL,
+                      n_epochs=ONLINE_EPOCHS)
+    reqs = requests_from_workload(
+        wl, n_slots=ONLINE_SLOTS, steps_per_epoch=ONLINE_STEPS_PER_EPOCH,
+        max_new=ONLINE_MAX_NEW, prompt_len=ONLINE_PROMPT, vocab=cfg.vocab,
+        seed=0)
+    eng = OnlineServeEngine(cfg, params, runtime=runtime,
+                            n_slots=ONLINE_SLOTS, max_queue=ONLINE_QUEUE,
+                            **kw)
+    cell13 = _online_engine_run(eng, reqs, L, lanes=False)
+    res["cell13"] = {k: v for k, v in cell13.items() if k != "result"}
+    lap("cell13")
+    res["cell13"]["profile"] = online_chunk_profile(eng, prompts, L)
+    lap("profile")
+
+    # cell 14: the [6] fleet, 4 slots a lane, wear_level routing
+    fleet = _aged_fleet(dev)
+    wl = get_workload("diurnal", n_devices=fleet.n_devices,
+                      utilization=ONLINE_UTIL, n_epochs=ONLINE_FLEET_EPOCHS)
+    reqs = requests_from_workload(
+        wl, n_slots=ONLINE_FLEET_SLOTS,
+        steps_per_epoch=ONLINE_STEPS_PER_EPOCH, max_new=ONLINE_MAX_NEW,
+        prompt_len=ONLINE_PROMPT, vocab=cfg.vocab,
+        n_devices=fleet.n_devices, seed=0)
+    feng = OnlineFleetEngine(cfg, params, fleet,
+                             n_slots=ONLINE_FLEET_SLOTS,
+                             max_queue=4 * ONLINE_QUEUE, router="wear_level",
+                             **kw)
+    cell14 = _online_engine_run(feng, reqs, L, lanes=True)
+    lap("cell14")
+    util = cell14["result"].lane_utilization(max(ONLINE_FLEET_EPOCHS, 2))
+    res["cell14"] = {k: v for k, v in cell14.items() if k != "result"}
+    res["cell14"]["lane_utilization"] = util.tolist()
+    res["cell14"]["lanes_served"] = sorted(
+        {r.lane for r in cell14["result"].completed})
+    res["cell14"]["replay"] = replay_card_vs_cpu(fleet, util)
+    lap("replay")
+    res["launches"] = {k: cell13["launches"][k] + cell14["launches"][k]
+                       for k in kernels.KERNEL_NAMES}
+    del eng, feng, params
+    torch.cuda.empty_cache()
+
+    res["gemm_rows"] = online_gemm_rows(dev)
+    lap("gemm_rows")
+    res["reduced_vs_cpu"] = online_reduced_vs_cpu(dev)
+    lap("reduced_vs_cpu")
+    res["seconds"] = time.perf_counter() - t_phase
+    torch.cuda.empty_cache()
+    return res
+
+
+def print_online(res: dict, smi_line: str) -> None:
+    for cell, name in (("cell13", "one device, 8 slots"),
+                       ("cell14", "4-lane fleet, 4 slots a lane")):
+        r = res[cell]
+        s = r["summary"]
+        print(f"[14] llama3_8b full width ({res['layers']} layers) online, "
+              f"{name} ({smi_line}): {s['n_arrived']} arrived, "
+              f"{s['n_completed']} done, drop rate {s['drop_rate']:.3f}; "
+              f"{s['tok_per_s']:.2f} tok/s, latency p50 {s['p50']:.0f} / "
+              f"p99 {s['p99']:.0f} steps, occupancy "
+              f"{s['mean_occupancy']:.2f}; {r['ms_per_decode_step']:.1f} ms "
+              f"a decode step, {r['ms_per_refill']:.1f} ms a refill, "
+              f"{r['launches_per_chunk']} launches a chunk, peak "
+              f"{r['peak_gb']:.2f} GB", flush=True)
+    p = res["cell13"]["profile"]
+    rp = res["cell14"]["replay"]
+    print(f"    one profiled chunk ({p['steps']} steps): "
+          f"{p['chunk_wall_ms']:.1f} ms, device busy {p['device_busy_ms']:.1f}"
+          f" ms ({100 * p['device_busy_share']:.1f}%) over "
+          f"{p['n_kernel_launches']} kernels; host syncs of a chunk at 2 / "
+          f"{ONLINE_CHUNK} steps {p['syncs'][2]} / {p['syncs'][ONLINE_CHUNK]};"
+          f" no-arrival tokens == generate's; fleet duty replayed 1 y card "
+          f"== CPU (max dVth {rp['fleet_max_dvp_mv']:.2f} mV, spread "
+          f"{rp['spread_mv']:.2f}); reduced llama / qwen3_moe / 3-lane fleet "
+          f"card == CPU; launches {res['launches']}", flush=True)
+    for r in res["gemm_rows"]:
+        lib = "-" if r["library_ms"] is None else f"{r['library_ms'] * 1e3:.1f}"
+        dv = "-" if r["dev_ms"] is None else f"{r['dev_ms'] * 1e3:.1f}"
+        print(f"    {r['kernel']:24s} M={r['M']:<4d} K={r['K']:<5d} "
+              f"N={r['N']:<5d} {r['op']:8s} exact; device {dv} us, wrapper "
+              f"{r['ms'] * 1e3:.1f} us, bound {r['bound_ms'] * 1e3:.1f} us "
+              f"({r['bound_by']}), _int_mm {lib} us, plain "
+              f"{r['plain_ms']:.3f} ms", flush=True)
+    print(f"    [14] done in {res['seconds']:.1f} s ("
+          + ", ".join(f"{k} {v:.1f}" for k, v in res["parts_s"].items())
+          + ")", flush=True)
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--layers", type=int, default=32,
@@ -3926,8 +4363,13 @@ def main(argv=None) -> int:
     report["entry"] = entry_phase(dev)
     entry_counts = report["entry"]["launches"]
 
+    # 14. continuous-batching online serving (cells 13 and 14) ------------
+    report["online"] = online_phase(dev, args.layers)
+    print_online(report["online"], smi_line)
+    online_counts = report["online"]["launches"]
+
     # 11. summary ---------------------------------------------------------
-    # launches summed over the nine paths' runs, each counted from 0; the
+    # launches summed over the ten paths' runs, each counted from 0; the
     # explicit-randoms bitflip_words is on no path any more: it stays the
     # Pallas kernel's counterpart signature for signature, held against
     # its plain version in [3], with 0 launches on the paths
@@ -3935,7 +4377,8 @@ def main(argv=None) -> int:
                 + load_counts[name] + moe_counts[name]
                 + moe_fleet_counts[name] + train_counts[name]
                 + resilience_counts[name] + family_counts[name]
-                + entry_counts[name] for name in kernels.KERNEL_NAMES}
+                + entry_counts[name] + online_counts[name]
+                for name in kernels.KERNEL_NAMES}
     # the representative shape of each kernel: the decode weight matmul
     # that dominates the fused route (gate/up, M = 2; 4 x 2 in lane mode),
     # the prefill gate/up GEMM (M = 32, where torch._int_mm computes the

@@ -22,8 +22,10 @@ For each shape of a fixed list, one row:
 The list: the fused GEMM (mode 2: upsets + dequant) at every weight
 matmul shape of llama3_8b, qwen3_moe_235b (head_dim 128) and the hybrid,
 SSM, VLM and enc-dec models (recurrentgemma_2b, rwkv6_3b, paligemma_3b,
-whisper_large_v3) at M = 2, 32, 544 and 3,000 rows; its lane mode at 4
-lanes of 2 and of 32 rows on llama3_8b's shapes; the draw-mode bitflip
+whisper_large_v3) at M = 2, 8, 32, 128, 544 and 3,000 rows (8 and 128:
+the online slots' decode and refill, 8 slots of 16-token prompts); its
+lane mode at 4 lanes of 2, 4, 32 and 64 rows on llama3_8b's shapes (4 and
+64: the online fleet's, 4 slots a lane); the draw-mode bitflip
 at the qkt/sv word counts of those paths (and its lane mode at 4 and 32
 lanes); and, at one shape, the fused kernel against the three-pass route
 it replaces (``systolic_matmul``, then ``bitflip_draw``, then dequant),
@@ -87,8 +89,8 @@ GEMM_SHAPES = (
     ("whisper_large_v3", "up", 1280, 5120),
     ("whisper_large_v3", "down", 5120, 1280),
 )
-GEMM_MS = (2, 32, 544, 3000)
-LANE_MS = (2, 32)              # rows a lane; 4 lanes (the fleets')
+GEMM_MS = (2, 8, 32, 128, 544, 3000)
+LANE_MS = (2, 4, 32, 64)       # rows a lane; 4 lanes (the fleets')
 # (what, words) of the draw: qkt/sv words of a prefill or decode
 DRAW_SIZES = (
     ("llama3_8b qkt decode (2, 8, 4, 1, 64)", 4096),

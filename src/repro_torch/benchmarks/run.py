@@ -11,8 +11,8 @@ and ``summary.json`` there merges every record in the directory;
 ``--summary`` only merges.  Nothing is written anywhere else (the
 reference's ``BENCH_*.json`` at the repository root are its own).
 Sections that are not ported raise ``NotImplementedError`` when asked
-for by ``--only``: ``online`` and ``obs`` (ROADMAP A.7), ``mesh`` (A.8),
-``roofline`` (A.10).  Exits 1 when a section fails or a check FAILs.
+for by ``--only``: ``mesh`` (ROADMAP A.8) and ``roofline`` (A.10).
+Exits 1 when a section fails or a check FAILs.
 """
 from __future__ import annotations
 
@@ -31,8 +31,9 @@ SECTIONS = {
                                                     False),
     "kernels": ("kernel_bench", True), "serve": ("serve_bench", True),
     "resilience": ("resilience_bench", True), "fig1b": ("fig1b_ber", False),
+    "online": ("online_bench", True), "obs": ("obs_bench", True),
 }
-UNPORTED = {"online": "A.7", "obs": "A.7", "mesh": "A.8", "roofline": "A.10"}
+UNPORTED = {"mesh": "A.8", "roofline": "A.10"}
 OUT_DIR = Path(__file__).resolve().parents[3] / "build" / "bench_torch"
 
 

@@ -18,10 +18,12 @@ The flags are the reference's, letter for letter, so ``--device`` is the
 fleet lane; the torch device is ``--torch-device`` (default ``cuda``,
 which raises where no card is present).  The port has one per-token loop,
 so ``--eager`` changes nothing on one device (and is refused for a fleet,
-as in the reference).  Not ported: ``--mesh`` / ``--tp`` / ``--fused``
-(mesh serving, ROADMAP A.8), ``--online`` (continuous batching, A.7) and
-``--stats`` (the reference's compiled-function caches; the port compiles
-nothing); each raises ``NotImplementedError``.
+as in the reference).  ``--online`` hands the other arguments to
+:mod:`repro_torch.launch.online` (continuous batching), ``--torch-device``
+as its ``--device``.  Not ported: ``--mesh`` / ``--tp`` / ``--fused``
+(mesh serving, ROADMAP A.8) and ``--stats`` (the reference's
+compiled-function caches; the port compiles nothing); each raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -77,9 +79,25 @@ def make_policy(name, arch: str):
 def main(argv=None):
     argv_list = list(sys.argv[1:] if argv is None else argv)
     if "--online" in argv_list:
-        raise NotImplementedError(
-            "--online (continuous batching) is not ported: ROADMAP A.7")
+        # continuous-batching mode: delegate to the online launcher (live
+        # request queue, slot refills, occupancy-driven aging), whose
+        # torch device flag is --device
+        from . import online
+        argv_list.remove("--online")
+        if any(a == "--device" or a.startswith("--device=")
+               for a in argv_list):
+            raise SystemExit("serve --online: --device is a fleet lane, "
+                             "which the online launcher does not take; "
+                             "pass --torch-device for the torch device")
+        return online.main([
+            "--device" + a[len("--torch-device"):]
+            if a.startswith("--torch-device") else a for a in argv_list])
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--online", action="store_true",
+                    help="serve a live request queue with continuous "
+                         "batching instead of a static prompt batch (the "
+                         "other arguments go to repro_torch.launch.online,"
+                         " --torch-device as its --device)")
     ap.add_argument("--arch", default="deepseek_7b")
     ap.add_argument("--age-years", type=float, default=5.0)
     ap.add_argument("--n-devices", type=int, default=1,

@@ -149,13 +149,17 @@ def attention(q, k, v, *, causal: bool = True,
                           prefix_len=prefix_len, fi=fi, salt=salt)
 
 
-def decode_attention(q1, k_cache, v_cache, cache_len: int, *,
+def decode_attention(q1, k_cache, v_cache, cache_len, *,
                      fi: Optional[FaultConfig] = None, salt=0):
-    """Single-token decode vs a (B, S_max, KV, hd) ring-buffer cache with
-    every row at depth ``cache_len``: token ``t`` sits in slot
-    ``t % S_max``, so once ``cache_len >= S_max`` every slot is valid (a
-    windowed cache holds exactly the window; attention does not depend on
-    the slots' order, and RoPE was applied before caching)."""
+    """Single-token decode vs a (B, S_max, KV, hd) ring-buffer cache:
+    token ``t`` sits in slot ``t % S_max``, so once ``cache_len >= S_max``
+    every slot is valid (a windowed cache holds exactly the window;
+    attention does not depend on the slots' order, and RoPE was applied
+    before caching).
+
+    ``cache_len`` is an int (every row at one depth) or a ``(B,)`` tensor
+    of per-row depths (the online slots, each at its own ragged depth); an
+    all-equal tensor masks exactly as the int does."""
     B, _, H, hd = q1.shape
     S = k_cache.shape[1]
     KV = k_cache.shape[2]
@@ -163,7 +167,12 @@ def decode_attention(q1, k_cache, v_cache, cache_len: int, *,
     qg = (q1 * (hd ** -0.5)).reshape(B, 1, KV, G, hd).permute(0, 2, 3, 1, 4)
     kt = k_cache.permute(0, 2, 3, 1)                   # B KV hd S
     s = op_batched_matmul(qg, kt[:, :, None], "qkt", fi, salt)  # B KV G 1 S
-    valid = torch.arange(S, device=q1.device) < min(cache_len, S)
+    pos = torch.arange(S, device=q1.device)
+    if isinstance(cache_len, torch.Tensor):            # per-row depths
+        valid = (pos[None, :] < torch.clamp(cache_len, max=S)[:, None]
+                 )[:, None, None, None, :]
+    else:
+        valid = pos < min(cache_len, S)
     s = torch.where(valid, s, NEG_INF)
     p = torch.softmax(s.to(torch.float32), dim=-1).to(q1.dtype)
     vt = v_cache.permute(0, 2, 1, 3)                   # B KV S hd

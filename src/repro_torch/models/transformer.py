@@ -124,11 +124,14 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.bfloat16,
 
 # --------------------------------------------------------------------------- #
 def _attn_block(x, bp, cfg: ModelConfig, *, positions, prefix_len: int = 0,
-                cache=None, cache_len: Optional[int] = None, fi=None, salt=0,
+                cache=None, cache_len=None, fi=None, salt=0,
                 with_aux: bool = False):
-    """Self-attention + FFN block.  With ``cache`` and one token: decode.
-    Returns ``(x, new_cache, aux)``; ``aux`` is the MoE load-balance loss
-    when ``with_aux`` is set and the FFN is MoE, else ``None``."""
+    """Self-attention + FFN block.  With ``cache`` and one token: decode,
+    at one depth (``cache_len`` an int) or at each row's own (a ``(B,)``
+    tensor: row ``b`` ring-writes its slot ``(cache_len[b] - 1) %
+    kv_len``).  Returns ``(x, new_cache, aux)``; ``aux`` is the MoE
+    load-balance loss when ``with_aux`` is set and the FFN is MoE, else
+    ``None``."""
     h = norm(x, bp["norm1"], cfg.norm)
     ap = bp["attn"]
     q = op_einsum("bsd,dhk->bshk", h, ap["wq"], "q", fi, salt)
@@ -145,8 +148,13 @@ def _attn_block(x, bp, cfg: ModelConfig, *, positions, prefix_len: int = 0,
         # decode: ring-write token cache_len - 1 at its slot, attend
         kv_len = cache["k"].shape[1]
         idx = (cache_len - 1) % kv_len
-        cache["k"][:, idx] = k[:, 0]
-        cache["v"][:, idx] = v[:, 0]
+        if isinstance(cache_len, torch.Tensor):
+            rows = torch.arange(k.shape[0], device=k.device)
+            cache["k"][rows, idx] = k[:, 0]
+            cache["v"][rows, idx] = v[:, 0]
+        else:
+            cache["k"][:, idx] = k[:, 0]
+            cache["v"][:, idx] = v[:, 0]
         out = attn_lib.decode_attention(q, cache["k"], cache["v"],
                                         cache_len, fi=fi, salt=salt)
         new_cache = cache
@@ -304,14 +312,19 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     return [one(kind) for kind in layer_kinds(cfg)]
 
 
-def decode_step(params, cfg: ModelConfig, token, cache, cache_len: int, *,
+def decode_step(params, cfg: ModelConfig, token, cache, cache_len, *,
                 fi: Optional[FaultConfig] = None):
     """One decode step.  token: (B, 1); ``cache_len`` includes this token
-    (and a VLM's prefix).  The MoE load-balance loss is not computed:
-    decode has no use for it."""
+    (and a VLM's prefix): an int, or a ``(B,)`` tensor of per-row depths
+    on the tokens' device (the online slots; an all-equal tensor gives the
+    int's result bit for bit).  The MoE load-balance loss is not
+    computed: decode has no use for it."""
     x = embed_tokens(params, cfg, token, with_prefix=False)
-    positions = torch.full((1, 1), cache_len - 1, dtype=torch.int64,
-                           device=x.device)
+    if isinstance(cache_len, torch.Tensor):
+        positions = (cache_len - 1).to(torch.int64)[:, None]      # (B, 1)
+    else:
+        positions = torch.full((1, 1), cache_len - 1, dtype=torch.int64,
+                               device=x.device)
     x, new_cache, _ = _run_blocks(x, params, cfg, positions=positions,
                                   states=cache, cache_len=cache_len, fi=fi)
     x = norm(x, params["final_norm"], cfg.norm)

@@ -18,9 +18,8 @@ renderable snapshot per aging unit —
 
 Everything here is host-side numpy over arrays the fleet has already
 computed (trajectories are cached; the snapshot is cached between age
-changes), so a reading perturbs nothing.  Folding an online-serving run
-into the reading (``online_result=``) waits for the port of online
-serving.
+changes), so a reading perturbs nothing.  An online-serving run folds
+its queue metrics into the reading (``online_result=``).
 """
 from __future__ import annotations
 
@@ -167,21 +166,25 @@ def fleet_health(fleet, *, online_result=None,
                  registry=None) -> FleetHealth:
     """Take one health reading of ``fleet``.
 
-    ``registry`` defaults to the process-global
+    ``online_result`` (an :class:`repro_torch.serve.online.
+    OnlineServeResult`) folds a serve run's queue metrics — p50/p99
+    latency, drop rate, tok/s, completions — into the snapshot's ``extra``
+    block.  ``registry`` defaults to the process-global
     :data:`repro_torch.obs.metrics.REGISTRY` (cache stats and span timings
-    are read from it, never mutated).  ``online_result`` (the reference's
-    online-serving queue metrics) is refused until online serving is
-    ported.
+    are read from it, never mutated).
     """
-    if online_result is not None:
-        raise NotImplementedError("online_result= needs online serving "
-                                  "(repro.serve.online), which is not "
-                                  "ported yet")
     registry = registry or obs_metrics.REGISTRY
     snap = fleet.snapshot()
     t_clk = np.broadcast_to(
         np.asarray(fleet.unit_scenario.t_clk, np.float64).reshape(-1, 1),
         snap.delay.shape)
+    extra: Dict[str, float] = {}
+    if online_result is not None:
+        extra.update({"p50_latency_steps": online_result.p50,
+                      "p99_latency_steps": online_result.p99,
+                      "drop_rate": online_result.drop_rate,
+                      "tok_per_s": online_result.tok_per_s,
+                      "n_completed": float(online_result.n_completed)})
     return FleetHealth(
         operators=fleet.operators,
         n_shards=fleet.n_shards,
@@ -193,5 +196,5 @@ def fleet_health(fleet, *, online_result=None,
         eta_s=eta_to_threshold_s(fleet),
         cache_stats=obs_metrics.cache_stats(),
         spans=_span_summaries(registry),
-        extra={},
+        extra=extra,
     )

@@ -62,18 +62,27 @@ def enable_taps(on: bool = True):
         _ENABLED[0] = prev
 
 
-def logit_taps(logits: torch.Tensor,
-               lanes: Optional[int] = None) -> Dict[str, torch.Tensor]:
+def logit_taps(logits: torch.Tensor, lanes: Optional[int] = None,
+               active: Optional[torch.Tensor] = None
+               ) -> Dict[str, torch.Tensor]:
     """Batch-mean max logit and top1-top2 margin of a ``(batch, vocab)``
     slab — both fall as admitted BER corrupts the forward pass.  With
     ``lanes=N`` the batch folds N lanes lane-major and each tap is ``(N,)``,
     every lane's mean over its own rows (the reference's taps under
-    ``jax.vmap``)."""
+    ``jax.vmap``).  ``active`` (``(batch,)`` bool, online serving) weighs
+    out the idle slots, whose logits are garbage: the means are over the
+    live rows, and 0 where no row is live."""
     top2 = torch.topk(logits, 2, dim=-1).values
+    peak, margin = top2[..., 0], top2[..., 0] - top2[..., 1]
     if lanes is not None:
-        top2 = top2.reshape(lanes, -1, 2)
-    return {"logit_max": top2[..., 0].mean(dim=-1),
-            "logit_margin": (top2[..., 0] - top2[..., 1]).mean(dim=-1)}
+        peak, margin = peak.reshape(lanes, -1), margin.reshape(lanes, -1)
+    if active is None:
+        return {"logit_max": peak.mean(dim=-1),
+                "logit_margin": margin.mean(dim=-1)}
+    w = active.to(logits.dtype).reshape(peak.shape)
+    denom = torch.clamp(w.sum(dim=-1), min=1.0)
+    return {"logit_max": (peak * w).sum(dim=-1) / denom,
+            "logit_margin": (margin * w).sum(dim=-1) / denom}
 
 
 def cosim_taps(cos, scenario) -> Telemetry:

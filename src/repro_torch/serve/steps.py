@@ -58,9 +58,11 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor,
 
 
 def decode(params, cfg: ModelConfig, token: torch.Tensor, cache,
-           cache_len: int, fi: Optional[FaultConfig], kv=None):
-    """token (B, 1) -> (logits (B, vocab), cache); ``kv`` is an enc-dec
-    model's cross-attention K/V from :func:`prefill`."""
+           cache_len, fi: Optional[FaultConfig], kv=None):
+    """token (B, 1) -> (logits (B, vocab), cache); ``cache_len`` an int or,
+    for a decoder-only model, a ``(B,)`` tensor of per-row depths (see
+    :func:`repro_torch.models.transformer.decode_step`); ``kv`` is an
+    enc-dec model's cross-attention K/V from :func:`prefill`."""
     if cfg.n_encoder_layers:
         logits, cache = encdec.decode(params, cfg, token, kv=kv, fi=fi,
                                       cache=cache, cache_len=cache_len,

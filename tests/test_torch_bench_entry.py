@@ -69,8 +69,7 @@ def test_kernel_bench_cpu_plans_bounds_parity():
 
 
 def test_run_refuses_unported_sections():
-    for section, item in (("mesh", "A.8"), ("online", "A.7"),
-                          ("obs", "A.7"), ("roofline", "A.10")):
+    for section, item in (("mesh", "A.8"), ("roofline", "A.10")):
         with pytest.raises(NotImplementedError, match=re.escape(item)):
             run.main(["--only", section, "--device", "cpu"])
 

@@ -677,3 +677,89 @@ def test_cuda_kernel_bench_quick_rows_are_exact(cuda_device):
     assert all(r["exact"] and r["ms"] > 0 for r in rows)
     assert rows[0]["fast_path"] and rows[0]["library_ms"] > 0
     assert all(c["ok"] for c in res["checks"])
+
+
+# the online slots' GEMMs at llama3_8b's widths: decode M = 8 (8 slots),
+# refill M = 128 (8 x 16-token prompts); the fleet's 4 lanes of 4 and of 64
+ONLINE_KN = [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,N", ONLINE_KN)
+@pytest.mark.parametrize("M", [8, 128])
+def test_cuda_online_gemm_shapes_match_plain(cuda_device, M, K, N):
+    a, b, xs, ws = _operands(cuda_device, M, K, N, M + N)
+    bm, bn, _ = ops._resolve_blocks(M, N, K, 256, 256, 256)
+    kernels.reset_launch_counts()
+    got = pfam.fused_aged_matmul(a, b, xs, ws, 1e-3, 77, bm=bm, bn=bn)
+    assert kernels.launch_counts_by_path()["fused_aged_matmul"] == {
+        "fast": 1, "generic": 0}
+    assert torch.equal(got, ref.fused_aged_matmul_ref(a, b, xs, ws, 1e-3,
+                                                      77, bm=bm, bn=bn))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,N", ONLINE_KN)
+@pytest.mark.parametrize("Ml", [4, 64])
+def test_cuda_online_fleet_gemm_shapes_match_plain(cuda_device, Ml, K, N):
+    L = 4
+    a, b, xs, ws = _operands(cuda_device, L * Ml, K, N, Ml + N)
+    bers, seeds = [1e-3, 0.0, 3e-3, 1e-2], [11, 12, 13, 14]
+    bm, bn, _ = ops._resolve_blocks(Ml, N, K, 256, 256, 256)
+    kw = dict(lanes=L, bm=bm, bn=bn)
+    got = pfam.fused_aged_matmul_lanes(a, b, xs, ws, bers, seeds, **kw)
+    assert torch.equal(got, ref.fused_aged_matmul_lanes_ref(
+        a, b, xs, ws, bers, seeds, **kw))
+
+
+@pytest.mark.cuda
+def test_cuda_online_full_width_short_run(cuda_device):
+    """llama3_8b's widths on 2 layers, a 9-year device on the kernel
+    route: the no-arrival online run gives ``generate``'s tokens, and a
+    schedule with mid-decode arrivals makes 7 fused-GEMM and 2 draw
+    launches a layer and forward, on the fast path."""
+    import dataclasses
+
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.online import OnlineServeEngine, Request
+
+    class Forced:
+        age_years = 9.0
+
+        def total_power(self):
+            return 0.0
+
+        def op_bers(self):
+            return {op: 1e-3 for op in ("q", "k", "v", "qkt", "sv", "o",
+                                        "gate", "up", "down")}
+
+    cfg = dataclasses.replace(get_config("llama3_8b"), n_layers=2)
+    params = init_params(cfg, seed=0, device=cuda_device)
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab, (4, 16)).astype(np.int32)
+    kw = dict(max_len=40, seed=2, use_systolic_kernel=True,
+              device=cuda_device)
+    want = ServeEngine(cfg, params, runtime=Forced(), **kw).generate(
+        prompts, 9, temperature=0.7).tokens
+    eng = OnlineServeEngine(cfg, params, runtime=Forced(), n_slots=4,
+                            max_new_cap=16, chunk_steps=4, **kw)
+    got = eng.serve([Request(id=i, prompt=prompts[i], max_new=9)
+                     for i in range(4)], greedy=False, temperature=0.7)
+    np.testing.assert_array_equal(
+        np.stack([r.tokens for r in sorted(got.completed,
+                                           key=lambda r: r.id)]), want)
+    kernels.reset_launch_counts()
+    res = eng.serve([Request(id=i, prompt=prompts[i % 4], max_new=3 + i,
+                             arrival=2 * i) for i in range(6)],
+                    greedy=True)
+    t = res.timings
+    forwards = t["n_refills"] + t["n_chunks"] * eng.chunk_steps
+    counts = kernels.launch_counts()
+    assert res.n_completed == 6
+    assert counts["fused_aged_matmul"] == 7 * 2 * forwards
+    assert counts["bitflip_draw"] == 2 * 2 * forwards
+    assert kernels.launch_counts_by_path()["fused_aged_matmul"] == {
+        "fast": 7 * 2 * forwards, "generic": 0}

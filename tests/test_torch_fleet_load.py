@@ -247,8 +247,24 @@ def test_health_matches_reference():
     text = h.render()
     assert text.splitlines()[0] == jh.render().splitlines()[0]
     assert len(text.splitlines()) >= 3 + pf.n_devices
-    with pytest.raises(NotImplementedError, match="online"):
-        fleet_health(pf, online_result=object())
+    # an online run's queue metrics fold into ``extra`` as the
+    # reference's: the same requests through both packages' results
+    from repro.serve.online import OnlineServeResult as JaxOnlineResult
+    from repro.serve.online import Request as JaxRequest
+    from repro_torch.serve.online import OnlineServeResult, Request
+    done = [dict(id=i, prompt=np.zeros(4, np.int32), max_new=3,
+                 arrival=i, t_start=i + 1, t_done=3 * i + 4,
+                 n_generated=3) for i in range(5)]
+    kw = dict(occupancy=np.ones((20, 2), bool), n_arrived=7, n_dropped=2,
+              total_steps=20, wall_s=0.5, n_tokens=15)
+    got = fleet_health(pf, online_result=OnlineServeResult(
+        completed=[Request(**r) for r in done], **kw)).extra
+    want = jax_fleet_health(jf, online_result=JaxOnlineResult(
+        completed=[JaxRequest(**r) for r in done], **kw)).extra
+    assert got == want and set(got) == {
+        "p50_latency_steps", "p99_latency_steps", "drop_rate", "tok_per_s",
+        "n_completed"}
+    assert pf.health().extra == {}
 
 
 # --------------------------------------------------------------------------- #

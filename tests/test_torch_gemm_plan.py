@@ -257,7 +257,8 @@ def test_cpu_gemm_wrappers_count_no_path():
 
 # benchmarks.kernel_bench's list: every weight GEMM of the serve paths
 # (llama3_8b, qwen3_moe_235b, the hybrid / SSM / VLM / enc-dec models) at
-# M = 2, 32, 544 and 3,000, and llama3_8b's with 4 lanes of 2 and 32 rows
+# M = 2, 8, 32, 128, 544 and 3,000, and llama3_8b's with 4 lanes of 2, 4,
+# 32 and 64 rows
 BENCH = sorted({(M, K, N) for M in kernel_bench.GEMM_MS
                 for _, _, K, N in kernel_bench.GEMM_SHAPES}
                | {(4 * M, K, N) for M in kernel_bench.LANE_MS

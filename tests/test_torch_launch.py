@@ -4,8 +4,9 @@ sampled, static and routed aging) against the reference's ``main(argv)``
 at small arguments, with the reference's params (``init_train_state(cfg,
 PRNGKey(0))``) carried across by ``repro_torch.convert``;
 ``configs.shapes``; and the flags that are not ported, which raise naming
-their ROADMAP item.  (The quickstart, which serves through the same
-params hook, is in tests/test_torch_bench_entry.py.)"""
+their ROADMAP item (``--online`` delegates to the online launcher:
+tests/test_torch_online_entry.py).  (The quickstart, which serves through
+the same params hook, is in tests/test_torch_bench_entry.py.)"""
 import re
 
 import jax
@@ -98,7 +99,7 @@ def test_serve_eager_is_single_device_only():
 
 @pytest.mark.parametrize("argv,item", [
     (["--mesh"], "A.8"), (["--tp", "2"], "A.8"), (["--no-fused"], "A.8"),
-    (["--online"], "A.7"), (["--stats"], "compiles nothing")])
+    (["--stats"], "compiles nothing")])
 def test_serve_refuses_unported_flags(argv, item):
     with pytest.raises(NotImplementedError, match=re.escape(item)):
         serve.main(SMALL + argv + ["--torch-device", "cpu"])
