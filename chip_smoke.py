@@ -131,17 +131,19 @@ Phases (any failure exits non-zero):
    == its replay); ``cosim_taps`` of [6b]'s wear_level co-sim card == CPU,
    a tapped fleet call and the registry exported (JSONL, Prometheus) and
    parsed back equal; ``python -m repro_torch.examples.aging_aware_serving``
-   on the card; ``calibrate_aging`` and ``verify_table1`` on the card
+   on the card (its own process, run beside [9]); ``calibrate_aging`` and ``verify_table1`` on the card
    against the checked-in calibration (Table I within 1 %) and the
    checked-in path model's polynomial refitted (within 1e-6 relative of
    the checked-in one: the host's least squares);
-12. the hybrid, SSM, VLM and enc-dec families, each at its full published
-   config with bf16 random params (prefix / frame embeddings from numpy):
+12. the hybrid, SSM, VLM and enc-dec families, each at its published
+   widths and a cut depth (``FAMILY_LAYERS``: recurrentgemma 6 of 26
+   layers, rwkv 8 of 32, paligemma 4 of 18, whisper 8 + 8 of 32 + 32)
+   with bf16 random params (prefix / frame embeddings from numpy):
    recurrentgemma_2b, rwkv6_3b, paligemma_3b (256 prefix embeddings) and
    whisper_large_v3 (``(2, 1500, 1280)`` frames) served B=2, prompt 16, 8
    greedy tokens on a ``FleetRuntime.for_model`` device aged 9 years on the
    fused route, with the fused-GEMM and draw launches equal to the counts
-   read from the models' code (``FAMILY_LAUNCHES``), every GEMM on the fast
+   read from the models' code (``family_launches``), every GEMM on the fast
    path, peak memory under 20 GB, no host-device synchronisation in a
    decode step, a profiled prefill + decode step and ``score``;
    recurrentgemma also at B=1 with a 2,064-token prompt (past its 2,048
@@ -178,20 +180,21 @@ Phases (any failure exits non-zero):
    step 0, 9 sampled tokens at chunks of 4 == ``ServeEngine.generate``);
    ``OnlineServeEngine`` (8 slots, chunks of 8, 16-token prompts and
    budgets, queue 16, T = 0.7, 9 years) on a ``requests_from_workload``
-   diurnal trace at 0.6 (2 epochs x 32 steps), and ``OnlineFleetEngine``
-   over [6]'s 4-device fleet (4 slots a lane, wear_level, one epoch of the
-   trace over 4 devices), each with 7 fused-GEMM and 2 draw launches a layer for every
-   refill and decode step (lane modes for the fleet, not 4x), on the fast
-   path; the fleet's measured ``lane_utilization`` replayed into its
-   ``apply_load`` (1 year) on the card against the same replay on the
-   CPU; a chunk's host syncs at 2 and 8 steps (equal) and the busy share
-   of a profiled 2-step chunk; the online GEMM shapes (M = 8 / 128, lanes
-   4 x 4 / 4 x 64) bit-exact against their plain versions (kernel_bench's
-   rows from [13]); reduced llama3_8b and qwen3_moe_235b and a 3-lane reduced
-   fleet serving mid-decode arrivals, card == CPU (tokens, times,
-   occupancy); tok/s, p50/p99 latency, drop rate, ms a decode step and a
-   refill, launches a chunk and peak GB printed beside the card's name and
-   power limit;
+   diurnal trace at 0.6 (3 epochs x 32 steps), and ``OnlineFleetEngine``
+   over [6]'s 4-device fleet (4 slots a lane, wear_level, the same 3
+   epochs of the trace over 4 devices), each with 7 fused-GEMM and 2 draw
+   launches a layer for every refill and decode step (lane modes for the
+   fleet, not 4x), on the fast path; the fleet's measured
+   ``lane_utilization`` replayed into its ``apply_load`` (1 year) on the
+   card against the same replay on the CPU; the host syncs of a 2- and an
+   8-step chunk (equal) and the busy share of a profiled 2-step chunk, all
+   three chunks from one refill; the online GEMM shapes (M = 8 / 128,
+   lanes 4 x 4 / 4 x 64) bit-exact against their plain versions (measured
+   here with kernel_bench's row functions); reduced llama3_8b and
+   qwen3_moe_235b and a 3-lane reduced fleet serving mid-decode
+   arrivals, card == CPU (tokens, times, occupancy); tok/s, p50/p99
+   latency, drop rate, ms a decode step and a refill, launches a chunk
+   and peak GB printed beside the card's name and power limit;
 11. a ``{"kernels": [...]}`` line (launches summed over the runs of [4],
    [5], [6], [6b], [7], [8], [10], [10b], [12], [13] and [14]), the
    ``nvidia-smi`` line, and as the last line ``{"ok": true, "device":
@@ -214,6 +217,7 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+T_START = time.perf_counter()    # the phases' end times count from here
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 INT8_OPS_PER_S = 1979e12       # H100 SXM dense int8 tensor-core peak
 INT32_LANES_PER_SM = 64        # Hopper: INT32 instructions per SM per clock
@@ -295,8 +299,8 @@ def device_ms(fn, iters: int = 20, match: str | None = None) -> tuple:
     fn()
     torch.cuda.synchronize()
     for _ in range(5):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        # device activity only: host events would multiply the trace
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
@@ -775,13 +779,13 @@ def profile_generate(engine, prompts, want_gemm: int, **gen_kw) -> dict:
                                  ProfilerActivity.CUDA]) as prof:
             engine.generate(prompts, 2, **gen_kw)
             torch.cuda.synchronize()
-        kernels = [e for e in prof.key_averages()
+        avgs = prof.key_averages()          # one digest of the trace
+        kernels = [e for e in avgs
                    if getattr(e, "device_type", None) == DeviceType.CUDA]
         gemm = [e for e in kernels if "int8_gemm" in e.key]
         if sum(e.count for e in gemm) == want_gemm:
             break
-    bmm_calls = sum(e.count for e in prof.key_averages()
-                    if e.key == "aten::bmm")
+    bmm_calls = sum(e.count for e in avgs if e.key == "aten::bmm")
     busy = sum(_dev_us(e) for e in kernels) / 1e3
     top = sorted(kernels, key=_dev_us, reverse=True)[:12]
     ours = {e.key: {"device_ms_per_launch": _dev_us(e) / 1e3 / e.count,
@@ -2303,14 +2307,53 @@ def timed_once(fn, wrapper: str | None, match: str | None) -> dict:
             "dev_ms": dev_ms if per_call >= 1 else None}
 
 
-def resilience_phase(dev, cfg, params) -> dict:
+_CHILDREN = []                   # processes the smoke started: stopped at exit
+
+
+def start_serving_example():
+    """Start ``python -m repro_torch.examples.aging_aware_serving`` on the
+    card as its own process (its stdout and stderr into files under
+    ``chiprun_out``); ``finish_serving_example`` waits for it."""
+    import os
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    files = (out_dir / "aging_aware_serving.log",
+             out_dir / "aging_aware_serving.stderr")
+    with open(files[0], "w") as out, open(files[1], "w") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.examples.aging_aware_serving"],
+            cwd=str(ROOT), stdout=out, stderr=err,
+            env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    _CHILDREN.append(proc)
+    return proc, files, time.perf_counter()
+
+
+def finish_serving_example(started) -> dict:
+    """Wait (at most 300 s) for the example; fails unless it exited 0.
+    Its stderr is appended to its log."""
+    proc, (log, err), t0 = started
+    try:
+        rc = proc.wait(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    seconds = time.perf_counter() - t0
+    out, errs = log.read_text(), err.read_text()
+    log.write_text(out + errs)
+    err.unlink()
+    check(rc == 0, f"the serving example failed ({rc}): {errs[-2000:]}")
+    return {"seconds": seconds, "tail": out.splitlines()[-3:], "stdout": out}
+
+
+def resilience_phase(dev, cfg, params, example: dict) -> dict:
     """[10b] The measured-resilience path on [10]'s trained llama3_8b
     (published widths, 8 layers, float32): the reference CLI's full sweep
     (108 lanes x 2 seeds, B=8, S=64) on the fused lane kernels, its first
     layer's launches against the plain versions, chunk invariance, a
     reduced grid on the card against the CPU on two routes, the fit, the
     artifact, the measured policy serving a fleet, the telemetry taps and
-    export, and the serving example."""
+    export, and the serving example's result (``finish_serving_example``)."""
     import numpy as np
     import torch
     from torch.autograd import DeviceType
@@ -2719,22 +2762,13 @@ def resilience_phase(dev, cfg, params) -> dict:
           f"equal", flush=True)
     del engine, ftengine
 
-    # 7. the serving example ------------------------------------------------
-    t0 = time.perf_counter()
-    ex = subprocess.run([sys.executable, "-m",
-                         "repro_torch.examples.aging_aware_serving"],
-                        cwd=str(ROOT), capture_output=True, text=True,
-                        timeout=300, env={**__import__("os").environ,
-                                          "PYTHONPATH": str(ROOT / "src")})
-    ex_s = time.perf_counter() - t0
-    (out_dir / "aging_aware_serving.log").write_text(ex.stdout + ex.stderr)
-    check(ex.returncode == 0, f"the serving example failed "
-          f"({ex.returncode}): {ex.stderr[-2000:]}")
-    res["serving_example"] = {"seconds": ex_s,
-                              "tail": ex.stdout.splitlines()[-3:]}
+    # 7. the serving example (its own process, run beside [9]) -------------
+    res["serving_example"] = {k: v for k, v in example.items()
+                              if k != "stdout"}
     print(f"    python -m repro_torch.examples.aging_aware_serving on the "
-          f"card: {ex_s:.1f} s (log in chiprun_out/aging_aware_serving.log)"
-          f"; ends: {ex.stdout.splitlines()[-2][:110]}", flush=True)
+          f"card (beside [9]): {example['seconds']:.1f} s (log in "
+          f"chiprun_out/aging_aware_serving.log); ends: "
+          f"{example['stdout'].splitlines()[-2][:110]}", flush=True)
 
     # 8. the physics calibration on the card -------------------------------
     from repro_torch.core import calibrate as pcal
@@ -2806,19 +2840,43 @@ def resilience_phase(dev, cfg, params) -> dict:
 # --------------------------------------------------------------------------- #
 FAMILY_ARCHS = ("recurrentgemma_2b", "rwkv6_3b", "paligemma_3b",
                 "whisper_large_v3")
-# (fused GEMM, draw) launches a forward, counted from the models' code:
-# recurrentgemma 18 rec layers x 8 (g, v, r, k, o, gate, up, down) + 8
-# attention layers x 7, 2 draws an attention layer; rwkv 32 x (5 time-mix
-# + 2 channel-mix), no attention; paligemma 18 x 7 (prefix_proj clean);
-# whisper's prefill encoder 32 x 6, cross k/v 32 x 2, decoder 32 x 8 and
-# its decode step the decoder alone, 2 draws an encoder layer and 4 a
-# decoder layer (self + cross) at prefill, 4 a decoder layer a step
-FAMILY_LAUNCHES = {
-    "recurrentgemma_2b": {"prefill": (200, 16), "decode": (200, 16)},
-    "rwkv6_3b": {"prefill": (224, 0), "decode": (224, 0)},
-    "paligemma_3b": {"prefill": (126, 36), "decode": (126, 36)},
-    "whisper_large_v3": {"prefill": (512, 192), "decode": (256, 128)},
-}
+# [12] serves each family at its published widths and a cut depth, so
+# that the whole smoke ends within its 900 s: recurrentgemma two (rec,
+# rec, attn) groups of its 26 layers, rwkv 8 of 32, paligemma 4 of 18,
+# whisper 8 encoder and 8 decoder layers of 32 each
+FAMILY_LAYERS = {"recurrentgemma_2b": 6, "rwkv6_3b": 8, "paligemma_3b": 4,
+                 "whisper_large_v3": 8}
+
+
+def family_config(arch):
+    """``arch``'s published config cut to ``FAMILY_LAYERS[arch]`` layers
+    (an enc-dec model's encoder too)."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    L = FAMILY_LAYERS[arch]
+    return dataclasses.replace(
+        cfg, n_layers=L, n_encoder_layers=L if cfg.n_encoder_layers else 0)
+
+
+def family_launches(cfg) -> dict:
+    """(fused GEMM, draw) launches a forward, counted from the models'
+    code: an attention layer 7 GEMMs (q, k, v, o, gate, up, down) and 2
+    draws (qkt, sv); a recurrent layer 8 (g, v, r, k, o, gate, up, down);
+    an rwkv layer 5 time-mix + 2 channel-mix; paligemma's prefix_proj runs
+    clean; whisper's prefill an encoder layer 6 GEMMs and 2 draws, its
+    cross k/v 2 GEMMs a decoder layer, a decoder layer 8 GEMMs and 4 draws
+    (self + cross), and its decode step the decoder alone."""
+    from repro_torch.models.transformer import layer_kinds
+    if cfg.family == "encdec":
+        E, D = cfg.n_encoder_layers, cfg.n_layers
+        return {"prefill": (6 * E + 10 * D, 2 * E + 4 * D),
+                "decode": (8 * D, 4 * D)}
+    per = {"attn": (7, 2), "rec": (8, 0), "rwkv": (7, 0)}
+    kinds = [per[k] for k in layer_kinds(cfg)]
+    step = (sum(g for g, _ in kinds), sum(d for _, d in kinds))
+    return {"prefill": step, "decode": step}
+
+
 FAMILY_BATCH, FAMILY_PROMPT, FAMILY_STEPS = 2, 16, 8
 FAMILY_PEAK_LIMIT = 20e9       # bytes: each model alone (~6 GB of bf16 weights)
 
@@ -2962,21 +3020,20 @@ def family_fleet(dev, cfg, params, max_len: int, single_counts) -> dict:
 
 
 def family_run(dev, arch) -> dict:
-    """One family at its full published config: B = 2, prompt 16, 8
-    greedy tokens on a device aged 9 years (fused route), launches, host
-    syncs, a profiled prefill + decode step, ``score``, the family's long
-    prompt, a 4-lane fleet; then the reduced model on the card against
-    the CPU."""
+    """One family at its published widths and ``FAMILY_LAYERS`` depth:
+    B = 2, prompt 16, 8 greedy tokens on a device aged 9 years (fused
+    route), launches, host syncs, a profiled prefill + decode step,
+    ``score``, the family's long prompt, a 4-lane fleet; then the reduced
+    model on the card against the CPU."""
     import numpy as np
     import torch
     from repro_torch import kernels
-    from repro_torch.configs import get_config
     from repro_torch.core.fleet import FleetRuntime
     from repro_torch.data import SyntheticLM
     from repro_torch.models import family
     from repro_torch.serve.engine import ServeEngine
     from repro_torch.tree import leaves
-    cfg = get_config(arch)
+    cfg = family_config(arch)
     B, S, T = FAMILY_BATCH, FAMILY_PROMPT, FAMILY_STEPS
     max_len = cfg.prefix_tokens + S + T + 8
     t0 = time.perf_counter()
@@ -3002,7 +3059,7 @@ def family_run(dev, arch) -> dict:
     counts = kernels.launch_counts()
     by_path = kernels.launch_counts_by_path()
     peak = torch.cuda.max_memory_allocated(dev)
-    per = FAMILY_LAUNCHES[arch]
+    per = family_launches(cfg)
     want = tuple(per["prefill"][j] + (T - 1) * per["decode"][j]
                  for j in (0, 1))
     tok = out.tokens
@@ -3013,7 +3070,8 @@ def family_run(dev, arch) -> dict:
     check(by_path["fused_aged_matmul"] == {"fast": want[0], "generic": 0},
           f"{arch} GEMM launches off the fast path: {by_path}")
     check(peak < FAMILY_PEAK_LIMIT, f"{arch} peak {peak / 1e9:.2f} GB")
-    run = {"params_b": n_params / 1e9, "init_s": init_s, "batch": B,
+    run = {"layers": cfg.n_layers, "params_b": n_params / 1e9,
+           "init_s": init_s, "batch": B,
            "prompt": S, "n_steps": T, "max_len": max_len,
            "generate_s": gen_s, "prefill_s": out.timings["prefill_s"],
            "decode_s_per_token": out.timings["decode_s"] / (T - 1),
@@ -3074,8 +3132,7 @@ def launch_dev_ms(fn, match, iters: int = 20):
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
@@ -3271,8 +3328,9 @@ def family_kernel_rows(dev) -> dict:
 
 
 def families_phase(dev) -> dict:
-    """[12] the four families at their full published configs, then the
-    reduced sweeps with extras, then the kernels at the new shapes."""
+    """[12] the four families at their published widths and a cut depth,
+    then the reduced sweeps with extras, then the kernels at the new
+    shapes."""
     import torch
     from repro_torch import kernels
     t_phase = time.perf_counter()
@@ -3287,7 +3345,8 @@ def families_phase(dev) -> dict:
             for k in totals:
                 totals[k] += part[k]
         prof = run["profile"]
-        print(f"[12] {arch} full config ({run['params_b']:.2f} B bf16 "
+        print(f"[12] {arch} full width, {FAMILY_LAYERS[arch]} layers "
+              f"({run['params_b']:.2f} B bf16 "
               f"params, init {run['init_s']:.1f} s), age 9 y, B=2, prompt "
               f"16, 8 tokens: launches {run['launches']['fused_aged_matmul']}"
               f" fused + {run['launches']['bitflip_draw']} draw (as counted:"
@@ -3640,11 +3699,7 @@ ONLINE_CHUNK = 8                 # decode steps a chunk
 ONLINE_PROMPT = 16
 ONLINE_MAX_NEW = 16
 ONLINE_QUEUE = 16
-ONLINE_EPOCHS = 2                # cell 13's diurnal trace: 2 epochs x 32
-#                                  steps (one drew 3 requests: no churn)
-ONLINE_FLEET_EPOCHS = 1          # cell 14's: 1 epoch (~20 requests over
-#                                  4 lanes; 2 took the smoke past 1,000 s
-#                                  on a slow host)
+ONLINE_EPOCHS = 3                # the diurnal trace: 3 epochs x 32 steps
 ONLINE_STEPS_PER_EPOCH = 32
 ONLINE_UTIL = 0.6
 ONLINE_TEMPERATURE = 0.7
@@ -3755,37 +3810,19 @@ def online_gemm_rows(dev) -> list:
     """The GEMM shapes the online slots add at llama3_8b's widths (decode M
     = 8, refill M = 8 x 16 = 128; the fleet's 4 lanes of 4 and of 4 x 16 =
     64 rows), each held against its plain version bit for bit and timed
-    beside its bound and ``torch._int_mm``: kernel_bench's rows, read from
-    the record [13] wrote (measured here when [14] runs alone)."""
+    beside its bound and ``torch._int_mm``, measured here through
+    kernel_bench's row functions."""
     import torch
     from repro_torch.benchmarks import kernel_bench as kb
-    shapes = {("fused_aged_matmul", M, K, N)
-              for M in (ONLINE_SLOTS, ONLINE_SLOTS * ONLINE_PROMPT)
-              for _, _, K, N in kb.GEMM_SHAPES[:4]}
-    shapes |= {("fused_aged_matmul_lanes", 4 * Ml, K, N)
-               for Ml in (ONLINE_FLEET_SLOTS,
-                          ONLINE_FLEET_SLOTS * ONLINE_PROMPT)
-               for _, _, K, N in kb.GEMM_SHAPES[:4]}
-    record = ENTRY_DIR / "bench" / "kernels.json"
-    if record.exists():
-        rows = [r for r in json.loads(record.read_text())["rows"]["rows"]
-                if (r["kernel"], r.get("M"), r.get("K"), r.get("N"))
-                in shapes and r.get("model") == "llama3_8b"]
-        check(len(rows) == len(shapes),
-              f"kernel_bench record holds {len(rows)} of the {len(shapes)} "
-              f"online GEMM shapes")
-    else:
-        clock = kb.sm_clock_hz(dev)
-        gen = torch.Generator(device=dev).manual_seed(14)
-        rows = []
-        for model, op, K, N in kb.GEMM_SHAPES[:4]:
-            for M in (ONLINE_SLOTS, ONLINE_SLOTS * ONLINE_PROMPT):
-                rows.append(kb._gemm_row(model, op, M, K, N, dev, gen,
-                                         clock))
-            for Ml in (ONLINE_FLEET_SLOTS,
-                       ONLINE_FLEET_SLOTS * ONLINE_PROMPT):
-                rows.append(kb._lane_gemm_row(Ml, model, op, K, N, dev, gen,
-                                              clock))
+    clock = kb.sm_clock_hz(dev)
+    gen = torch.Generator(device=dev).manual_seed(14)
+    rows = []
+    for model, op, K, N in kb.GEMM_SHAPES[:4]:
+        for M in (ONLINE_SLOTS, ONLINE_SLOTS * ONLINE_PROMPT):
+            rows.append(kb._gemm_row(model, op, M, K, N, dev, gen, clock))
+        for Ml in (ONLINE_FLEET_SLOTS, ONLINE_FLEET_SLOTS * ONLINE_PROMPT):
+            rows.append(kb._lane_gemm_row(Ml, model, op, K, N, dev, gen,
+                                          clock))
     bad = [(r["kernel"], r["M"], r["K"], r["N"]) for r in rows
            if not r["exact"] or r.get("fast_path") is False]
     check(not bad, f"online GEMM shapes off their plain version or the fast "
@@ -3859,10 +3896,12 @@ PROFILE_STEPS = 2                # steps of the profiled chunk (~10 k
 
 
 def online_chunk_profile(eng, prompts, L: int) -> dict:
-    """Decode chunks of the cell-13 engine on fresh slots: host syncs at 2
-    and 8 steps (sync debug mode; must be equal), and a chunk of
-    ``PROFILE_STEPS`` steps timed on the host clock and profiled (its
-    device busy share)."""
+    """Three decode chunks of the cell-13 engine, one after another from
+    one refill of every slot (none finishes: 1 + 2 + 8 + 2 tokens of 16):
+    host syncs of the 2- and 8-step chunks (sync debug mode; must be
+    equal), then a chunk of ``PROFILE_STEPS`` steps profiled, its host
+    clock taken inside the profiled run (the share's denominator), and
+    whether the trace holds all of its 7 x L x steps GEMM launches."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -3870,26 +3909,23 @@ def online_chunk_profile(eng, prompts, L: int) -> dict:
     fi = eng._fault_config()
     chunk = lambda st, n: slots_mod.decode_chunk(
         eng.params, eng.cfg, st, fi, chunk_steps=n,
-        temperature=ONLINE_TEMPERATURE, eos=-1)
+        temperature=ONLINE_TEMPERATURE, eos=-1)[0]
+    st = _fresh_slots(eng, prompts, fi)
     syncs = {}
     for n in (2, ONLINE_CHUNK):
-        st = _fresh_slots(eng, prompts, fi)
-        syncs[n] = host_syncs(lambda: chunk(st, n))
+        box = []
+        syncs[n] = host_syncs(lambda: box.append(chunk(st, n)))
+        st = box[0]
     check(syncs[2] == syncs[ONLINE_CHUNK],
           f"online decode chunk syncs at 2 / {ONLINE_CHUNK} steps: "
           f"{syncs[2]} / {syncs[ONLINE_CHUNK]} (a decode step synchronises)")
-    st = _fresh_slots(eng, prompts, fi)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    chunk(st, PROFILE_STEPS)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    st = _fresh_slots(eng, prompts, fi)
     torch.cuda.synchronize()
     # device activity only: host events would multiply the trace
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
         chunk(st, PROFILE_STEPS)
         torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     kernels = [e for e in prof.key_averages()
                if getattr(e, "device_type", None) == DeviceType.CUDA]
     gemm = [e for e in kernels if "int8_gemm" in e.key]
@@ -3978,7 +4014,7 @@ def online_phase(dev, layers: int) -> dict:
     # cell 14: the [6] fleet, 4 slots a lane, wear_level routing
     fleet = _aged_fleet(dev)
     wl = get_workload("diurnal", n_devices=fleet.n_devices,
-                      utilization=ONLINE_UTIL, n_epochs=ONLINE_FLEET_EPOCHS)
+                      utilization=ONLINE_UTIL, n_epochs=ONLINE_EPOCHS)
     reqs = requests_from_workload(
         wl, n_slots=ONLINE_FLEET_SLOTS,
         steps_per_epoch=ONLINE_STEPS_PER_EPOCH, max_new=ONLINE_MAX_NEW,
@@ -3990,7 +4026,7 @@ def online_phase(dev, layers: int) -> dict:
                              **kw)
     cell14 = _online_engine_run(feng, reqs, L, lanes=True)
     lap("cell14")
-    util = cell14["result"].lane_utilization(max(ONLINE_FLEET_EPOCHS, 2))
+    util = cell14["result"].lane_utilization(ONLINE_EPOCHS)
     res["cell14"] = {k: v for k, v in cell14.items() if k != "result"}
     res["cell14"]["lane_utilization"] = util.tolist()
     res["cell14"]["lanes_served"] = sorted(
@@ -4027,11 +4063,15 @@ def print_online(res: dict, smi_line: str) -> None:
               f"{r['peak_gb']:.2f} GB", flush=True)
     p = res["cell13"]["profile"]
     rp = res["cell14"]["replay"]
+    lower = "" if p["complete"] else ", a lower bound"
     print(f"    one profiled chunk ({p['steps']} steps): "
           f"{p['chunk_wall_ms']:.1f} ms, device busy {p['device_busy_ms']:.1f}"
-          f" ms ({100 * p['device_busy_share']:.1f}%) over "
-          f"{p['n_kernel_launches']} kernels; host syncs of a chunk at 2 / "
-          f"{ONLINE_CHUNK} steps {p['syncs'][2]} / {p['syncs'][ONLINE_CHUNK]};"
+          f" ms ({100 * p['device_busy_share']:.1f}%{lower}) over "
+          f"{p['n_kernel_launches']} kernels, {p['gemm_launches']} of "
+          f"{7 * res['layers'] * p['steps']} GEMMs recorded (profile "
+          f"{'complete' if p['complete'] else 'INCOMPLETE'}); host syncs "
+          f"of a chunk at 2 / {ONLINE_CHUNK} steps {p['syncs'][2]} / "
+          f"{p['syncs'][ONLINE_CHUNK]};"
           f" no-arrival tokens == generate's; fleet duty replayed 1 y card "
           f"== CPU (max dVth {rp['fleet_max_dvp_mv']:.2f} mV, spread "
           f"{rp['spread_mv']:.2f}); reduced llama / qwen3_moe / 3-lane fleet "
@@ -4084,6 +4124,17 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     report = {"argv": sys.argv[1:]}
+    ends = report["phase_ends_s"] = {}
+
+    def stamp(phase: str) -> None:
+        # also on disk as they come, so a run cut by its time limit shows
+        # where its time went
+        ends[phase] = time.perf_counter() - T_START
+        print(f"    [{phase}] ends {ends[phase]:.1f} s into the smoke",
+              flush=True)
+        out = ROOT / "chiprun_out"
+        out.mkdir(exist_ok=True)
+        (out / "phase_ends.json").write_text(json.dumps(ends, indent=1))
 
     # 1. the card --------------------------------------------------------
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4107,6 +4158,7 @@ def main(argv=None) -> int:
         print(f"    {k['kernel']:34s} {k.get('registers')} registers, "
               f"spills {k.get('spill_stores')}/{k.get('spill_loads')} B "
               f"(store/load), {k.get('static_smem')} bytes static smem")
+    stamp("2")
 
     cfg = get_config("llama3_8b")
     # qwen3_moe_235b at its published widths: the reference config leaves
@@ -4160,6 +4212,7 @@ def main(argv=None) -> int:
               f"{p['path']} path, "
               f"{p['bm']}x{p['bn']} tile, {p['splits']} K splits, "
               f"{p['ctas']} CTAs", flush=True)
+    stamp("3")
 
     # 4. main path ---------------------------------------------------------
     cal = load_calibration()
@@ -4285,6 +4338,7 @@ def main(argv=None) -> int:
     report["reduced_vs_cpu"] = reduced_vs_cpu(cfg.reduced(), dev)
     print("    reduced llama3_8b at BER 1e-3: card kernel route == CPU plain "
           "route tokens", flush=True)
+    stamp("4")
 
     # 5. three-pass route --------------------------------------------------
     L3 = args.three_pass_layers
@@ -4312,10 +4366,12 @@ def main(argv=None) -> int:
           f"{counts3}", flush=True)
     del params3
     torch.cuda.empty_cache()
+    stamp("5")
 
     # 6. fleet path, on [4]'s params ----------------------------------------
     report["fleet"] = fleet_phase(dev, cfg_run, params, serve)
     fleet_counts = report["fleet"]["launches"]
+    stamp("6")
 
     # 6b. traffic-aged fleet, still on [4]'s params ---------------------------
     report["fleet_load"] = fleet_load_phase(dev, cfg_run, params,
@@ -4323,10 +4379,12 @@ def main(argv=None) -> int:
     load_counts = report["fleet_load"]["launches"]
     del params
     torch.cuda.empty_cache()
+    stamp("6b")
 
     # 7. MoE path ------------------------------------------------------------
     report["moe"], moe_params, moe_run = moe_phase(dev, moe_cfg)
     moe_counts = report["moe"]["launches"]
+    stamp("7")
 
     # 8. MoE fleet, on [7]'s params -------------------------------------------
     report["moe_fleet"] = moe_fleet_phase(dev, moe_run, moe_params,
@@ -4341,32 +4399,44 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     report["moe"]["reduced_vs_cpu"] = moe_reduced_vs_cpu(dev)
     report["moe_fleet"]["reduced_vs_cpu"] = moe_fleet_reduced_vs_cpu(dev)
+    stamp("8")
 
     # 9. the paper's tables ---------------------------------------------------
+    # the serving example runs as its own process beside [9] (both
+    # host-bound, [9] times nothing that is kept) and has ended before
+    # [10] times its steps; [10b] reports it
+    example = start_serving_example()
     report["paper_tables"] = paper_tables_phase(dev)
+    example = finish_serving_example(example)
+    stamp("9")
 
     # 10. training, after every earlier phase's params are freed -------------
     report["train"], trained, cfg8 = train_phase(dev, cfg)
     train_counts = report["train"]["launches"]
+    stamp("10")
 
     # 10b. measured resilience on [10]'s trained params --------------------
-    report["resilience"] = resilience_phase(dev, cfg8, trained)
+    report["resilience"] = resilience_phase(dev, cfg8, trained, example)
     resilience_counts = report["resilience"]["launches"]
     del trained
     torch.cuda.empty_cache()
+    stamp("10b")
 
     # 12. the hybrid, SSM, VLM and enc-dec families ----------------------
     report["families"] = families_phase(dev)
     family_counts = report["families"]["launches"]
+    stamp("12")
 
     # 13. C.6 at full width and the port's entry points -------------------
     report["entry"] = entry_phase(dev)
     entry_counts = report["entry"]["launches"]
+    stamp("13")
 
     # 14. continuous-batching online serving (cells 13 and 14) ------------
     report["online"] = online_phase(dev, args.layers)
     print_online(report["online"], smi_line)
     online_counts = report["online"]["launches"]
+    stamp("14")
 
     # 11. summary ---------------------------------------------------------
     # launches summed over the ten paths' runs, each counted from 0; the
@@ -4439,3 +4509,7 @@ if __name__ == "__main__":
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         sys.exit(1)
+    finally:
+        for child in _CHILDREN:
+            if child.poll() is None:
+                child.kill()

@@ -3,7 +3,8 @@
 
 :class:`FleetRuntime` holds N devices x O operator voltage domains.  All
 N x O lifetime trajectories come from one batched :func:`simulate` call
-(lazy, cached): devices share one mission profile (a scalar
+(lazy, and shared by every runtime of the process that asks for the same
+one: :func:`_simulated`): devices share one mission profile (a scalar
 :class:`Scenario`, whose O trajectories are broadcast over the fleet) or
 carry their own (a ``(N,)``-batched scenario: per-device duty,
 temperature, budget and time grid).  Device ages are a vector and the age
@@ -24,6 +25,7 @@ exact aging state across a restart or a retirement.  Mesh shards
 from __future__ import annotations
 
 import dataclasses
+import json
 from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
@@ -39,6 +41,31 @@ from .resilience import OPERATORS, default_curves, operators_for
 from .scenario import LifetimeTrajectory, Scenario
 
 SECONDS_PER_YEAR = 365.25 * 24 * 3600.0
+
+# lifetime trajectories simulated in this process, keyed on all that
+# :func:`simulate` reads (a simulation is ~500 host-driven steps)
+_TRAJECTORIES: Dict[tuple, Any] = {}
+
+
+def _leaf_key(x) -> tuple:
+    a = np.asarray(x.detach().cpu() if hasattr(x, "detach") else x)
+    return a.dtype.str, a.shape, a.tobytes()
+
+
+def _simulated(cal: Calibration, scenario: Scenario, delay_max, device):
+    """``simulate`` of ``scenario`` (its O domains on the last axis) under
+    ``cal``'s aging and delay models and ``delay_max``, on ``device``;
+    made once per process for equal inputs (the cached result is never
+    written: runtimes take read-only views of it)."""
+    key = (str(device), json.dumps(cal.aging.to_dict()),
+           json.dumps(cal.delay_poly.to_dict()), _leaf_key(delay_max),
+           tuple((f.name, _leaf_key(getattr(scenario, f.name)))
+                 for f in dataclasses.fields(scenario)))
+    if key not in _TRAJECTORIES:
+        _TRAJECTORIES[key] = simulate(cal.aging, cal.delay_poly,
+                                      scenario.expand_dims(-1),
+                                      delay_max=delay_max, device=device)
+    return _TRAJECTORIES[key]
 
 
 @dataclasses.dataclass
@@ -147,9 +174,8 @@ class FleetRuntime:
         (of every device's profile, when the scenario is batched)."""
         if self._traj is None:
             dmax = self.policy.thresholds(self.scenario, self.operators)
-            traj = simulate(self.cal.aging, self.cal.delay_poly,
-                            self.scenario.expand_dims(-1), delay_max=dmax,
-                            device=self.torch_device)
+            traj = _simulated(self.cal, self.scenario, dmax,
+                              self.torch_device)
             target = lambda v: (self.n_devices,) + v.shape[
                 len(self.scenario.batch_shape):]
             self._traj = LifetimeTrajectory(**{

@@ -4,6 +4,8 @@ plain versions against ``jax.vmap`` of the reference's Pallas kernels
 (interpret mode), the lane ``FaultConfig``, and ``FleetServeEngine`` on
 reduced llama3_8b and deepseek_7b: three lanes aged 3/6/9 years on the
 fused, three-pass and kernel-free routes, greedy and sampled."""
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -108,6 +110,40 @@ def test_unported_fleet_options_raise():
     with pytest.raises(ValueError, match="conflicts"):
         FleetRuntime(n_devices=2, scenario=Scenario(duty=[0.3, 0.5, 0.7]),
                      device="cpu")
+
+
+def test_runtimes_share_one_simulation_per_inputs(monkeypatch):
+    """Runtimes of one calibration, scenario, policy and device share one
+    ``simulate`` (and read only views of it); another budget, policy or
+    calibration simulates anew; a shared one equals a runtime made
+    alone."""
+    from repro_torch.core import fleet as fleet_mod
+    calls = []
+    real = fleet_mod.simulate
+    monkeypatch.setattr(fleet_mod, "_TRAJECTORIES", {})
+    monkeypatch.setattr(fleet_mod, "simulate",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    a = FleetRuntime(n_devices=2, device="cpu")
+    b = FleetRuntime(n_devices=4, device="cpu")
+    b.set_age(years=6.0, device=1)
+    np.testing.assert_array_equal(a.trajectories.V, b.trajectories.V[:2])
+    assert len(calls) == 1
+    with pytest.raises(ValueError):
+        b.trajectories.V[0, 0, 0] = 0.0           # the shared copy is read-only
+    base = load_calibration()
+    cal = dataclasses.replace(base, aging=dataclasses.replace(
+        base.aging, A=base.aging.A * 1.01))
+    others = [FleetRuntime(max_loss_pct=2.0, device="cpu"),
+              FleetRuntime(policy="baseline", device="cpu"),
+              FleetRuntime(cal=cal, device="cpu")]
+    for rt in others:
+        rt.snapshot()
+    assert len(calls) == 4
+    monkeypatch.setattr(fleet_mod, "_TRAJECTORIES", {})
+    alone = FleetRuntime(n_devices=4, device="cpu")
+    alone.set_age(years=6.0, device=1)
+    assert b.op_bers(1) == alone.op_bers(1)
+    assert len(calls) == 5
 
 
 # per-device mission profiles: duty, temperature, budget, and time grids of
