@@ -195,8 +195,24 @@ Phases (any failure exits non-zero):
    arrivals, card == CPU (tokens, times, occupancy); tok/s, p50/p99
    latency, drop rate, ms a decode step and a refill, launches a chunk
    and peak GB printed beside the card's name and power limit;
+15. mesh serving (cell 15): llama3_8b at its published widths ([4]'s
+   depth, bf16 random params) as one device of 4 tensor-parallel shards
+   aged 1.5 / 4 / 6.5 / 9 years on their own (``FleetRuntime(n_shards=4)``,
+   ``MeshServeEngine``, fused route), B=2, prompt 16, 8 greedy tokens and
+   8 sampled (T=0.8, top_k=50): per-shard BERs that differ, prefill ms,
+   decode ms a token, peak GB, and exactly one shard-mode GEMM launch a
+   faulted weight matmul and one counter-upset launch a qkt/sv injection
+   ([4]'s single-device fused and draw counts), on the fast path, no host
+   sync in a decode step; both shard kernels bit-exact against their
+   plain versions (the shard-mode GEMM at M = 2 and 544 on llama3_8b's
+   shapes with S = 4, device time beside the unsharded fused mode's, the
+   bound and ``torch._int_mm``; the counter-upset kernel on llama3_8b's
+   qkt/sv heads and whisper_large_v3's (2, 20, 1500, 1500) encoder
+   scores); reduced llama3_8b (tp = 4 and 3), qwen3_moe_235b and
+   whisper_large_v3 card == CPU; ``serve --mesh --tp 4`` and
+   ``mesh_bench --quick`` through their ``main(argv)``;
 11. a ``{"kernels": [...]}`` line (launches summed over the runs of [4],
-   [5], [6], [6b], [7], [8], [10], [10b], [12], [13] and [14]), the
+   [5], [6], [6b], [7], [8], [10], [10b], [12], [13], [14] and [15]), the
    ``nvidia-smi`` line, and as the last line ``{"ok": true, "device":
    {...}}``.
 
@@ -245,6 +261,13 @@ JAX_KERNELS = {
     "bitflip_draw": "src/repro/kernels/bitflip.py:49",
     "bitflip_draw_lanes": "src/repro/kernels/bitflip.py:49",
     "systolic_matmul": "src/repro/kernels/systolic_matmul.py:64",
+    # the Pallas kernel under shard_map over the output columns
+    # (src/repro/kernels/ops.py:237)
+    "fused_aged_matmul_shards": "src/repro/kernels/fused_aged_matmul.py:208",
+    # the fused kernel's in-flush counter-stream upset, which the reference
+    # applies to the qkt/sv heads under per-shard BERs in jnp
+    # (inject_bitflips_sharded, src/repro/kernels/ops.py:150)
+    "counter_upset_shards": "src/repro/kernels/fused_aged_matmul.py:208",
 }
 SOURCE = "src/repro_torch/kernels/csrc/aged_kernels.cu"
 
@@ -355,7 +378,8 @@ def ptxas_report(log: str) -> list:
         if m:
             mangled = m.group(1)
             name = next((k for k in ("int8_gemm_tc_kernel", "int8_gemm_kernel",
-                                     "bitflip_draw_kernel", "bitflip_kernel")
+                                     "bitflip_draw_kernel", "bitflip_kernel",
+                                     "counter_upset_kernel")
                          if k in mangled), mangled)
             # template arguments: the integers up to the first "EEv"
             args = re.findall(r"Li(\d+)E", mangled.split(name, 1)[-1]
@@ -472,6 +496,8 @@ def kernel_checks(dev, cfg, moe_cfg) -> dict:
             check(by_path == {"fused_aged_matmul": {"fast": 2, "generic": 0},
                               "fused_aged_matmul_lanes": {"fast": 0,
                                                           "generic": 0},
+                              "fused_aged_matmul_shards": {"fast": 0,
+                                                           "generic": 0},
                               "systolic_matmul": {"fast": 1, "generic": 0}},
                   f"GEMM launches off the fast path at {shape}: {by_path}")
 
@@ -4089,6 +4115,357 @@ def print_online(res: dict, smi_line: str) -> None:
           + ")", flush=True)
 
 
+# --------------------------------------------------------------------------- #
+# [15] mesh serving: one device of tp shards, each aged on its own
+# --------------------------------------------------------------------------- #
+MESH_TP = 4                      # cell 15: tensor-parallel shards of one device
+MESH_AGES = (1.5, 4.0, 6.5, 9.0)  # the shards' ages (years)
+MESH_STEPS = 8
+# integer instructions of one word's counter-stream upset: the two fmix32
+# hashes of counter_bits (21) and the flip (7); the shard and tile index
+# arithmetic is not counted, so the bound is a least time
+COUNTER_INT_OPS = 28
+
+
+def _mesh_fleet(dev, tp: int = MESH_TP, ages=MESH_AGES):
+    from repro_torch.core.fleet import FleetRuntime
+    fleet = FleetRuntime(n_devices=1, n_shards=tp, device=dev)
+    for s in range(tp):
+        fleet.set_age(years=ages[s % len(ages)], shard=s)
+    return fleet
+
+
+def mesh_kernel_rows(dev, cfg, whisper_cfg) -> dict:
+    """The two shard kernels against their plain versions at cell 15's
+    shapes, bit for bit, timed: the shard-mode GEMM at M = 2 (decode) and
+    544 on llama3_8b's weight shapes with S = 4 (device time beside the
+    unsharded fused mode's at the same shape, the bound and, above 16 rows,
+    ``torch._int_mm``); the counter-upset kernel on llama3_8b's qkt/sv
+    heads (prefill and decode) and whisper_large_v3's encoder qkt
+    ``(2, 20, 1500, 1500)``."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.fused_aged_matmul import (
+        fused_aged_matmul, fused_aged_matmul_shards, shard_bounds)
+
+    gen = torch.Generator(device=dev).manual_seed(1515)
+    S = MESH_TP
+    bers = tuple(1e-3 * (1 + s) for s in range(S))
+    rows = {"fused_aged_matmul_shards": [], "counter_upset_shards": []}
+    int_rate = int32_issue_per_s(dev)
+    for M in (2, 544):
+        for model, K, N, what in llama_gemm_shapes(cfg):
+            a = torch.randint(-127, 128, (M, K), dtype=torch.int8,
+                              device=dev, generator=gen)
+            b = torch.randint(-127, 128, (K, N), dtype=torch.int8,
+                              device=dev, generator=gen)
+            xs = torch.rand((M, 1), device=dev, generator=gen) * 0.01 + 1e-3
+            ws = torch.rand((1, N), device=dev, generator=gen) * 0.01 + 1e-3
+            seeds = [ops.fold_seed(-91, s) for s in range(S)]
+            bounds = shard_bounds(N, S)
+            bs = itertools.cycle([b] + [b.clone() for _ in range(
+                -(-120_000_000 // b.numel()) - 1)])
+            nb = lambda: next(bs)
+            kernels.reset_launch_counts()
+            out = fused_aged_matmul_shards(a, b, xs, ws, bers, seeds)
+            up = fused_aged_matmul_shards(a, b, None, None, bers, seeds)
+            exp = ref.fused_aged_matmul_shards_ref(a, b, xs, ws, bers, seeds,
+                                                   bounds)
+            up_exp = ref.fused_aged_matmul_shards_ref(a, b, None, None, bers,
+                                                      seeds, bounds)
+            torch.cuda.synchronize()
+            err = max(max_abs_err(out, exp), max_abs_err(up, up_exp))
+            check(err == 0.0 and torch.equal(out, exp)
+                  and torch.equal(up, up_exp),
+                  f"fused_aged_matmul_shards M={M} K={K} N={N}: max |err| "
+                  f"{err}")
+            flips = int((up != ref.systolic_matmul_ref(a, b)).sum())
+            check(kernels.launch_counts_by_path()["fused_aged_matmul_shards"]
+                  == {"fast": 2, "generic": 0},
+                  f"shard GEMM off the fast path at M={M} K={K} N={N}")
+            sk = lambda: fused_aged_matmul_shards(a, nb(), xs, ws, bers,
+                                                  seeds)
+            bm, bn, _ = ops._resolve_blocks(M, N, K, 256, 256, 256)
+            fk = lambda: fused_aged_matmul(a, nb(), xs, ws, bers[0], seeds[0],
+                                           bm=bm, bn=bn)
+            sr = lambda: ref.fused_aged_matmul_shards_ref(
+                a, b, xs, ws, bers, seeds, bounds)
+            dev_ms, per_call = device_ms(sk, match="int8_gemm")
+            check(per_call == 1, f"shard GEMM kernels per call {per_call}")
+            lib = lib_dev = None
+            if M > 16:
+                lk = lambda: torch._int_mm(a, nb())
+                lib = cuda_time_ms(lk)
+                lib_dev = device_ms(lk)[0]
+            t_b, by = bound(M * K + K * N + 4 * (M + N) + 4 * M * N,
+                            2.0 * M * K * N)
+            rows["fused_aged_matmul_shards"].append(dict(
+                M=M, K=K, N=N, S=S, op=what, model=model, flips=flips,
+                max_abs_err=err, ms=cuda_time_ms(sk), dev_ms=dev_ms,
+                unsharded_dev_ms=device_ms(fk, match="int8_gemm")[0],
+                plain_ms=cuda_time_ms(sr, iters=3, warmup=1),
+                bound_ms=t_b, bound_by=by, library_ms=None, int_mm_ms=lib,
+                int_mm_dev_ms=lib_dev))
+    H, hd = cfg.n_heads, cfg.hd
+    wh = whisper_cfg
+    shapes = [((2, H, 16, 16), "llama qkt prefill"),
+              ((2, H, 16, hd), "llama sv prefill"),
+              ((2, H, 1, 64), "llama qkt decode"),
+              ((2, H, 1, hd), "llama sv decode"),
+              ((2, wh.n_heads, wh.encoder_seq, wh.encoder_seq),
+               "whisper encoder qkt")]
+    for shape, what in shapes:
+        x = torch.randint(-2 ** 31, 2 ** 31 - 1, shape, dtype=torch.int32,
+                          device=dev, generator=gen)
+        n = x.numel()
+        kernels.reset_launch_counts()
+        out = ops.inject_bitflips_sharded(x, bers, seed=-7, axis=1,
+                                          use_kernel=True)
+        exp = ops.inject_bitflips_sharded(x, bers, seed=-7, axis=1)
+        torch.cuda.synchronize()
+        err = max_abs_err(out, exp)
+        check(err == 0.0 and torch.equal(out, exp),
+              f"counter_upset_shards {shape}: max |err| {err}")
+        check(kernels.launch_counts()["counter_upset_shards"] == 1,
+              f"counter upset launches {kernels.launch_counts()}")
+        flips = int((out != x).sum())
+        ck = lambda: ops.inject_bitflips_sharded(x, bers, seed=-7, axis=1,
+                                                 use_kernel=True)
+        cr = lambda: ops.inject_bitflips_sharded(x, bers, seed=-7, axis=1)
+        dev_ms, per_call = device_ms(ck, match="counter_upset")
+        check(per_call == 1, f"counter upset kernels per call {per_call}")
+        t_b, by = bound(8 * n, int_ops=COUNTER_INT_OPS * n,
+                        int_rate=int_rate)
+        rows["counter_upset_shards"].append(dict(
+            n=n, shape=list(shape), S=S, op=what, flips=flips,
+            max_abs_err=err, ms=cuda_time_ms(ck), dev_ms=dev_ms,
+            plain_ms=cuda_time_ms(cr, iters=3, warmup=1), bound_ms=t_b,
+            bound_by=by, library_ms=None))
+        del x, out, exp
+    torch.cuda.empty_cache()
+    return rows
+
+
+def mesh_reduced_vs_cpu(dev) -> dict:
+    """Reduced llama3_8b (tp = 4 and 3), qwen3_moe_235b and
+    whisper_large_v3 (tp = 4) served by ``MeshServeEngine`` on the card's
+    fused route and on the CPU (plain versions), float32, from one shard
+    fleet: the tokens must be equal."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import family
+    from repro_torch.serve.sharded import MeshServeEngine
+    from repro_torch.tree import tree_map
+    out = {}
+    for arch, tp, kw in (("llama3_8b", 4, {}), ("llama3_8b", 3, {}),
+                         ("qwen3_moe_235b", 4, {"temperature": 0.8,
+                                                "top_k": 8}),
+                         ("whisper_large_v3", 4, {})):
+        cfg = get_config(arch).reduced()
+        p_cpu = family.init_params(cfg, 1, torch.float32, device="cpu")
+        p_gpu = tree_map(lambda t: t.to(dev), p_cpu)
+        fleet = _mesh_fleet("cpu", tp)
+        rng = np.random.default_rng(tp)
+        prompts = rng.integers(0, cfg.vocab, (2, 12)).astype(np.int32)
+        extra = {}
+        if cfg.n_encoder_layers:
+            extra["frames"] = rng.standard_normal(
+                (2, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+        toks = {}
+        for name, p, d in (("cuda", p_gpu, dev), ("cpu", p_cpu, "cpu")):
+            toks[name] = MeshServeEngine(
+                cfg, p, tp=tp, fleet=fleet, max_len=32, seed=5,
+                serve_dtype=torch.float32, device=d).generate(
+                    prompts, 6, **kw, **extra).tokens
+        check(np.array_equal(toks["cuda"], toks["cpu"]),
+              f"reduced {arch} tp={tp}: card tokens {toks['cuda'].tolist()}"
+              f" != CPU {toks['cpu'].tolist()}")
+        out[f"{arch}_tp{tp}"] = toks["cuda"].tolist()
+    return out
+
+
+def mesh_phase(dev, layers: int, single_counts: dict) -> dict:
+    """[15] cell 15: one device of ``MESH_TP`` shards aged ``MESH_AGES`` on
+    its own, llama3_8b at its published widths, bf16, the fused route."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.benchmarks import mesh_bench
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch import serve
+    from repro_torch.models.transformer import init_params
+    from repro_torch.obs.taps import enable_taps
+    from repro_torch.serve.sharded import MeshServeEngine
+    t_phase = time.perf_counter()
+    parts = {}
+
+    def lap(name):
+        parts[name] = time.perf_counter() - t_phase - sum(parts.values())
+    cfg = dataclasses.replace(get_config("llama3_8b"), n_layers=layers)
+    L = cfg.n_layers
+    params = init_params(cfg, seed=0, dtype=torch.bfloat16, device=dev)
+    fleet = _mesh_fleet(dev)
+    eng = MeshServeEngine(cfg, params, tp=MESH_TP, fleet=fleet, max_len=64,
+                          device=dev)
+    check(eng.tp == MESH_TP and eng.specs["layers"][0]["attn"]["wq"]
+          == (None, "model", None), f"mesh engine tp {eng.tp}")
+    prompts = SyntheticLM(vocab=cfg.vocab, seq_len=16,
+                          global_batch=2).batch_at(0).tokens
+    eng.generate(prompts, 2)                                 # warm-up
+    res = {"layers": L, "tp": MESH_TP, "ages_years": list(MESH_AGES),
+           "parts_s": parts}
+    lap("init")
+    want = {"fused_aged_matmul_shards": 7 * L * MESH_STEPS,
+            "counter_upset_shards": 2 * L * MESH_STEPS}
+    check(want["fused_aged_matmul_shards"]
+          == single_counts["fused_aged_matmul"]
+          and want["counter_upset_shards"] == single_counts["bitflip_draw"],
+          f"cell 15's launches {want} != [4]'s single-device fused count "
+          f"{single_counts}")
+    totals = dict.fromkeys(kernels.KERNEL_NAMES, 0)
+    for mode, kw in (("greedy", {}),
+                     ("sampled", {"temperature": 0.8, "top_k": 50})):
+        torch.cuda.reset_peak_memory_stats(dev)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        with enable_taps():
+            out = eng.generate(prompts, MESH_STEPS, **kw)
+        wall = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        by_path = kernels.launch_counts_by_path()
+        for k in totals:
+            totals[k] += counts[k]
+        check(all(counts[k] == want.get(k, 0) for k in counts),
+              f"cell 15 {mode} launches {counts} != {want}")
+        check(by_path["fused_aged_matmul_shards"]
+              == {"fast": want["fused_aged_matmul_shards"], "generic": 0},
+              f"shard GEMM launches off the fast path: {by_path}")
+        tok = out.tokens
+        check(tok.shape == (2, MESH_STEPS)
+              and bool(((tok >= 0) & (tok < cfg.vocab)).all()),
+              f"cell 15 tokens {tok.tolist()}")
+        check(all(np.isfinite(v).all() for v in out.telemetry.values()),
+              "cell 15 logit taps not finite")
+        pf, dc = out.timings["prefill_s"], out.timings["decode_s"]
+        res[mode] = {"tokens": tok.tolist(), "wall_s": wall,
+                     "prefill_ms": pf * 1e3,
+                     "decode_ms_per_token": dc / (MESH_STEPS - 1) * 1e3,
+                     "tokens_per_s": 2 * MESH_STEPS / wall,
+                     "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+                     "launches": counts,
+                     "launches_per_forward": {
+                         k: counts[k] / MESH_STEPS for k in want}}
+        lap(mode)
+    bers = out.bers
+    q = out.operators.index("q")
+    check(bers.shape == (MESH_TP, len(out.operators))
+          and len(np.unique(bers[:, q])) == MESH_TP,
+          f"served per-shard BERs do not differ: {bers[:, q].tolist()}")
+    res["bers"] = {op: bers[:, i].tolist()
+                   for i, op in enumerate(out.operators)}
+    res["power_w"] = out.power_w
+    res["host_syncs"] = decode_syncs(eng, prompts)
+    lap("syncs")
+    res["profile"] = profile_generate(eng, prompts, 7 * L * 2)
+    lap("profile")
+    del eng, params
+    torch.cuda.empty_cache()
+
+    res["kernel_rows"] = mesh_kernel_rows(dev, cfg,
+                                          get_config("whisper_large_v3"))
+    lap("kernel_rows")
+    res["reduced_vs_cpu"] = mesh_reduced_vs_cpu(dev)
+    lap("reduced_vs_cpu")
+
+    # the entry points through their main(argv), in this process
+    argv = ["--arch", "llama3_8b", "--mesh", "--tp", str(MESH_TP),
+            "--router", "static", "--gen-len", "8", "--prompt-len", "16",
+            "--batch", "2"]
+    kernels.reset_launch_counts()
+    cli, cli_s = _captured("serve_mesh", lambda: serve.main(argv))
+    counts = kernels.launch_counts()
+    small = get_config("llama3_8b").reduced()
+    check(cli.tokens.shape == (2, 8) and cli.bers.shape[0] == MESH_TP
+          and counts["fused_aged_matmul_shards"] == 7 * small.n_layers * 8
+          and counts["counter_upset_shards"] == 2 * small.n_layers * 8,
+          f"serve --mesh: tokens {cli.tokens.shape}, launches {counts}")
+    cpu, _ = _captured("serve_mesh_cpu", lambda: serve.main(
+        argv + ["--torch-device", "cpu"]))
+    res["serve_mesh"] = {"argv": argv, "seconds": cli_s, "launches": counts,
+                         "tokens": cli.tokens.tolist(),
+                         "cpu_tokens": cpu.tokens.tolist(),
+                         "equal_to_cpu": bool(np.array_equal(cli.tokens,
+                                                             cpu.tokens))}
+    for k in totals:
+        totals[k] += counts[k]
+    lap("serve_mesh")
+    kernels.reset_launch_counts()
+    rc, bench_s = _captured("mesh_bench", lambda: mesh_bench.main(
+        ["--quick", "--out", str(ENTRY_DIR / "mesh_bench.json")]))
+    counts = kernels.launch_counts()
+    check(rc == 0, "mesh_bench: a check FAILED (chiprun_out/entry_points/"
+          "mesh_bench.log)")
+    res["mesh_bench"] = json.loads((ENTRY_DIR / "mesh_bench.json")
+                                   .read_text())["rows"]
+    res["mesh_bench"]["seconds"] = bench_s
+    for k in totals:
+        totals[k] += counts[k]
+    lap("mesh_bench")
+    res["launches"] = totals
+    res["seconds"] = time.perf_counter() - t_phase
+    torch.cuda.empty_cache()
+    return res
+
+
+def print_mesh(res: dict, smi_line: str) -> None:
+    g, s = res["greedy"], res["sampled"]
+    print(f"[15] llama3_8b full width ({res['layers']} layers), one device "
+          f"of tp={res['tp']} shards aged {res['ages_years']} y, bf16, "
+          f"fused route ({smi_line}): greedy prefill {g['prefill_ms']:.1f} "
+          f"ms, decode {g['decode_ms_per_token']:.1f} ms/token, "
+          f"{g['tokens_per_s']:.2f} tok/s; sampled (T=0.8, top_k=50) "
+          f"prefill {s['prefill_ms']:.1f} ms, decode "
+          f"{s['decode_ms_per_token']:.1f} ms/token; peak "
+          f"{max(g['peak_gb'], s['peak_gb']):.2f} GB", flush=True)
+    p = res["profile"]
+    print(f"    per forward: {g['launches_per_forward']} (== [4]'s fused "
+          f"and draw launches); per-shard BER(q) "
+          + ", ".join(f"{b:.3e}" for b in res["bers"]["q"])
+          + f"; host syncs at 2 / 8 tokens {res['host_syncs']}; prefill + "
+          f"1 decode step {p['wall_ms']:.1f} ms, device busy "
+          f"{100 * p['device_busy_share']:.1f}% over "
+          f"{p['n_kernel_launches']} kernels (profile "
+          f"{'complete' if p['complete'] else 'INCOMPLETE'})", flush=True)
+    for r in res["kernel_rows"]["fused_aged_matmul_shards"]:
+        lib = "-" if r["int_mm_dev_ms"] is None \
+            else f"{r['int_mm_dev_ms'] * 1e3:.1f}"
+        print(f"    fused_aged_matmul_shards M={r['M']:<3d} K={r['K']:<5d} "
+              f"N={r['N']:<5d} S={r['S']} {r['op']:8s} exact; device "
+              f"{r['dev_ms'] * 1e3:.1f} us (unsharded "
+              f"{r['unsharded_dev_ms'] * 1e3:.1f}), wrapper "
+              f"{r['ms'] * 1e3:.1f} us, bound {r['bound_ms'] * 1e3:.1f} us "
+              f"({r['bound_by']}), _int_mm dev {lib} us, plain "
+              f"{r['plain_ms']:.3f} ms", flush=True)
+    for r in res["kernel_rows"]["counter_upset_shards"]:
+        print(f"    counter_upset_shards n={r['n']:<9d} {r['op']:20s} exact "
+              f"({r['flips']} flips); device {r['dev_ms'] * 1e3:.1f} us, "
+              f"wrapper {r['ms'] * 1e3:.1f} us, bound "
+              f"{r['bound_ms'] * 1e3:.1f} us ({r['bound_by']}), plain "
+              f"{r['plain_ms']:.3f} ms", flush=True)
+    sm = res["serve_mesh"]
+    print(f"    reduced llama3_8b tp=4 / 3, qwen3_moe_235b, whisper_large_v3"
+          f" card == CPU; serve --mesh --tp {res['tp']} {sm['seconds']:.1f} s"
+          f" (bf16 tokens == CPU: {sm['equal_to_cpu']}); mesh_bench --quick "
+          f"{res['mesh_bench']['seconds']:.1f} s, all PASS", flush=True)
+    print(f"    [15] done in {res['seconds']:.1f} s ("
+          + ", ".join(f"{k} {v:.1f}" for k, v in res["parts_s"].items())
+          + ")", flush=True)
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--layers", type=int, default=32,
@@ -4438,6 +4815,12 @@ def main(argv=None) -> int:
     online_counts = report["online"]["launches"]
     stamp("14")
 
+    # 15. mesh serving: one device of tp shards, each aged on its own ------
+    report["mesh"] = mesh_phase(dev, args.layers, main_counts)
+    print_mesh(report["mesh"], smi_line)
+    mesh_counts = report["mesh"]["launches"]
+    stamp("15")
+
     # 11. summary ---------------------------------------------------------
     # launches summed over the ten paths' runs, each counted from 0; the
     # explicit-randoms bitflip_words is on no path any more: it stays the
@@ -4448,6 +4831,7 @@ def main(argv=None) -> int:
                 + moe_fleet_counts[name] + train_counts[name]
                 + resilience_counts[name] + family_counts[name]
                 + entry_counts[name] + online_counts[name]
+                + mesh_counts[name]
                 for name in kernels.KERNEL_NAMES}
     # the representative shape of each kernel: the decode weight matmul
     # that dominates the fused route (gate/up, M = 2; 4 x 2 in lane mode),
@@ -4461,11 +4845,16 @@ def main(argv=None) -> int:
             and r["op"] == "gate/up" and r["model"] == "llama3_8b",
             "bitflip_draw": lambda r: r["n"] == 131072,
             "bitflip_draw_lanes": lambda r: r["n"] == 4 * 131072,
-            "bitflip_words": lambda r: r["R"] == 1024}
+            "bitflip_words": lambda r: r["R"] == 1024,
+            "fused_aged_matmul_shards": lambda r: r["M"] == 2
+            and r["op"] == "gate/up",
+            "counter_upset_shards": lambda r: r["op"] == "llama qkt prefill"}
+    rows.update(report["mesh"]["kernel_rows"])
     line = []
     for name in ("fused_aged_matmul", "fused_aged_matmul_lanes",
-                 "bitflip_draw", "bitflip_draw_lanes", "bitflip_words",
-                 "systolic_matmul"):
+                 "fused_aged_matmul_shards", "bitflip_draw",
+                 "bitflip_draw_lanes", "counter_upset_shards",
+                 "bitflip_words", "systolic_matmul"):
         r = next(r for r in rows[name] if pick[name](r))
         line.append({
             "name": name, "route": "cuda", "source": SOURCE,

@@ -1,5 +1,5 @@
 """Serving-time integration of the AVS policy (port of
-``repro.core.fleet`` without mesh shards).
+``repro.core.fleet``).
 
 :class:`FleetRuntime` holds N devices x O operator voltage domains.  All
 N x O lifetime trajectories come from one batched :func:`simulate` call
@@ -19,8 +19,17 @@ probability by value.
 instead (:func:`repro_torch.sched.lifetime.cosimulate`, on the fleet's
 device) and serves from that trajectory; :meth:`trap_state`,
 :meth:`state_dict` / :meth:`load_state_dict` and :meth:`resize` carry the
-exact aging state across a restart or a retirement.  Mesh shards
-(``n_shards > 1``) are not ported.
+exact aging state across a restart or a retirement.
+
+With ``n_shards=S > 1`` every device is split into S mesh shards (the
+tensor-parallel partitions :class:`repro_torch.serve.sharded.
+MeshServeEngine` serves), each an aging unit of its own: the fleet holds
+``N * S`` units device-major (device ``d``'s shards are units ``d * S ..
+d * S + S - 1``) and the machinery above runs over them unchanged.
+:meth:`FleetRuntime.op_ber_shard_array` is the ``(N, S, O)`` view the mesh
+engine serves; :meth:`FleetRuntime.op_ber_array` and ``op_bers`` take the
+per-domain max over a device's shards (a domain is only as reliable as its
+worst shard).
 """
 from __future__ import annotations
 
@@ -29,6 +38,7 @@ import json
 from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
+import torch
 
 from ..device import resolve_device
 from .aging import N_POP
@@ -81,7 +91,8 @@ class DomainState:
 
 @dataclasses.dataclass(frozen=True)
 class FleetState:
-    """Snapshot of the whole fleet; every field has shape ``(N, O)``."""
+    """Snapshot of the whole fleet; every field has shape ``(N*S, O)``
+    (aging units x operators; units are devices when unsharded)."""
     v_dd: np.ndarray
     delay: np.ndarray
     dvth_p_mv: np.ndarray
@@ -109,9 +120,8 @@ class FleetRuntime:
         its own ``max_loss_pct`` leaf, and a batched one sets
         ``n_devices``."""
         self.torch_device = resolve_device(device)
-        if n_shards != 1:
-            raise NotImplementedError("mesh shards (n_shards > 1) are not "
-                                      "ported")
+        if int(n_shards) < 1:
+            raise ValueError(f"n_shards must be >= 1, got {n_shards}")
         self.cal = cal or load_calibration()
         self.operators = tuple(operators)
         if policy == "fault_tolerant":
@@ -143,11 +153,21 @@ class FleetRuntime:
             n_devices = sbatch[0]
         self.scenario = scenario
         self.n_devices = int(n_devices)
-        self.n_shards = 1
+        self.n_shards = int(n_shards)
+        self._n_units = self.n_devices * self.n_shards
+        if sbatch and self.n_shards > 1:
+            # unit-granular scenario: every shard of a device inherits the
+            # device's mission profile (device-major repeat)
+            self._unit_scenario = scenario.map_leaves(
+                lambda v: torch.repeat_interleave(v, self.n_shards, dim=0)
+                if v.dim() else v)
+        else:
+            self._unit_scenario = scenario
         self._power = self.cal.power
-        self._ages_s = np.zeros(self.n_devices, np.float64)
+        self._ages_s = np.zeros(self._n_units, np.float64)
         self._traj: Optional[LifetimeTrajectory] = None
         self._snap: Optional[FleetState] = None
+        self._ber_shard: Optional[np.ndarray] = None
         # the relaxed-pool series of the last traffic co-sim ((N, O, T, P);
         # None for a monotone run), and an exact trap state staged by
         # load_state_dict / resize for the next apply_load to resume from
@@ -170,14 +190,14 @@ class FleetRuntime:
         return cls(operators=ops, curves=default_curves(ops), **kw)
 
     def _ensure_trajs(self) -> LifetimeTrajectory:
-        """(N, O, T) trajectories from one simulation over the O domains
-        (of every device's profile, when the scenario is batched)."""
+        """(N*S, O, T) trajectories from one simulation over the O domains
+        (of every unit's profile, when the scenario is batched)."""
         if self._traj is None:
-            dmax = self.policy.thresholds(self.scenario, self.operators)
-            traj = _simulated(self.cal, self.scenario, dmax,
-                              self.torch_device)
-            target = lambda v: (self.n_devices,) + v.shape[
-                len(self.scenario.batch_shape):]
+            scn = self._unit_scenario
+            dmax = self.policy.thresholds(scn, self.operators)
+            traj = _simulated(self.cal, scn, dmax, self.torch_device)
+            target = lambda v: (self._n_units,) + v.shape[
+                len(scn.batch_shape):]
             self._traj = LifetimeTrajectory(**{
                 k: np.broadcast_to(v, target(v))
                 for k, v in traj.to_dict().items()})
@@ -185,14 +205,14 @@ class FleetRuntime:
 
     @property
     def trajectories(self) -> LifetimeTrajectory:
-        """(N, O, T) lifetime trajectories (lazily computed, cached)."""
+        """(N*S, O, T) lifetime trajectories (lazily computed, cached)."""
         return self._ensure_trajs()
 
     @property
     def unit_scenario(self) -> Scenario:
-        """The per-aging-unit scenario (the device scenario: the port has
-        no mesh shards)."""
-        return self.scenario
+        """The per-aging-unit scenario: the device scenario when
+        unsharded, its device-major shard repeat when ``n_shards > 1``."""
+        return self._unit_scenario
 
     def health(self, **kw):
         """Fleet "aging odometer" snapshot
@@ -237,17 +257,20 @@ class FleetRuntime:
 
         if util_trace is not None:
             util_trace = np.asarray(util_trace, np.float32)
+            if self.n_shards > 1 and util_trace.shape[-1] == self.n_devices:
+                # a device-granular duty replayed onto every shard of it
+                util_trace = np.repeat(util_trace, self.n_shards, axis=-1)
             n_epochs = util_trace.shape[0]
             if loads is None:
                 loads = util_trace.sum(axis=-1)
         elif loads is None:
             wl = workload if isinstance(workload, Workload) else \
-                get_workload(workload, n_devices=self.n_devices,
+                get_workload(workload, n_devices=self._n_units,
                              utilization=utilization, n_epochs=n_epochs)
             loads = wl.loads(key, device=self.torch_device)
         loads = loads.cpu().numpy() if hasattr(loads, "cpu") else \
             np.asarray(loads, np.float32)
-        dmax = self.policy.thresholds(self.scenario, self.operators)
+        dmax = self.policy.thresholds(self._unit_scenario, self.operators)
 
         dv0 = v0 = rec0 = None
         if self._pending is not None:       # exact staged state, consumed
@@ -266,15 +289,15 @@ class FleetRuntime:
         kw = {} if heat_per_util is None else \
             {"heat_per_util": heat_per_util}
         cos = sched_lifetime.cosimulate(
-            self.cal.aging, self.cal.delay_poly, self.scenario, dmax,
+            self.cal.aging, self.cal.delay_poly, self._unit_scenario, dmax,
             loads, router=router, util_trace=util_trace,
-            n_devices=self.n_devices, epoch_s=horizon_s / loads.shape[0],
+            n_devices=self._n_units, epoch_s=horizon_s / loads.shape[0],
             capacity=capacity, dv0=dv0, v0=v0, recovery_dynamics=recovery,
             thermal=thermal, rec0=rec0, device=self.torch_device, **kw)
         self._traj = cos.as_lifetime_trajectory()
         self._rec_nop = (np.moveaxis(cos.rec, 0, 2)
                          if cos.rec is not None else None)
-        self._snap = None
+        self._invalidate()
         # service-time clock, positioned at the end of the routed horizon
         self._ages_s[:] = float(cos.t[-1])
         self.last_cosim = cos
@@ -282,20 +305,33 @@ class FleetRuntime:
 
     def _invalidate(self):
         self._snap = None
+        self._ber_shard = None
 
-    def set_age(self, *, years=None, seconds=None, device=None):
-        """Set the simulated age of one device (or the whole fleet); an
-        explicit age overrides a staged trap state."""
+    def _unit_sel(self, device, shard):
+        """Index of the addressed aging units: a device's shards, one
+        shard of a device, that shard of every device, or all."""
+        S = self.n_shards
+        if device is None:
+            return slice(None) if shard is None else slice(shard, None, S)
+        if shard is None:
+            return slice(device * S, (device + 1) * S)
+        return device * S + shard
+
+    def set_age(self, *, years=None, seconds=None, device=None, shard=None):
+        """Set the simulated age of one device or shard (``shard`` within
+        ``device``, or that shard of every device when ``device`` is None),
+        or of the whole fleet; an explicit age overrides a staged trap
+        state."""
         if (years is None) == (seconds is None):
             raise ValueError("pass exactly one of years= and seconds=")
         age = float(seconds if seconds is not None
                     else years * SECONDS_PER_YEAR)
-        self._ages_s[slice(None) if device is None else device] = age
+        self._ages_s[self._unit_sel(device, shard)] = age
         self._pending = None
         self._invalidate()
 
-    def advance(self, seconds, device=None):
-        sel = slice(None) if device is None else device
+    def advance(self, seconds, device=None, shard=None):
+        sel = self._unit_sel(device, shard)
         self._ages_s[sel] = self._ages_s[sel] + np.asarray(seconds,
                                                            np.float64)
         self._pending = None
@@ -303,8 +339,12 @@ class FleetRuntime:
 
     @property
     def ages_years(self) -> np.ndarray:
-        """(N,) device ages in years."""
-        return self._ages_s / SECONDS_PER_YEAR
+        """(N,) device ages in years, or (N, S) shard ages when
+        sharded."""
+        yrs = self._ages_s / SECONDS_PER_YEAR
+        if self.n_shards == 1:
+            return yrs
+        return yrs.reshape(self.n_devices, self.n_shards)
 
     @property
     def age_years(self) -> float:
@@ -312,8 +352,8 @@ class FleetRuntime:
         return float(self._ages_s[0]) / SECONDS_PER_YEAR
 
     def snapshot(self) -> FleetState:
-        """State of every (device, operator) domain at the current ages
-        (cached between age changes)."""
+        """State of every (unit, operator) domain at the current ages,
+        ``(N*S, O)`` arrays (cached between age changes)."""
         if self._snap is None:
             traj = self._ensure_trajs()
             idx = traj.age_index(self._ages_s[:, None])[..., None]
@@ -328,10 +368,10 @@ class FleetRuntime:
         return self._snap
 
     def trap_state(self) -> Dict[str, np.ndarray]:
-        """Exact per-(device, operator) aging state at the current ages:
-        ``{"ages_s": (N,), "dv": (N, O, P) monotone shifts [mV], "rec":
-        the recoverable pool (zeros unless a recovery run), "v": (N, O)
-        supplies [V]}`` — what a co-sim resume consumes, gathered by the
+        """Exact per-(unit, operator) aging state at the current ages:
+        ``{"ages_s": (N*S,), "dv": (N*S, O, P) monotone shifts [mV],
+        "rec": the recoverable pool (zeros unless a recovery run), "v":
+        (N*S, O) supplies [V]}`` — what a co-sim resume consumes, gathered by the
         same age lookup ``apply_load`` uses."""
         if self._pending is not None:
             return {"ages_s": self._ages_s.copy(),
@@ -355,7 +395,7 @@ class FleetRuntime:
         st = self.trap_state()
         return {"version": 1,
                 "operators": list(self.operators),
-                "n_shards": 1,
+                "n_shards": self.n_shards,
                 "ages_s": np.asarray(st["ages_s"], np.float64).tolist(),
                 "dv_mv": np.asarray(st["dv"], np.float64).tolist(),
                 "rec_mv": np.asarray(st["rec"], np.float64).tolist(),
@@ -369,14 +409,14 @@ class FleetRuntime:
         if ops != self.operators:
             raise ValueError(f"operator mismatch: {ops} vs "
                              f"{self.operators}")
-        if int(d.get("n_shards", 1)) != 1:
-            raise NotImplementedError("mesh shards (n_shards > 1) are not "
-                                      "ported")
+        if int(d.get("n_shards", self.n_shards)) != self.n_shards:
+            raise ValueError(f"n_shards mismatch: {d['n_shards']} vs "
+                             f"{self.n_shards}")
         dv = np.asarray(d["dv_mv"], np.float32)
         v = np.asarray(d["v"], np.float32)
         rec = (np.asarray(d["rec_mv"], np.float32) if "rec_mv" in d
                else np.zeros_like(dv))
-        want = (self.n_devices, len(self.operators), N_POP)
+        want = (self._n_units, len(self.operators), N_POP)
         if dv.shape != want or rec.shape != want or v.shape != want[:2]:
             raise ValueError(f"state shapes {dv.shape}/{rec.shape}/"
                              f"{v.shape} do not fit {want}")
@@ -393,7 +433,11 @@ class FleetRuntime:
         service clocks), staged for the next ``apply_load``; fresh devices
         start at zero.  On a batched-scenario fleet each fresh device
         takes the mission profile of a retired slot (the same rack seat).
+        Resizing is device-granular: a sharded fleet is refused.
         """
+        if self.n_shards != 1:
+            raise ValueError("resize is device-granular; reshape sharded "
+                             "fleets upstream")
         keep = np.asarray(keep, int)
         if keep.size != np.unique(keep).size or \
                 not ((keep >= 0) & (keep < self.n_devices)).all():
@@ -431,31 +475,56 @@ class FleetRuntime:
     def op_index(self, op: str) -> int:
         return self.operators.index(op)
 
-    def domain_state(self, op: str, device: int = 0) -> DomainState:
-        return self.snapshot().domain(device, self.op_index(op))
+    def domain_state(self, op: str, device: int = 0,
+                     shard: int = 0) -> DomainState:
+        return self.snapshot().domain(device * self.n_shards + shard,
+                                      self.op_index(op))
 
-    def op_ber(self, op: str, device: int = 0) -> float:
-        return self.op_bers(device)[op]
+    def op_ber(self, op: str, device: int = 0, shard=None) -> float:
+        return self.op_bers(device, shard)[op]
 
-    def op_bers(self, device: int = 0) -> Dict[str, float]:
-        ber = self.snapshot().ber[device]
+    def op_bers(self, device: int = 0, shard=None) -> Dict[str, float]:
+        """Per-operator BERs of one device (its worst shard) or of one
+        shard."""
+        if shard is None and self.n_shards > 1:
+            ber = self.op_ber_array()[device]
+        else:
+            ber = self.snapshot().ber[device * self.n_shards + (shard or 0)]
         return {op: float(ber[i]) for i, op in enumerate(self.operators)}
 
     def op_ber_array(self) -> np.ndarray:
         """(N, O) BER matrix, columns ordered as ``self.operators``: what
-        the fleet serving engine hands its lanes."""
-        return self.snapshot().ber
+        the fleet serving engine hands its lanes.  A sharded device's row
+        is the per-domain max over its shards."""
+        ber = self.snapshot().ber
+        if self.n_shards == 1:
+            return ber
+        return ber.reshape(self.n_devices, self.n_shards, -1).max(axis=1)
+
+    def op_ber_shard_array(self) -> np.ndarray:
+        """(N, S, O) per-shard BERs, the mesh engine's view; the same
+        array object until the ages change."""
+        if self._ber_shard is None:
+            self._ber_shard = self.snapshot().ber.reshape(
+                self.n_devices, self.n_shards, len(self.operators))
+        return self._ber_shard
 
     def fleet_power(self) -> np.ndarray:
-        """(N,) per-device array power [W]."""
-        return self.snapshot().power_w.sum(axis=-1)
+        """(N,) per-device array power [W]; a sharded device draws the
+        mean of its shards' whole-array figures (each shard is 1/S of the
+        array)."""
+        p = self.snapshot().power_w.sum(axis=-1)
+        if self.n_shards == 1:
+            return p
+        return p.reshape(self.n_devices, self.n_shards).mean(axis=-1)
 
     def total_power(self, device: int = 0) -> float:
         return float(self.fleet_power()[device])
 
-    def summary(self, device: int = 0) -> Mapping[str, Dict]:
+    def summary(self, device: int = 0, shard: int = 0) -> Mapping[str, Dict]:
         s = self.snapshot()
-        return {op: dataclasses.asdict(s.domain(device, i))
+        unit = device * self.n_shards + shard
+        return {op: dataclasses.asdict(s.domain(unit, i))
                 for i, op in enumerate(self.operators)}
 
     def device(self, i: int = 0) -> "DeviceView":
@@ -486,7 +555,8 @@ class DeviceView:
 
     @property
     def age_years(self) -> float:
-        return float(self.fleet._ages_s[self.index]) / SECONDS_PER_YEAR
+        return float(self.fleet._ages_s[
+            self.index * self.fleet.n_shards]) / SECONDS_PER_YEAR
 
     def set_age(self, *, years=None, seconds=None):
         self.fleet.set_age(years=years, seconds=seconds, device=self.index)

@@ -1,2 +1,2 @@
-"""The distributed layer: so far only the mesh-free re-mesh planner
-(:mod:`.elastic`)."""
+"""The distributed layer: the sharding rules of the mesh layouts
+(:mod:`.sharding`) and the mesh-free re-mesh planner (:mod:`.elastic`)."""

@@ -98,10 +98,12 @@ def library() -> ctypes.CDLL:
             vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
             pu32 = ctypes.POINTER(ctypes.c_uint32)
             pf32 = ctypes.POINTER(ctypes.c_float)
+            pi32 = ctypes.POINTER(ctypes.c_int)
             lib.aged_int8_gemm.argtypes = [
                 vp, vp, vp, vp, vp, ci, ci, ci, ci,  # ... M, N, K, mode
                 ci, pu32, pf32,                    # lanes, seeds, qs
                 ci, ci, ci,                        # lbm, lbn, grid_n
+                ci, pi32, pi32, pi32,              # shards, bounds, bn, grid
                 ci, ci, ci, ci,                    # path, bm, bn, splits
                 vp, ll, vp, ll,                    # workspace and tickets
                 vp]
@@ -111,6 +113,10 @@ def library() -> ctypes.CDLL:
             lib.aged_bitflip.restype = ci
             lib.aged_bitflip_draw.argtypes = [vp, vp, ll, ci, pu32, pf32, vp]
             lib.aged_bitflip_draw.restype = ci
+            lib.aged_counter_upset.argtypes = [
+                vp, vp, ll, ll, ci, ll, ll, ci,    # x, out, R, D, by_row, ...
+                pi32, pi32, pi32, pi32, pu32, pf32, vp]
+            lib.aged_counter_upset.restype = ci
             lib.aged_error_string.argtypes = [ci]
             lib.aged_error_string.restype = ctypes.c_char_p
             _lib = lib
@@ -134,6 +140,10 @@ def _u32s(values):
 
 def _f32s(values):
     return (ctypes.c_float * len(values))(*(float(v) for v in values))
+
+
+def _i32s(values):
+    return (ctypes.c_int * len(values))(*(int(v) for v in values))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -239,14 +249,18 @@ def _workspace(device: torch.device, stream: int, plan: GemmPlan):
 
 def launch_gemm(a: torch.Tensor, b: torch.Tensor, out: torch.Tensor, *,
                 mode: int, xs=None, ws=None, seeds=(0,), qs=(0.0,),
-                lbm: int = 1, lbn: int = 1, grid_n: int = 1) -> str:
+                lbm: int = 1, lbn: int = 1, grid_n: int = 1,
+                shards=None) -> str:
     """int8 GEMM into ``out`` (int32, or float32 for the dequant mode), on
     :func:`gemm_plan`'s plan.
 
     ``seeds`` and ``qs`` hold one value per lane (at most
     :data:`MAX_LANES`); lane ``l`` owns rows ``[l * M_l, (l + 1) * M_l)`` of
-    ``a`` with ``M_l = M / lanes``.  Returns the path the plan took
-    (:data:`FAST` or :data:`GENERIC`).
+    ``a`` with ``M_l = M / lanes``.  With ``shards=(bounds, bns, grids)``
+    (shard mode, one lane) they hold one value per shard instead: shard
+    ``s`` owns columns ``[bounds[s], bounds[s + 1])`` and keys its stream
+    on the logical tile ``(lbm, bns[s])``, ``grids[s]`` tiles a row.
+    Returns the path the plan took (:data:`FAST` or :data:`GENERIC`).
     """
     M, K = a.shape
     N = b.shape[1]
@@ -259,7 +273,9 @@ def launch_gemm(a: torch.Tensor, b: torch.Tensor, out: torch.Tensor, *,
             parts, tickets = _workspace(a.device, stream, plan)
         code = library().aged_int8_gemm(
             _ptr(a), _ptr(b), _ptr(xs), _ptr(ws), _ptr(out), M, N, K, mode,
-            len(seeds), _u32s(seeds), _f32s(qs), lbm, lbn, grid_n,
+            1 if shards else len(seeds), _u32s(seeds), _f32s(qs), lbm, lbn,
+            grid_n, len(seeds) if shards else 0,
+            *((_i32s(t) for t in shards) if shards else (None,) * 3),
             _PATH_CODE[plan.path], plan.bm, plan.bn, plan.splits,
             _ptr(parts), 0 if parts is None else parts.numel(),
             _ptr(tickets), 0 if tickets is None else tickets.numel(), stream)
@@ -286,3 +302,20 @@ def launch_bitflip_draw(x, key_words, qs, out) -> None:
             _ptr(x), _ptr(out), x.numel() // lanes, lanes,
             _u32s([w for k in key_words for w in k]), _f32s(qs), stream)
     _check(code, "bitflip draw")
+
+
+def launch_counter_upset(x, out, qs, seeds, bounds, bms, bns, grids, *,
+                         by_row: bool, mid: int = 1, n_ax: int = 1) -> None:
+    """Counter-stream upsets of ``x`` viewed as ``(R, D)`` (its last axis
+    the columns) into ``out``, split into ``len(qs)`` shards (at most
+    :data:`MAX_LANES`) by column or, with ``by_row``, by the ``n_ax``
+    entries of a leading axis over rows of ``mid``."""
+    D = x.shape[-1]
+    R = x.numel() // D
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        code = library().aged_counter_upset(
+            _ptr(x), _ptr(out), R, D, int(by_row), mid, n_ax, len(qs),
+            _i32s(bounds), _i32s(bms), _i32s(bns), _i32s(grids),
+            _u32s(seeds), _f32s(qs), stream)
+    _check(code, "counter upset")

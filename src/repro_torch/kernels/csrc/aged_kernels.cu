@@ -21,6 +21,11 @@
 //   modes.  bitflip_kernel reads u and pos from device memory, signature for
 //   signature with the Pallas kernel.  bitflip_draw_kernel, the one the
 //   injection launches, draws them itself (see its note below).
+// * counter_upset_kernel: the fused kernel's counter-stream upset applied to an
+//   int32 accumulator split into shards (by column, or by the flattened heads
+//   of a leading axis), each shard at its own q and seed over its block's own
+//   tile grid: the qkt/sv injections of mesh serving (the reference's
+//   inject_bitflips_sharded, a jnp pass drawing the same stream).
 //
 // What bounds the GEMM on an H100: the serve path runs it at M = 2 (decode) or
 // 32 (prefill) against K x N weights of 4-58 MB, so every call is bound by the
@@ -65,6 +70,14 @@
 // of up to kMaxLanes lanes travel by value in the kernel's parameters (a
 // __grid_constant__ struct), so no host-to-device copy joins a launch; a
 // single device is the lane mode with L = 1.
+// Shard mode (the counterpart of the Pallas kernel under shard_map over the
+// output columns, which mesh serving relies on): `b`'s columns are split into
+// up to kMaxLanes blocks, and block s upsets its words at its own q from its own
+// seed over its BLOCK-LOCAL tile grid (logical tile lbm x bn[s], grid[s] tiles
+// a row, column c at c - bound[s]): what the kernel computes run on each block
+// alone.  One launch reads the weight once for every shard.  The shard is
+// looked up per column at the flush (per 8-column fragment on the fast path
+// when the fragment lies in one logical tile of one shard).
 // What is left off the bound is a fixed cost of a few microseconds per launch
 // (launch, the first round trip to device memory, the ticket, the flush): it
 // weighs on the small q/o and k/v shapes, not on gate/up and down (PERF.md
@@ -131,6 +144,41 @@ __device__ __forceinline__ LaneRow lane_row(const Lanes& lanes, int r) {
   return {lanes.seed[lane], lanes.q[lane], r - lane * lanes.rows};
 }
 
+// Shard (column-block) mode: the counterpart of the fused Pallas kernel run
+// under shard_map over the output columns.  Shard s owns columns
+// [bound[s], bound[s + 1]) and upsets them at q[s] from the stream of seed[s]
+// over its BLOCK-LOCAL tile grid: logical tile (lbm, bn[s]), grid[s] tiles a
+// row of tiles, column c at block column c - bound[s].  n == 0 is the plain
+// (lane) mode.  Up to kMaxLanes shards travel by value, like the lanes.
+struct Shards {
+  int n;
+  int bound[kMaxLanes + 1];
+  int bn[kMaxLanes];
+  int grid[kMaxLanes];
+  uint32_t seed[kMaxLanes];
+  float q[kMaxLanes];
+};
+
+// The shard owning column c, searched upwards from shard s (columns are
+// visited in increasing order, so the search is short).
+__device__ __forceinline__ int shard_of(const Shards& sh, int c, int s = 0) {
+  while (s + 1 < sh.n && c >= sh.bound[s + 1]) ++s;
+  return s;
+}
+
+// Word (r, c) of the GEMM at its flush in shard mode (r the row, lbm the
+// logical tile height shared by every shard).
+__device__ __forceinline__ int shard_word(int v, int r, int c, int s,
+                                          const Shards& sh, int lbm) {
+  const uint32_t lcol = static_cast<uint32_t>(c - sh.bound[s]);
+  const uint32_t bn = static_cast<uint32_t>(sh.bn[s]);
+  const uint32_t tile =
+      static_cast<uint32_t>(r / lbm) * static_cast<uint32_t>(sh.grid[s]) +
+      lcol / bn;
+  const uint32_t offset = static_cast<uint32_t>(r % lbm) * bn + lcol % bn;
+  return flip_word(v, counter_bits(offset, sh.seed[s], tile), sh.q[s]);
+}
+
 // Word (r, col) of a lane at its flush (r the lane-local row), drawn from
 // its logical tile's stream.
 __device__ __forceinline__ int upset_word(int v, int r, int col, uint32_t seed,
@@ -174,7 +222,8 @@ __global__ void __launch_bounds__(THREADS)
 int8_gemm_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
                  const float* __restrict__ xs, const float* __restrict__ ws,
                  void* __restrict__ out, int M, int N, int K,
-                 const __grid_constant__ Lanes lanes, int lbm, int lbn,
+                 const __grid_constant__ Lanes lanes,
+                 const __grid_constant__ Shards shards, int lbm, int lbn,
                  int grid_n) {
   // As[r][j]: a[m0+r][k0+4j .. k0+4j+3]; Bs[j][c]: b[k0+4j .. +3][n0+c],
   // both packed four K-consecutive int8 to a word for __dp4a.
@@ -244,13 +293,20 @@ int8_gemm_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
     const int r = m0 + ty * TM + i;
     if (r >= M) continue;
     const LaneRow lr = lane_row(lanes, r);
+    int s = shards.n ? shard_of(shards, n0 + tx * TN) : 0;
 #pragma unroll
     for (int c = 0; c < TN; ++c) {
       const int col = n0 + tx * TN + c;
       if (col >= N) continue;
       int v = acc[i][c];
-      if (MODE != kPlain)
-        v = upset_word(v, lr.row, col, lr.seed, lr.q, lbm, lbn, grid_n);
+      if (MODE != kPlain) {
+        if (shards.n) {
+          s = shard_of(shards, col, s);
+          v = shard_word(v, r, col, s, shards, lbm);
+        } else {
+          v = upset_word(v, lr.row, col, lr.seed, lr.q, lbm, lbn, grid_n);
+        }
+      }
       const size_t idx = static_cast<size_t>(r) * N + col;
       if (MODE == kUpsetDequant) {
         static_cast<float*>(out)[idx] =
@@ -427,8 +483,9 @@ int8_gemm_tc_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
                     const float* __restrict__ xs, const float* __restrict__ ws,
                     void* __restrict__ out, int2* __restrict__ partials,
                     int* __restrict__ tickets, int M, int N, int K, int splits,
-                    int mode, const __grid_constant__ Lanes lanes, int lbm,
-                    int lbn, int grid_n) {
+                    int mode, const __grid_constant__ Lanes lanes,
+                    const __grid_constant__ Shards shards, int lbm, int lbn,
+                    int grid_n) {
   extern __shared__ __align__(128) uint8_t smem[];
   __shared__ int last;
   const int owner = threadIdx.x % T::OWNERS, wk = threadIdx.x / T::OWNERS;
@@ -559,7 +616,36 @@ int8_gemm_tc_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
       v[j] = sum[i][j].x;
       v[4 + j] = sum[i][j].y;
     }
-    if (mode != kPlain) {
+    if (mode != kPlain && shards.n) {
+      const int s = shard_of(shards, c0);
+      const int lcol = c0 - shards.bound[s];
+      const int bn = shards.bn[s];
+      if (c0 + 8 <= shards.bound[s + 1] && bn % 8 == 0 && lcol % 8 == 0) {
+        // the eight columns share one logical tile of one shard: one
+        // stream constant, and word offsets off0 .. off0 + 7
+        const uint32_t sc = stream_constant(
+            shards.seed[s],
+            static_cast<uint32_t>(r / lbm) *
+                    static_cast<uint32_t>(shards.grid[s]) +
+                static_cast<uint32_t>(lcol / bn));
+        const uint32_t off0 =
+            static_cast<uint32_t>(r % lbm) * static_cast<uint32_t>(bn) +
+            static_cast<uint32_t>(lcol % bn);
+#pragma unroll
+        for (int u = 0; u < 8; ++u)
+          v[u] = flip_word(v[u], fmix32((off0 + u) * 0x9E3779B9u ^ sc),
+                           shards.q[s]);
+      } else {
+        // a shard boundary or a tile edge inside the eight columns: looked
+        // up per column, upwards from the first one's shard
+        int su = s;
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+          su = shard_of(shards, c0 + u, su);
+          v[u] = shard_word(v[u], r, c0 + u, su, shards, lbm);
+        }
+      }
+    } else if (mode != kPlain) {
       const LaneRow lr = lane_row(lanes, r);
       if (lbn % 8 == 0) {
         // the eight columns share a logical tile of the row's lane: one
@@ -600,15 +686,15 @@ int8_gemm_tc_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
 
 using LaunchFn = cudaError_t (*)(const int8_t*, const int8_t*, const float*,
                                  const float*, void*, int2*, int*, int, int,
-                                 int, int, int, const Lanes&, int, int, int,
-                                 cudaStream_t);
+                                 int, int, int, const Lanes&, const Shards&,
+                                 int, int, int, cudaStream_t);
 
 template <class T>
 cudaError_t launch(const int8_t* a, const int8_t* b, const float* xs,
                    const float* ws, void* out, int2* partials, int* tickets,
                    int M, int N, int K, int splits, int mode,
-                   const Lanes& lanes, int lbm, int lbn, int grid_n,
-                   cudaStream_t s) {
+                   const Lanes& lanes, const Shards& shards, int lbm, int lbn,
+                   int grid_n, cudaStream_t s) {
   // above 48 KB a kernel must opt in to its dynamic shared memory, once per
   // device
   static bool opted_in[64] = {};
@@ -624,8 +710,8 @@ cudaError_t launch(const int8_t* a, const int8_t* b, const float* xs,
   }
   const dim3 grid((N + T::BN - 1) / T::BN, (M + T::BM - 1) / T::BM, splits);
   int8_gemm_tc_kernel<T><<<grid, T::THREADS, T::SMEM, s>>>(
-      a, b, xs, ws, out, partials, tickets, M, N, K, splits, mode, lanes, lbm,
-      lbn, grid_n);
+      a, b, xs, ws, out, partials, tickets, M, N, K, splits, mode, lanes,
+      shards, lbm, lbn, grid_n);
   return cudaGetLastError();
 }
 
@@ -781,24 +867,78 @@ __global__ void bitflip_draw_kernel(const int* __restrict__ x_all,
   }
 }
 
+// Counter-stream upsets of an int32 accumulator (R, D) split into shards, the
+// counterpart of the reference's inject_bitflips_sharded (a pure-jnp pass that
+// draws the fused kernel's counter stream over each shard's block-local tile
+// grid): the qkt/sv injections under per-shard BERs.  Shard s upsets its words
+// at q[s] from the stream of seed[s], word (lrow, lcol) of its block drawing
+// counter_bits((lrow % bm) * bn + lcol % bn, seed, (lrow / bm) * grid + lcol /
+// bn) with its own (bm, bn, grid).  Two splits:
+//  - by column (by_row == 0): shard s owns columns [bound[s], bound[s + 1]),
+//    lrow = r, lcol = c - bound[s];
+//  - by a leading axis of n_ax entries (by_row == 1; the flattened heads):
+//    row r is entry h = (r / mid) % n_ax of batch row a = r / (mid * n_ax),
+//    shard s owns entries [bound[s], bound[s + 1]) and its block is (a, its
+//    entries, mid) flattened: lrow = (a * W_s + h - bound[s]) * mid + r % mid,
+//    lcol = c.
+// One thread a word; elementwise, bound by its 8 bytes a word and a few
+// integer divisions.
+struct UpsetShards {
+  int n, by_row;
+  long long mid, n_ax;
+  int bound[kMaxLanes + 1];
+  int bm[kMaxLanes];
+  int bn[kMaxLanes];
+  int grid[kMaxLanes];
+  uint32_t seed[kMaxLanes];
+  float q[kMaxLanes];
+};
+
+__global__ void counter_upset_kernel(const int* __restrict__ x,
+                                     int* __restrict__ out, long long R,
+                                     long long D,
+                                     const __grid_constant__ UpsetShards sh) {
+  const long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
+  if (i >= R * D) return;
+  const long long r = i / D, c = i % D;
+  int s = 0;
+  long long lrow = r, lcol = c;
+  if (sh.by_row) {
+    const long long h = (r / sh.mid) % sh.n_ax;
+    while (s + 1 < sh.n && h >= sh.bound[s + 1]) ++s;
+    const long long w = sh.bound[s + 1] - sh.bound[s];
+    lrow = ((r / (sh.mid * sh.n_ax)) * w + (h - sh.bound[s])) * sh.mid + r % sh.mid;
+  } else {
+    while (s + 1 < sh.n && c >= sh.bound[s + 1]) ++s;
+    lcol = c - sh.bound[s];
+  }
+  const uint32_t lr = static_cast<uint32_t>(lrow);
+  const uint32_t lc = static_cast<uint32_t>(lcol);
+  const uint32_t bm = static_cast<uint32_t>(sh.bm[s]);
+  const uint32_t bn = static_cast<uint32_t>(sh.bn[s]);
+  const uint32_t tile = (lr / bm) * static_cast<uint32_t>(sh.grid[s]) + lc / bn;
+  const uint32_t offset = (lr % bm) * bn + lc % bn;
+  out[i] = flip_word(x[i], counter_bits(offset, sh.seed[s], tile), sh.q[s]);
+}
+
 cudaError_t launch_generic(const int8_t* a, const int8_t* b, const float* xs,
                            const float* ws, void* out, int M, int N, int K,
-                           int mode, const Lanes& lanes, int lbm, int lbn,
-                           int grid_n, cudaStream_t s) {
+                           int mode, const Lanes& lanes, const Shards& shards,
+                           int lbm, int lbn, int grid_n, cudaStream_t s) {
   using namespace generic;
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
   switch (mode) {
     case kPlain:
       int8_gemm_kernel<kPlain><<<grid, THREADS, 0, s>>>(
-          a, b, xs, ws, out, M, N, K, lanes, lbm, lbn, grid_n);
+          a, b, xs, ws, out, M, N, K, lanes, shards, lbm, lbn, grid_n);
       break;
     case kUpset:
       int8_gemm_kernel<kUpset><<<grid, THREADS, 0, s>>>(
-          a, b, xs, ws, out, M, N, K, lanes, lbm, lbn, grid_n);
+          a, b, xs, ws, out, M, N, K, lanes, shards, lbm, lbn, grid_n);
       break;
     default:
       int8_gemm_kernel<kUpsetDequant><<<grid, THREADS, 0, s>>>(
-          a, b, xs, ws, out, M, N, K, lanes, lbm, lbn, grid_n);
+          a, b, xs, ws, out, M, N, K, lanes, shards, lbm, lbn, grid_n);
   }
   return cudaGetLastError();
 }
@@ -814,25 +954,47 @@ extern "C" {
 // kMaxLanes, M a multiple of lanes; read by the upset modes only), copied into
 // the launch's parameters.  Returns the cudaError_t of the launch (0 on
 // success).
+// Shard mode (n_shards >= 1, upset modes only, lanes == 1): `seeds` and `qs`
+// hold one value per shard instead, and `bounds` (n_shards + 1 ascending
+// column bounds from 0 to N), `bns` and `grids` (each shard's logical tile
+// width and tiles a row) say which columns each shard owns and how its
+// stream is keyed; lbn and grid_n are then unused.
 int aged_int8_gemm(const void* a, const void* b, const void* xs, const void* ws,
                    void* out, int M, int N, int K, int mode, int lanes,
                    const uint32_t* seeds, const float* qs, int lbm, int lbn,
-                   int grid_n, int path, int bm, int bn, int splits,
+                   int grid_n, int n_shards, const int* bounds, const int* bns,
+                   const int* grids, int path, int bm, int bn, int splits,
                    void* partials, long long partial_words, void* tickets,
                    long long n_tickets, void* stream) {
   const int invalid = static_cast<int>(cudaErrorInvalidValue);
   if (M <= 0 || N <= 0 || K < 0 || lbm <= 0 || lbn <= 0 || mode < kPlain ||
       mode > kUpsetDequant || (mode == kUpsetDequant && (!xs || !ws)) ||
       lanes < 1 || lanes > kMaxLanes || M % lanes ||
-      (mode != kPlain && (!seeds || !qs)))
+      (mode != kPlain && (!seeds || !qs)) || n_shards < 0 ||
+      n_shards > kMaxLanes ||
+      (n_shards && (mode == kPlain || lanes != 1 || !bounds || !bns || !grids)))
     return invalid;
   Lanes ln{};
   ln.rows = M / lanes;
-  if (mode != kPlain)
+  Shards sh{};
+  sh.n = n_shards;
+  if (n_shards) {
+    if (bounds[0] != 0 || bounds[n_shards] != N) return invalid;
+    for (int i = 0; i < n_shards; ++i) {
+      if (bounds[i + 1] < bounds[i] || bns[i] <= 0 || grids[i] <= 0)
+        return invalid;
+      sh.bn[i] = bns[i];
+      sh.grid[i] = grids[i];
+      sh.seed[i] = seeds[i];
+      sh.q[i] = qs[i];
+    }
+    for (int i = 0; i <= n_shards; ++i) sh.bound[i] = bounds[i];
+  } else if (mode != kPlain) {
     for (int l = 0; l < lanes; ++l) {
       ln.seed[l] = seeds[l];
       ln.q[l] = qs[l];
     }
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* a8 = static_cast<const int8_t*>(a);
   const auto* b8 = static_cast<const int8_t*>(b);
@@ -841,7 +1003,7 @@ int aged_int8_gemm(const void* a, const void* b, const void* xs, const void* ws,
   if (path == kGeneric) {
     if (bm != generic::BM || bn != generic::BN || splits != 1) return invalid;
     return static_cast<int>(launch_generic(a8, b8, xsf, wsf, out, M, N, K, mode,
-                                           ln, lbm, lbn, grid_n, s));
+                                           ln, sh, lbm, lbn, grid_n, s));
   }
   if (path != kFast) return invalid;
   const long long kblocks = (K + tc::BK - 1) / tc::BK;
@@ -862,7 +1024,7 @@ int aged_int8_gemm(const void* a, const void* b, const void* xs, const void* ws,
       return static_cast<int>(c.fn(a8, b8, xsf, wsf, out,
                                    static_cast<int2*>(partials),
                                    static_cast<int*>(tickets), M, N, K, splits,
-                                   mode, ln, lbm, lbn, grid_n, s));
+                                   mode, ln, sh, lbm, lbn, grid_n, s));
   return invalid;
 }
 
@@ -906,6 +1068,46 @@ int aged_bitflip_draw(const void* x, void* out, long long n, int lanes,
                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(x), static_cast<int*>(out), n,
       ((xa ^ oa) & 15u) == 0, dl);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Counter-stream upsets of x (R, D) int32 into out, one launch: n_shards
+// shards (1 <= n_shards <= kMaxLanes) split the columns (by_row == 0) or the
+// n_ax entries of a leading axis over rows of mid (by_row == 1), shard i
+// owning [bounds[i], bounds[i + 1]) with the logical tile (bms[i], bns[i]),
+// grids[i] tiles a row, seed seeds[i] and upset probability qs[i]: host
+// arrays, copied into the launch's parameters.
+int aged_counter_upset(const void* x, void* out, long long R, long long D,
+                       int by_row, long long mid, long long n_ax, int n_shards,
+                       const int* bounds, const int* bms, const int* bns,
+                       const int* grids, const uint32_t* seeds, const float* qs,
+                       void* stream) {
+  const int invalid = static_cast<int>(cudaErrorInvalidValue);
+  if (R <= 0 || D <= 0 || n_shards < 1 || n_shards > kMaxLanes || !bounds ||
+      !bms || !bns || !grids || !seeds || !qs || (by_row && (mid < 1 || n_ax < 1)))
+    return invalid;
+  UpsetShards sh{};
+  sh.n = n_shards;
+  sh.by_row = by_row;
+  sh.mid = mid;
+  sh.n_ax = n_ax;
+  for (int i = 0; i < n_shards; ++i) {
+    if (bounds[i + 1] < bounds[i] || bms[i] <= 0 || bns[i] <= 0 || grids[i] <= 0)
+      return invalid;
+    sh.bm[i] = bms[i];
+    sh.bn[i] = bns[i];
+    sh.grid[i] = grids[i];
+    sh.seed[i] = seeds[i];
+    sh.q[i] = qs[i];
+  }
+  for (int i = 0; i <= n_shards; ++i) sh.bound[i] = bounds[i];
+  if (bounds[0] != 0 || bounds[n_shards] != (by_row ? n_ax : D)) return invalid;
+  constexpr int kBlock = 256;
+  const long long blocks = (R * D + kBlock - 1) / kBlock;
+  if (blocks > 0x7FFFFFFFLL) return invalid;
+  counter_upset_kernel<<<static_cast<unsigned>(blocks), kBlock, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(x), static_cast<int*>(out), R, D, sh);
   return static_cast<int>(cudaGetLastError());
 }
 

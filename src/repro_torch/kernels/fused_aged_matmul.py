@@ -20,7 +20,11 @@ the stream below is the reference's interpret-mode stream, so kernel and
 plain version (:func:`repro_torch.kernels.ref.fused_aged_matmul_ref`)
 agree bit for bit.  :func:`fused_aged_matmul_lanes` is the lane mode the
 fleet serving engine launches: the rows of several devices against one
-weight, each lane with its own seed and BER.
+weight, each lane with its own seed and BER.  :func:`fused_aged_matmul_shards`
+is the shard (column-block) mode mesh serving launches: the counterpart of
+the Pallas kernel under ``shard_map`` over the output columns, each shard's
+block upset at its own BER from its own stream over its block-local tile
+grid, in one launch that reads the weight once for every shard.
 
 The stream functions take Python ints and ``int64`` tensors holding uint32
 values alike (see :mod:`repro_torch.random` for the masking convention).
@@ -68,6 +72,28 @@ def tile_counter_bits(M: int, N: int, seed: int, *, bm: int, bn: int,
     tile_id = (row // bm) * grid_n + col // bn
     offset = (row % bm) * bn + col % bn
     return counter_bits(offset, int(seed) & M32, tile_id)
+
+
+def ceil_mult(dim: int, base: int = 128) -> int:
+    """Requested block ``base``, shrunk to a pow2 >= 8 for small dims (the
+    reference wrappers' ``_ceil_mult``)."""
+    if dim >= base:
+        return base
+    return max(8, 1 << (max(dim, 1) - 1).bit_length())
+
+
+def shard_bounds(n: int, n_shards: int) -> list:
+    """``[0, b_1, ..., n]``: shard ``s`` owns ``[s * n // S, (s + 1) * n //
+    S)`` (empty blocks when ``n < S``)."""
+    return [s * n // n_shards for s in range(n_shards)] + [n]
+
+
+def block_tile(rows: int, width: int) -> tuple:
+    """``(bm, bn, grid)`` of a ``(rows, width)`` block: the logical tile
+    the reference's wrapper resolves for it, and its tiles a row (1 for an
+    empty block)."""
+    bn = ceil_mult(max(width, 1), 256)
+    return ceil_mult(max(rows, 1), 256), bn, max(-(-width // bn), 1)
 
 
 def upset_probability(ber) -> float:
@@ -206,7 +232,60 @@ def fused_aged_matmul_lanes(a: torch.Tensor, b: torch.Tensor, xs=None,
                    [upset_probability(x) for x in bers], bm, bn)
 
 
+def fused_aged_matmul_shards(a: torch.Tensor, b: torch.Tensor, xs=None,
+                             ws=None, bers=(), seeds=(),
+                             bounds=None) -> torch.Tensor:
+    """Shard mode: ``a @ b`` with output-column block ``s`` (columns
+    ``[bounds[s], bounds[s + 1])``) upset at ``bers[s]`` from the stream of
+    ``seeds[s]`` over the block's own tile grid — what the Pallas kernel
+    computes run on each block alone (``shard_map``), in one launch that
+    reads ``b`` once.  ``bounds`` defaults to :func:`shard_bounds` of the
+    columns over ``len(bers)`` shards (at most
+    :data:`repro_torch.kernels._cuda.MAX_LANES`).  With ``xs`` / ``ws`` the
+    result is the dequantised float32 ``(acc * xs) * ws``.  CPU tensors
+    take the plain version; CUDA tensors launch the kernel.
+    """
+    from . import ref
+    _check_int8_operands(a, b)
+    xs, ws = _check_scales(a, b, xs, ws)
+    bers, seeds = tuple(bers), tuple(seeds)
+    M, N = a.shape[0], b.shape[1]
+    S = len(bers)
+    bounds = shard_bounds(N, S) if bounds is None else \
+        [int(v) for v in bounds]
+    if not 1 <= S <= _cuda.MAX_LANES or len(seeds) != S \
+            or len(bounds) != S + 1 or bounds[0] != 0 or bounds[-1] != N \
+            or any(x > y for x, y in zip(bounds, bounds[1:])):
+        raise ValueError(f"{S} shards (1 to {_cuda.MAX_LANES}) need as many "
+                         f"seeds and {S + 1} ascending bounds from 0 to {N}, "
+                         f"got {len(seeds)} seeds, bounds {bounds}")
+    if a.device.type == "cpu":
+        return ref.fused_aged_matmul_shards_ref(a, b, xs, ws, bers, seeds,
+                                                bounds)
+    if a.device.type != "cuda":
+        raise ValueError(f"no kernel for device {a.device}")
+    dequant = xs is not None
+    out = torch.empty((M, N), device=a.device,
+                      dtype=torch.float32 if dequant else torch.int32)
+    if out.numel() == 0:
+        return out
+    if dequant and (xs.device != a.device or ws.device != a.device):
+        raise ValueError("scales must be on the operands' device")
+    tiles = [block_tile(M, bounds[i + 1] - bounds[i]) for i in range(S)]
+    path = _cuda.launch_gemm(
+        a, b, out,
+        mode=_cuda.GEMM_UPSET_DEQUANT if dequant else _cuda.GEMM_UPSET,
+        xs=xs, ws=ws, seeds=seeds, qs=[upset_probability(x) for x in bers],
+        lbm=tiles[0][0], shards=(bounds, [t[1] for t in tiles],
+                                 [t[2] for t in tiles]))
+    fused_aged_matmul_shards.launches += 1
+    fused_aged_matmul_shards.launches_by_path[path] += 1
+    return out
+
+
 fused_aged_matmul.launches = 0
 fused_aged_matmul.launches_by_path = {_cuda.FAST: 0, _cuda.GENERIC: 0}
 fused_aged_matmul_lanes.launches = 0
 fused_aged_matmul_lanes.launches_by_path = {_cuda.FAST: 0, _cuda.GENERIC: 0}
+fused_aged_matmul_shards.launches = 0
+fused_aged_matmul_shards.launches_by_path = {_cuda.FAST: 0, _cuda.GENERIC: 0}

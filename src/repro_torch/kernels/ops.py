@@ -13,9 +13,16 @@
 * Lanes: with ``lanes=L`` the rows of ``L`` devices are folded lane-major
   into one call (the fleet's lane-batched forward), each lane with its own
   BER and seed or key — the reference's ops under ``jax.vmap``.  The lane
-  count is an explicit argument, never read from a BER vector's shape: the
-  per-shard ``(S,)`` BER routes of mesh serving, not ported yet, will need
-  lanes and shards together.
+  count is an explicit argument, never read from a BER vector's shape.
+* Shards: an ``(S,)`` BER vector (mesh serving, one device of S
+  tensor-parallel shards) upsets each shard's block of the output columns
+  (of the flattened heads, for the qkt/sv accumulators) at its own BER from
+  the stream ``fold_seed(seed, s)`` over the block's own tile grid:
+  :func:`inject_bitflips_sharded` (the reference's, plain, or one launch of
+  the counter-upset kernel) and the shard mode of the fused GEMM, both
+  drawing the streams the reference's ``shard_map``-wrapped kernel and its
+  kernel-free route draw.  Lanes and shards together are refused, as the
+  reference's fleet engine refuses shard-granular fleets.
 """
 from __future__ import annotations
 
@@ -26,17 +33,15 @@ from ..device import true_div
 from ..random import M32
 from . import ref
 from .bitflip import bitflip_draw, bitflip_draw_lanes
-from .fused_aged_matmul import (fused_aged_matmul as _fused_aged_matmul_kernel,
-                                fused_aged_matmul_lanes, stream_constant,
-                                upset_probability)
+from .counter_upset import counter_upset_shards
+from .fused_aged_matmul import ceil_mult as _ceil_mult
+from .fused_aged_matmul import (block_tile, fused_aged_matmul as
+                                _fused_aged_matmul_kernel,
+                                fused_aged_matmul_lanes,
+                                fused_aged_matmul_shards, shard_bounds,
+                                stream_constant, tile_counter_bits,
+                                upset_probability, upset_words)
 from .systolic_matmul import systolic_matmul
-
-
-def _ceil_mult(dim: int, base: int = 128) -> int:
-    """Requested block ``base``, shrunk to a pow2 >= 8 for small dims."""
-    if dim >= base:
-        return base
-    return max(8, 1 << (max(dim, 1) - 1).bit_length())
 
 
 def _resolve_blocks(M: int, N: int, K: int, bm: int, bn: int, bk: int):
@@ -142,6 +147,82 @@ def fused_aged_matmul(a: torch.Tensor, b: torch.Tensor, xs=None, ws=None, *,
         lanes=lanes, bm=bm_, bn=bn_)
 
 
+def shard_slices(n: int, n_shards: int) -> list:
+    """Split points assigning ``n`` columns/heads to shards: shard ``s``
+    owns ``[s*n//S, (s+1)*n//S)`` (trailing shards own empty blocks when
+    ``n < S``)."""
+    return [s * n // n_shards for s in range(1, n_shards)]
+
+
+def upset_counter_block(acc: torch.Tensor, ber, seed) -> torch.Tensor:
+    """Upset one 2-D accumulator block with the fused kernel's counter
+    stream over the tile grid the kernel's wrapper resolves for this block
+    shape."""
+    M, N = acc.shape
+    bits = tile_counter_bits(M, N, seed, bm=_ceil_mult(M, 256),
+                             bn=_ceil_mult(N, 256), device=acc.device)
+    return upset_words(acc, bits, upset_probability(ber))
+
+
+def shard_upset_tables(shape, n_shards: int, axis: int = -1) -> dict:
+    """How :func:`inject_bitflips_sharded` splits an array of ``shape``
+    (viewed as ``(R, D)``, its last axis the columns) into ``n_shards``
+    blocks along ``axis``: ``by_row`` (a leading axis: the flattened heads),
+    ``mid`` (rows an entry of it spans) and ``n_ax`` (its entries), the
+    blocks' ``bounds`` on that axis, and each block's logical tile
+    ``bms`` x ``bns`` with ``grids`` tiles a row.  A column block is
+    ``(R, W_s)``; a leading-axis block is ``(lead, W_s, mid, D)`` flattened
+    to ``(lead * W_s * mid, D)``."""
+    shape = tuple(shape)
+    ax = axis % len(shape)
+    n_ax = shape[ax]
+    D = shape[-1]
+    R = 1
+    for d in shape[:-1]:
+        R *= d
+    bounds = shard_bounds(n_ax, n_shards)
+    widths = [b1 - b0 for b0, b1 in zip(bounds, bounds[1:])]
+    if ax == len(shape) - 1:
+        tiles = [block_tile(R, w) for w in widths]
+        mid, by_row = 1, False
+    else:
+        mid = 1
+        for d in shape[ax + 1:-1]:
+            mid *= d
+        tiles = [block_tile((R // n_ax) * w, D) for w in widths]
+        by_row = True
+    return {"by_row": by_row, "mid": mid, "n_ax": n_ax, "bounds": bounds,
+            "bms": [t[0] for t in tiles], "bns": [t[1] for t in tiles],
+            "grids": [t[2] for t in tiles]}
+
+
+def shard_seeds(seed, n_shards: int) -> list:
+    """Each shard's stream seed, ``fold_seed(seed, s)``."""
+    return [fold_seed(seed, s) for s in range(n_shards)]
+
+
+def inject_bitflips_sharded(x: torch.Tensor, bers, key=None, *, seed=None,
+                            axis: int = -1,
+                            use_kernel: bool = False) -> torch.Tensor:
+    """Per-shard accumulator upsets: block ``s`` of ``axis`` flips at
+    ``bers[s]`` from the stream ``fold_seed(seed, s)`` (``seed`` hashed from
+    ``key`` when only a key is given), drawn by the fused kernel's counter
+    stream over the block's own tile grid — what the kernel draws running
+    on that block alone.  Rank > 2 inputs collapse their leading dims,
+    keeping the last as the columns; ``axis`` other than the last splits a
+    leading axis (the qkt/sv flattened heads).  The plain version, as the
+    reference's; ``use_kernel`` runs one launch of the counter-upset kernel
+    on a CUDA tensor (its plain version on the CPU)."""
+    if seed is None:
+        seed = seed_from_key(key)
+    qs = [upset_probability(float(b)) for b in bers]
+    seeds = shard_seeds(seed, len(qs))
+    tables = shard_upset_tables(x.shape, len(qs), axis)
+    if use_kernel:
+        return counter_upset_shards(x, qs, seeds, tables)
+    return ref.counter_upset_shards_ref(x, qs, seeds, tables)
+
+
 def _signed32(v: int) -> int:
     v &= M32
     return v - (1 << 32) if v >= 1 << 31 else v
@@ -190,10 +271,24 @@ def aged_linear(x: torch.Tensor, w: torch.Tensor, *, ber=0.0,
     ``lanes=L`` serves L devices in one call: ``x``'s leading axis folds
     the lanes (lane-major), ``ber`` and ``seed`` are sequences of L values
     and ``key`` is ``(L, 2)``; the weight is quantised and read once.
+
+    Without ``lanes``, ``ber`` may be an ``(S,)`` per-shard vector (mesh
+    serving): output-column block ``s`` (:func:`shard_slices`) flips at
+    ``ber[s]`` from the stream ``fold_seed(seed, s)`` (``seed`` hashed from
+    ``key`` when only a key is given).  ``use_kernel and fused`` is one
+    launch of the fused GEMM's shard mode for every ``N`` (the reference
+    runs its kernel per shard under ``shard_map`` when ``S`` divides ``N``
+    and the kernel-free route otherwise, with the same streams); else the
+    plain int8 product and :func:`inject_bitflips_sharded`.  Both dequantise
+    as ``(float(acc) * xs) * ws``.  Lanes and per-shard BERs together are
+    refused.
     """
-    if lanes is None and torch.as_tensor(ber).dim() != 0:
-        raise NotImplementedError("per-shard BER vectors are not ported; "
-                                  "pass lanes= for per-device BERs")
+    sharded = is_ber_vector(ber) if lanes is None else \
+        any(is_ber_vector(b) for b in ber)
+    if sharded and lanes is not None:
+        raise NotImplementedError("lanes and per-shard BER vectors together "
+                                  "are not a route (a fleet of sharded "
+                                  "devices is not served)")
     inject = key is not None or seed is not None
     lead = x.shape[:-1]
     K = x.shape[-1]
@@ -201,6 +296,20 @@ def aged_linear(x: torch.Tensor, w: torch.Tensor, *, ber=0.0,
     xq, xs = quantize_int8(x2, axis=-1)
     wq, ws = quantize_int8(w, axis=0)
     N = w.shape[1]
+    if sharded and inject:
+        if seed is None:
+            seed = seed_from_key(key)
+        if use_kernel and fused:
+            out = fused_aged_matmul_shards(
+                xq.contiguous(), wq.contiguous(), xs, ws,
+                tuple(float(b) for b in ber), shard_seeds(seed, len(ber)))
+        else:
+            acc = inject_bitflips_sharded(ref.systolic_matmul_ref(xq, wq),
+                                          ber, seed=seed)
+            out = acc.to(torch.float32) * xs * ws
+        return out.reshape(*lead, N).to(x.dtype)
+    if sharded:                 # no streams: the clean int8 product
+        use_kernel = False
     if use_kernel and fused and inject:
         if seed is None:
             seed = (seed_from_key(key) if lanes is None
@@ -219,3 +328,11 @@ def aged_linear(x: torch.Tensor, w: torch.Tensor, *, ber=0.0,
                else inject_bitflips_ref(acc, ber, key, lanes=lanes))
     out = acc.to(torch.float32) * xs * ws
     return out.reshape(*lead, N).to(x.dtype)
+
+
+def is_ber_vector(ber) -> bool:
+    """Whether ``ber`` is a per-shard vector (a sequence, or a 1-D array
+    or tensor) rather than one value."""
+    if isinstance(ber, (tuple, list)):
+        return True
+    return getattr(ber, "ndim", 0) == 1

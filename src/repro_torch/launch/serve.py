@@ -20,10 +20,13 @@ which raises where no card is present).  The port has one per-token loop,
 so ``--eager`` changes nothing on one device (and is refused for a fleet,
 as in the reference).  ``--online`` hands the other arguments to
 :mod:`repro_torch.launch.online` (continuous batching), ``--torch-device``
-as its ``--device``.  Not ported: ``--mesh`` / ``--tp`` / ``--fused``
-(mesh serving, ROADMAP A.8) and ``--stats`` (the reference's
-compiled-function caches; the port compiles nothing); each raises
-``NotImplementedError``.
+as its ``--device``.  ``--mesh`` serves one device of ``--tp`` mesh
+shards aged on their own (staggered ``--age-years * (s+1)/tp``) through
+:class:`~repro_torch.serve.sharded.MeshServeEngine`, on the fused
+shard-mode kernels (``--fused``, the default) or the plain route
+(``--no-fused``); ``--tp`` defaults to the visible devices.  Not ported:
+``--stats`` (the reference's compiled-function caches; the port compiles
+nothing), which raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -135,17 +138,22 @@ def main(argv=None):
     ap.add_argument("--baseline-avs", action="store_true",
                     help="legacy alias for --policy baseline")
     ap.add_argument("--mesh", action="store_true",
-                    help="not ported (ROADMAP A.8)")
+                    help="serve one device of --tp mesh shards, each aged "
+                         "on its own, in one sharded dispatch")
     ap.add_argument("--tp", type=int, default=None,
-                    help="not ported (ROADMAP A.8)")
+                    help="tensor-parallel shards of --mesh (default: the "
+                         "visible devices)")
     ap.add_argument("--use-kernel", action="store_true",
                     help="run the faulted matmuls on the kernel route "
                          "(the fused aged-matmul and draw-bitflip kernels "
                          "on a card, their plain versions on the CPU)")
     ap.add_argument("--fused", dest="fused", action="store_true",
-                    default=None, help="not ported (ROADMAP A.8)")
+                    default=None,
+                    help="--mesh: the shard-mode fused GEMM and the "
+                         "counter-upset kernel (the default)")
     ap.add_argument("--no-fused", dest="fused", action="store_false",
-                    help="not ported (ROADMAP A.8)")
+                    help="--mesh: the plain product and injection, with "
+                         "the same tokens")
     ap.add_argument("--eager", action="store_true",
                     help="single-device only; the port's one per-token "
                          "loop either way")
@@ -153,10 +161,6 @@ def main(argv=None):
                     help="not ported: the port has no compiled-function "
                          "caches")
     args = ap.parse_args(argv_list)
-    if args.mesh or args.tp is not None or args.fused is not None:
-        raise NotImplementedError(
-            "--mesh / --tp / --fused (mesh serving) are not ported: "
-            "ROADMAP A.8")
     if args.stats:
         raise NotImplementedError(
             "--stats reports the reference's compiled-function caches; the "
@@ -171,6 +175,8 @@ def main(argv=None):
     params = served_params(cfg, dev)
     pol = make_policy(args.policy or ("baseline" if args.baseline_avs
                                       else "fault_tolerant"), args.arch)
+    if args.mesh:
+        return _run_mesh(args, cfg, params, pol, dev)
     fleet = FleetRuntime(n_devices=args.n_devices, policy=pol,
                          max_loss_pct=args.budget, device=dev)
     for i in range(args.n_devices):
@@ -232,6 +238,56 @@ def main(argv=None):
         f"{k}={v:.1e}" for k, v in sorted(res.bers.items())))
     print(f"[serve] est. array power: {res.power_w:.2f} W "
           f"(x{len(res.bers)} domains)")
+    print(f"[serve] generated {res.tokens.shape} tokens; "
+          f"first row: {res.tokens[0][:12].tolist()}")
+    return res
+
+
+
+def _run_mesh(args, cfg, params, pol, dev):
+    """One device of ``tp`` mesh shards, each aged on its own, served in
+    one sharded dispatch."""
+    from ..serve.sharded import MeshServeEngine, default_serve_mesh
+
+    mesh = default_serve_mesh(args.tp, device=dev)
+    tp = mesh.shape["model"]
+    fleet = FleetRuntime(n_devices=1, n_shards=tp, policy=pol,
+                         max_loss_pct=args.budget, device=dev)
+    for s in range(tp):
+        # staggered shard ages: a device rebuilt from spares of mixed age
+        fleet.set_age(years=args.age_years * (s + 1) / tp, shard=s)
+    if args.router != "static":
+        cos = fleet.apply_load(workload=args.workload, router=args.router,
+                               utilization=args.utilization,
+                               horizon_s=args.horizon_years * YEAR_S)
+        wear = cos.device_wear()[-1]
+        print(f"[serve] routed {args.horizon_years:g}y of {args.workload} "
+              f"traffic over the {tp} shards via {args.router}: max ΔVth "
+              f"{wear.max():.1f} mV (spread "
+              f"{wear.max() - wear.min():.1f} mV)")
+
+    max_len = args.prompt_len + args.gen_len + 1
+    prompts = SyntheticLM(vocab=cfg.vocab, seq_len=args.prompt_len,
+                          global_batch=args.batch).batch_at(0).tokens
+    # --fused / --no-fused; unset is the engine's fused route
+    engine = MeshServeEngine(cfg, params, mesh=mesh, fleet=fleet,
+                             max_len=max_len,
+                             use_fused_kernel=(args.fused
+                                               if args.fused is not None
+                                               else True), device=dev)
+    res = engine.generate(prompts, args.gen_len,
+                          temperature=args.temperature, top_k=args.top_k,
+                          **extra_inputs(cfg, args.batch))
+    pol_name = getattr(fleet.policy, "name", "fault_tolerant")
+    ages = ", ".join(f"{a:.1f}y" for a in res.ages_years)
+    print(f"[serve] arch={cfg.name} mesh tp={tp} policy={pol_name} "
+          f"budget={args.budget}% on {dev} — one sharded dispatch, "
+          f"per-shard aging")
+    print(f"[serve] shard ages: [{ages}]  device power: {res.power_w:.2f} W")
+    print("[serve] per-shard BER table (rows=shards):")
+    print("         " + " ".join(f"{op:>8s}" for op in res.operators))
+    for s in range(res.bers.shape[0]):
+        print(f"  shard{s} " + " ".join(f"{b:8.1e}" for b in res.bers[s]))
     print(f"[serve] generated {res.tokens.shape} tokens; "
           f"first row: {res.tokens[0][:12].tolist()}")
     return res

@@ -8,8 +8,10 @@ BER; without one it is a clean dense op.  A lane config (one
 :class:`FaultConfig` for N devices, the counterpart of the reference's
 config with batched leaves under ``jax.vmap``) runs N devices' rows,
 folded lane-major into the batch, through one call of each op, each lane at
-its own BERs and streams.  The per-shard ``(S,)`` routes of the reference
-come with mesh serving.
+its own BERs and streams.  A shard config (one device of S mesh shards:
+per-operator ``(S,)`` BER vectors) upsets each shard's block of a weight
+matmul's output columns, and of the qkt/sv flattened heads, at the shard's
+own BER, from counter streams keyed on ``fold_seed(seed_for(op, salt), s)``.
 """
 from __future__ import annotations
 
@@ -40,7 +42,9 @@ class FaultConfig:
     operator -> N floats and ``seeds`` operator -> N ints, and
     :meth:`key_for` / :meth:`seed_for` give one key or seed per lane, each
     derived exactly as the reference derives it for that lane alone.
-    :meth:`lane` slices one lane's single-device config out.
+    :meth:`lane` slices one lane's single-device config out.  A shard
+    config is a single-device one (``key`` ``(2,)``) whose ``bers`` map
+    operators to S floats, one per mesh shard (:meth:`shards`).
     """
     bers: Dict[str, float]
     key: torch.Tensor
@@ -55,10 +59,18 @@ class FaultConfig:
         return self.key.shape[0] if self.key.dim() == 2 else None
 
     def ber_for(self, op: str):
-        """The op's BER: a float, or a tuple of one per lane."""
+        """The op's BER: a float, a tuple of one per lane, or (a shard
+        config's) a tuple of one per shard."""
         if self.lanes is None:
             return self.bers.get(op, 0.0)
         return tuple(self.bers.get(op, (0.0,) * self.lanes))
+
+    def shards(self, op: str) -> Optional[tuple]:
+        """The op's per-shard BERs of a shard config, else None."""
+        ber = self.ber_for(op)
+        if self.lanes is not None or not kops.is_ber_vector(ber):
+            return None
+        return tuple(float(b) for b in ber)
 
     def for_step(self, step: int) -> "FaultConfig":
         return dataclasses.replace(self, step=int(step))
@@ -120,9 +132,21 @@ def _op_salt(op: str) -> int:
 
 def op_linear(x: torch.Tensor, w: torch.Tensor, op: str,
               fi: Optional[FaultConfig] = None, salt=0) -> torch.Tensor:
-    """``x (..., K) @ w (K, N)`` through the operator domain ``op``."""
+    """``x (..., K) @ w (K, N)`` through the operator domain ``op``.
+
+    Per-shard BERs flip each output-column block at its own shard's rate,
+    streams keyed on ``seed_for(op, salt)`` on every route: one launch of
+    the fused GEMM's shard mode on the fused kernel route, the plain
+    product and :func:`repro_torch.kernels.ops.inject_bitflips_sharded`
+    otherwise (the same draws)."""
     if fi is None:
         return x @ w
+    shard_bers = fi.shards(op)
+    if shard_bers is not None:
+        return kops.aged_linear(x, w, ber=shard_bers,
+                                seed=fi.seed_for(op, salt),
+                                use_kernel=fi.use_systolic_kernel,
+                                fused=fi.fused)
     ber = fi.ber_for(op)
     if fi.fused and fi.use_systolic_kernel:
         return kops.aged_linear(x, w, ber=ber, seed=fi.seed_for(op, salt),
@@ -171,16 +195,27 @@ def op_batched_matmul(a: torch.Tensor, b: torch.Tensor, op: str,
     dims, int8-quantised with accumulator upsets when faulted: the bitflip
     kernel pass on the kernel route, its plain version otherwise.  Under a
     lane config the leading axis folds the lanes, so each lane's words are
-    contiguous, lane-major, as the lane-mode injection takes them."""
+    contiguous, lane-major, as the lane-mode injection takes them.  Under
+    per-shard BERs the heads flatten to ``(B, H, M, N)`` and shard ``s``
+    owns heads ``[s*H//S, (s+1)*H//S)`` (the heads whose projections it
+    owns), upset from counter streams (one launch of the counter-upset
+    kernel on the kernel route, its plain version otherwise)."""
     if fi is None:
         return a @ b
     aq, ascale = kops.quantize_int8(a, axis=-1)
     bq, bscale = kops.quantize_int8(b, axis=-2)
     acc = _exact_int_matmul(aq, bq)
-    ber = fi.ber_for(op)
-    inject = (kops.inject_bitflips if fi.use_systolic_kernel
-              else kops.inject_bitflips_ref)
-    acc = inject(acc, ber, fi.key_for(op, salt), lanes=fi.lanes)
+    shard_bers = fi.shards(op)
+    if shard_bers is not None:
+        flat = acc.reshape(acc.shape[0], -1, *acc.shape[-2:])
+        acc = kops.inject_bitflips_sharded(
+            flat, shard_bers, seed=fi.seed_for(op, salt), axis=1,
+            use_kernel=fi.use_systolic_kernel).reshape(acc.shape)
+    else:
+        inject = (kops.inject_bitflips if fi.use_systolic_kernel
+                  else kops.inject_bitflips_ref)
+        acc = inject(acc, fi.ber_for(op), fi.key_for(op, salt),
+                     lanes=fi.lanes)
     return (acc.to(torch.float32) * ascale * bscale).to(a.dtype)
 
 

@@ -231,6 +231,15 @@ def _extras(cfg: ModelConfig, prefix_embeds, frames, device) -> Dict:
                                   dtype=torch.float32, device=device)}
 
 
+def refuse_sharded_fleet(fleet, engine: str) -> None:
+    """The lane engines serve whole devices; a shard-granular fleet is the
+    mesh engine's."""
+    if getattr(fleet, "n_shards", 1) != 1:
+        raise ValueError(f"{engine} serves whole devices; a shard-granular "
+                         f"fleet (n_shards > 1) is served by "
+                         f"repro_torch.serve.sharded.MeshServeEngine")
+
+
 @dataclasses.dataclass
 class FleetGenerateResult:
     tokens: np.ndarray           # (N, B, steps) generated ids per lane
@@ -267,8 +276,10 @@ class FleetServeEngine:
         ``loads`` pick the arrival trace and ``apply_load_kw`` passes
         further knobs (``utilization``, ``n_epochs``, ``horizon_s``,
         ``key``, ``recovery``, ...) to :meth:`FleetRuntime.apply_load`.  A
-        shard-granular fleet cannot be built (``FleetRuntime`` refuses
-        ``n_shards > 1``).  ``params`` must already live on ``device``."""
+        shard-granular fleet (``n_shards > 1``) is refused: it is served
+        by :class:`repro_torch.serve.sharded.MeshServeEngine`.  ``params``
+        must already live on ``device``."""
+        refuse_sharded_fleet(fleet, "FleetServeEngine")
         tf.check_supported(cfg)
         self.device = resolve_device(device)
         if params["embed"].device.type != self.device.type:

@@ -54,7 +54,7 @@ from ..models.layers import FaultConfig
 from ..obs import metrics as obs_metrics
 from ..obs.taps import taps_enabled, telemetry_to_host
 from . import slots as slots_mod
-from .engine import ServeEngine, _ServedShapes
+from .engine import ServeEngine, _ServedShapes, refuse_sharded_fleet
 from .slots import EMPTY, SlotState, init_slots
 
 
@@ -563,6 +563,7 @@ class OnlineFleetEngine:
                  device="cuda"):
         from ..sched.router import get_router
         self.device = _check_engine(cfg, params, device)
+        refuse_sharded_fleet(fleet, "OnlineFleetEngine")
         self.cfg = cfg
         self.params = params
         self.fleet = fleet

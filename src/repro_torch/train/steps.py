@@ -8,7 +8,7 @@ in float32 in microbatch order, as the reference's ``lax.scan`` adds them
 onto float32 zeros (in the params' ``.grad`` for float32 params, in
 float32 buffers for the others), divides by the count and hands them to :func:`repro_torch.optim.adamw_update`, which
 updates params and moments in place.  The data-parallel step with
-compressed residuals waits for the distributed layer (ROADMAP A.8).
+compressed residuals waits for the distributed layer (ROADMAP A.8b).
 """
 from __future__ import annotations
 
@@ -28,7 +28,7 @@ from ..tree import leaves, tree_map
 class TrainState(NamedTuple):
     params: Any
     opt: OptState
-    residuals: Optional[Any] = None      # error-feedback state (DP; A.8)
+    residuals: Optional[Any] = None      # error-feedback state (DP; A.8b)
 
 
 def init_train_state(cfg: ModelConfig, seed: int = 0, *,
@@ -40,7 +40,7 @@ def init_train_state(cfg: ModelConfig, seed: int = 0, *,
     if compressed:
         raise NotImplementedError(
             "compressed data-parallel residuals are not ported (ROADMAP "
-            "A.8)")
+            "A.8b)")
     params = family.init_params(cfg, seed, dtype,
                                 device=resolve_device(device))
     return TrainState(params=params, opt=adamw_init(params))
@@ -166,10 +166,10 @@ def grads_of(params, sums=None):
 def make_dp_train_step(*args, **kwargs):
     raise NotImplementedError(
         "the data-parallel step with compressed gradients is not ported "
-        "(ROADMAP A.8)")
+        "(ROADMAP A.8b)")
 
 
 def dp_residuals_init(*args, **kwargs):
     raise NotImplementedError(
         "data-parallel error-feedback residuals are not ported (ROADMAP "
-        "A.8)")
+        "A.8b)")

@@ -73,9 +73,11 @@ def test_cuda_gemm_kernels_match_plain(cuda_device, M, K, N, ber):
     torch.cuda.synchronize()
     assert kernels.launch_counts() == {"fused_aged_matmul": 2,
                                        "fused_aged_matmul_lanes": 0,
+                                       "fused_aged_matmul_shards": 0,
                                        "bitflip_words": 0,
                                        "bitflip_draw": 0,
                                        "bitflip_draw_lanes": 0,
+                                       "counter_upset_shards": 0,
                                        "systolic_matmul": 1}
 
 
@@ -103,6 +105,7 @@ def test_cuda_gemm_launch_paths_match_shapes(cuda_device):
     assert kernels.launch_counts_by_path() == {
         "fused_aged_matmul": want,
         "fused_aged_matmul_lanes": {"fast": 0, "generic": 0},
+        "fused_aged_matmul_shards": {"fast": 0, "generic": 0},
         "systolic_matmul": {"fast": want["fast"],
                             "generic": want["generic"] + 1}}
 
@@ -196,9 +199,11 @@ def test_cuda_inject_bitflips_is_one_launch(cuda_device):
         assert torch.equal(got.cpu(), ops.inject_bitflips(x, 1e-3, key))
     assert kernels.launch_counts() == {"fused_aged_matmul": 0,
                                        "fused_aged_matmul_lanes": 0,
+                                       "fused_aged_matmul_shards": 0,
                                        "bitflip_words": 0,
                                        "bitflip_draw": len(shapes),
                                        "bitflip_draw_lanes": 0,
+                                       "counter_upset_shards": 0,
                                        "systolic_matmul": 0}
 
 
@@ -763,3 +768,73 @@ def test_cuda_online_full_width_short_run(cuda_device):
     assert counts["bitflip_draw"] == 2 * 2 * forwards
     assert kernels.launch_counts_by_path()["fused_aged_matmul"] == {
         "fast": 7 * 2 * forwards, "generic": 0}
+
+
+# mesh serving (per-shard BERs): llama3_8b's weight GEMMs (q/o, k/v,
+# gate/up, down; the unembed's vocab 128,256, whose 4 blocks of 32,064 end
+# in a partial 256-column tile) at decode, prefill and M = 544
+SHARD_KN = ((4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096),
+            (4096, 128256))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [3, 4, 8])
+@pytest.mark.parametrize("M", [2, 32, 544])
+def test_cuda_shard_gemm_matches_plain(cuda_device, M, S):
+    """The shard mode (one launch for S column blocks, each at its own
+    BER and stream over its block-local tiles) bit-exact against its plain
+    version, int32 and dequantised, on the fast path; uneven blocks at
+    S = 3."""
+    bers = tuple(1e-3 * (1 + s) for s in range(S))
+    seeds = [ops.fold_seed(-77, s) for s in range(S)]
+    for K, N in SHARD_KN:
+        if M == 544 and N == 128256:
+            continue                     # 0.6 GB of plain-version temporaries
+        a, b, xs, ws = _operands(cuda_device, M, K, N, M + S + N)
+        kernels.reset_launch_counts()
+        for xs_, ws_ in ((None, None), (xs, ws)):
+            got = pfam.fused_aged_matmul_shards(a, b, xs_, ws_, bers, seeds)
+            want = ref.fused_aged_matmul_shards_ref(
+                a, b, xs_, ws_, bers, seeds, pfam.shard_bounds(N, S))
+            assert got.dtype == want.dtype and torch.equal(got, want), \
+                (M, K, N, S)
+        assert kernels.launch_counts()["fused_aged_matmul_shards"] == 2
+        assert kernels.launch_counts_by_path()[
+            "fused_aged_matmul_shards"]["fast"] == 2
+
+
+@pytest.mark.cuda
+def test_cuda_shard_gemm_generic_path_and_refusals(cuda_device):
+    """A ragged shape takes the generic path in shard mode, exact; more
+    shards than a launch takes are refused."""
+    a, b, xs, ws = _operands(cuda_device, 33, 96, 130, 1)
+    bers = (1e-2, 2e-2, 3e-2)
+    seeds = [ops.fold_seed(5, s) for s in range(3)]
+    got = pfam.fused_aged_matmul_shards(a, b, xs, ws, bers, seeds)
+    want = ref.fused_aged_matmul_shards_ref(a, b, xs, ws, bers, seeds,
+                                            pfam.shard_bounds(130, 3))
+    assert torch.equal(got, want)
+    with pytest.raises(ValueError, match="shards"):
+        pfam.fused_aged_matmul_shards(a, b, None, None, (0.0,) * 33,
+                                      [0] * 33)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,axis", [
+    ((2, 32, 16, 16), 1), ((2, 32, 1, 17), 1), ((2, 20, 64, 1500), 1),
+    ((2, 3, 5, 7), 1), ((32, 14336), -1), ((2, 128256), -1), ((5, 3), -1)])
+@pytest.mark.parametrize("S", [3, 4, 8])
+def test_cuda_counter_upset_matches_plain(cuda_device, shape, axis, S):
+    """The counter-upset kernel against its plain version on both splits:
+    llama's qkt/sv heads at prefill and decode, whisper-like encoder rows,
+    fewer heads than shards, and column splits (uneven, partial tiles)."""
+    g = torch.Generator(device=cuda_device).manual_seed(sum(shape) + S)
+    x = torch.randint(-2 ** 31, 2 ** 31 - 1, shape, dtype=torch.int32,
+                      device=cuda_device, generator=g)
+    bers = tuple(2e-3 * (1 + s) for s in range(S))
+    kernels.reset_launch_counts()
+    got = ops.inject_bitflips_sharded(x, bers, seed=-1234, axis=axis,
+                                      use_kernel=True)
+    want = ops.inject_bitflips_sharded(x, bers, seed=-1234, axis=axis)
+    assert torch.equal(got, want)
+    assert kernels.launch_counts()["counter_upset_shards"] == 1

@@ -100,8 +100,13 @@ def test_fleet_arrays_match_reference(policy):
 
 
 def test_unported_fleet_options_raise():
-    with pytest.raises(NotImplementedError, match="n_shards"):
-        FleetRuntime(n_devices=2, n_shards=2, device="cpu")
+    """Options the fleet refuses: a sharded fleet is built now (A.8a;
+    tests/test_torch_fleet_shards.py), but resizing it and a shard count
+    below 1 raise, as the reference's asserts do."""
+    with pytest.raises(ValueError, match="device-granular"):
+        FleetRuntime(n_devices=2, n_shards=2, device="cpu").resize([0])
+    with pytest.raises(ValueError, match="n_shards"):
+        FleetRuntime(n_devices=2, n_shards=0, device="cpu")
     with pytest.raises(KeyError, match="nonesuch"):
         FleetRuntime(policy="nonesuch", device="cpu")
     grid = Scenario(duty=np.full((2, 3), 0.5, np.float32))
@@ -274,10 +279,17 @@ def test_lane_ops_check_their_arguments():
     x = torch.zeros((6, 4), dtype=torch.int32)
     with pytest.raises(ValueError, match="keys"):
         ops.inject_bitflips(x, [1e-3] * 3, prandom.PRNGKey(0), lanes=3)
-    # a lane axis is never read from a BER vector's shape
+    # a lane axis is never read from a BER vector's shape: without
+    # lanes= an (S,) vector is per-shard BERs (A.8a; refused until then),
+    # and lanes with per-shard vectors are refused
     w = torch.ones((32, 16))
-    with pytest.raises(NotImplementedError, match="lanes="):
-        ops.aged_linear(torch.ones((6, 32)), w, ber=[1e-3] * 3, seed=1)
+    x6 = torch.ones((6, 32))
+    got = ops.aged_linear(x6, w, ber=[1e-3] * 3, seed=1)
+    assert got.shape == (6, 16) and torch.equal(got, ops.aged_linear(
+        x6, w, ber=(1e-3,) * 3, seed=1, use_kernel=False, fused=False))
+    with pytest.raises(NotImplementedError, match="lanes and per-shard"):
+        ops.aged_linear(x6, w, ber=[[1e-3] * 3] * 3, seed=[1, 2, 3],
+                        lanes=3)
 
 
 # --------------------------------------------------------------------------- #

@@ -181,7 +181,7 @@ def test_state_dict_round_trip_matches_reference():
         back.load_state_dict(dict(sd, operators=["q"]))
     with pytest.raises(ValueError, match="do not fit"):
         FleetRuntime(n_devices=3, device="cpu").load_state_dict(sd)
-    with pytest.raises(NotImplementedError, match="n_shards"):
+    with pytest.raises(ValueError, match="n_shards"):
         back.load_state_dict(dict(sd, n_shards=2))
 
 

@@ -252,6 +252,7 @@ def test_cpu_gemm_wrappers_count_no_path():
     assert kernels.launch_counts_by_path() == {
         "fused_aged_matmul": {"fast": 0, "generic": 0},
         "fused_aged_matmul_lanes": {"fast": 0, "generic": 0},
+        "fused_aged_matmul_shards": {"fast": 0, "generic": 0},
         "systolic_matmul": {"fast": 0, "generic": 0}}
 
 

@@ -101,6 +101,16 @@ def test_serve_eager_is_single_device_only():
     (["--mesh"], "A.8"), (["--tp", "2"], "A.8"), (["--no-fused"], "A.8"),
     (["--stats"], "compiles nothing")])
 def test_serve_refuses_unported_flags(argv, item):
+    """``--stats`` raises.  The A.8 flags, refused until A.8a, now serve:
+    ``--mesh`` one device of mesh shards (tests/test_torch_mesh_cli.py
+    holds it against the reference); ``--tp`` and ``--no-fused`` without
+    ``--mesh`` are ignored, as in the reference."""
+    if item == "A.8":
+        res = serve.main(SMALL + argv + ["--router", "static",
+                                         "--torch-device", "cpu"])
+        assert res.tokens.shape == (1, 2)
+        assert hasattr(res, "operators") == ("--mesh" in argv)
+        return
     with pytest.raises(NotImplementedError, match=re.escape(item)):
         serve.main(SMALL + argv + ["--torch-device", "cpu"])
 
