@@ -211,8 +211,22 @@ Phases (any failure exits non-zero):
    scores); reduced llama3_8b (tp = 4 and 3), qwen3_moe_235b and
    whisper_large_v3 card == CPU; ``serve --mesh --tp 4`` and
    ``mesh_bench --quick`` through their ``main(argv)``;
+16. compressed data-parallel training (cell 16): [10]'s llama3_8b (full
+   width, 8 of 32 layers, float32 AdamW, B=4, S=256, remat) under
+   ``make_dp_train_step(compress=True)`` over a one-rank NCCL group for 4
+   steps (the loss must fall, peak under 76 GB), ms a step, the
+   compressed mean's device time (the profiler's ``dp_grad_mean`` range)
+   and its span on the stream (CUDA events), the ``all_reduce`` calls and
+   bytes of a step (checked against the bucket plan), the residuals'
+   largest magnitude; the trained params scored on the kernel route at 0
+   and 9 years as in [10] (launches counted, layer 0 replayed bit for
+   bit); then two gloo ranks sharing the card, 3 compressed steps of
+   reduced llama3_8b, against the same two ranks on the CPU (int32 sums
+   of the same gradients equal, the first loss within 1e-5, the later
+   ones within 1e-3, params within 3 steps of lr);
 11. a ``{"kernels": [...]}`` line (launches summed over the runs of [4],
-   [5], [6], [6b], [7], [8], [10], [10b], [12], [13], [14] and [15]), the
+   [5], [6], [6b], [7], [8], [10], [10b], [12], [13], [14], [15] and
+   [16]), the
    ``nvidia-smi`` line, and as the last line ``{"ok": true, "device":
    {...}}``.
 
@@ -433,6 +447,24 @@ def attention_shapes(cfg, B: int = 2, S: int = 16, max_len: int = 64):
             ((B, KV, G, 1, hd), "sv decode")]
 
 
+def cold_copies(b):
+    """Two rotations of copies of ``b``, more bytes each than the 50 MB L2
+    holds, for timed calls (serving reads every weight cold): row-major,
+    as the port's GEMM takes it, and column-major, ``torch._int_mm``'s
+    fast layout (as kernel_bench times it)."""
+    n = -(-120_000_000 // b.numel())
+    rows = itertools.cycle([b] + [b.clone() for _ in range(n - 1)])
+    cols = []                         # made at the first call
+
+    def col():
+        if not cols:
+            cols.append(itertools.cycle([b.t().contiguous().t()
+                                         for _ in range(n)]))
+        return next(cols[0])
+
+    return (lambda: next(rows)), col
+
+
 def kernel_checks(dev, cfg, moe_cfg) -> dict:
     """Each kernel vs its plain version at the main paths' shapes."""
     import torch
@@ -467,9 +499,7 @@ def kernel_checks(dev, cfg, moe_cfg) -> dict:
                               "ctas": plan.ctas}}
             # copies of b, more bytes than the 50 MB L2 holds, taken in
             # turn by the timed calls: serving reads every weight cold
-            bs = itertools.cycle([b] + [b.clone() for _ in range(
-                -(-120_000_000 // b.numel()) - 1)])
-            nb = lambda: next(bs)
+            nb, nbc = cold_copies(b)
 
             kernels.reset_launch_counts()
             out, exp = (fused_aged_matmul(a, b, xs, ws, ber, seed, bm=bm,
@@ -511,7 +541,7 @@ def kernel_checks(dev, cfg, moe_cfg) -> dict:
             sr = lambda: ref.systolic_matmul_ref(a, b)
             lib = lib_dev = None
             if M > 16:        # torch._int_mm needs more than 16 rows
-                lk = lambda: torch._int_mm(a, nb())
+                lk = lambda: torch._int_mm(a, nbc())
                 lib = cuda_time_ms(lk)
                 lib_dev = device_ms(lk)[0]
             dev_ms, per_call = device_ms(fk, match="int8_gemm")
@@ -657,9 +687,7 @@ def lane_kernel_checks(dev, cfg, moe_cfg) -> dict:
             seeds = [int(v) for v in torch.randint(
                 -2 ** 31, 2 ** 31 - 1, (L,), generator=gen, device=dev)]
             bm, bn, _ = ops._resolve_blocks(Ml, N, K, 256, 256, 256)
-            bs = itertools.cycle([b] + [b.clone() for _ in range(
-                -(-120_000_000 // b.numel()) - 1)])
-            nb = lambda: next(bs)
+            nb = cold_copies(b)[0]
             part = lambda t, l: t[l * Ml:(l + 1) * Ml]
             lanes = lambda b_, xs_, ws_: fused_aged_matmul_lanes(
                 a, b_, xs_, ws_, LANE_BERS, seeds, lanes=L, bm=bm, bn=bn)
@@ -2129,15 +2157,62 @@ def recorded_score(eng, tokens, layers: int, dev) -> tuple:
     return nll, rows, time.perf_counter() - t0
 
 
+def score_trained(dev, cfg8, params, data, indent: str) -> tuple:
+    """A trained model scored by ``ServeEngine.score`` on the kernel route
+    (the fused GEMM and the draw bitflip) on a fresh device and one aged 9
+    years, each score's layer-0 launches held against their plain versions
+    (``recorded_score``): the scores and the launches, counted from 0 for
+    each score."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.core.fleet import FleetRuntime
+    from repro_torch.serve.engine import ServeEngine
+    tokens = data.batch_at(1000).tokens
+    scores, counts = {}, {k: 0 for k in kernels.KERNEL_NAMES}
+    for age in (0.0, 9.0):
+        rt = FleetRuntime(n_devices=1, policy="fault_tolerant", device=dev)
+        rt.set_age(years=age)
+        eng = ServeEngine(cfg8, params, runtime=rt, max_len=data.seq_len,
+                          use_systolic_kernel=True, device=dev)
+        kernels.reset_launch_counts()
+        nll, replay, replay_s = recorded_score(eng, tokens, cfg8.n_layers, dev)
+        c = kernels.launch_counts()
+        check(math.isfinite(nll), f"score at {age} y: {nll}")
+        check(c["fused_aged_matmul"] == 7 * cfg8.n_layers
+              and c["bitflip_draw"] == 2 * cfg8.n_layers,
+              f"score launches at {age} y: {c}")
+        for k in counts:
+            counts[k] += c[k]
+        scores[f"{age:g}y"] = {"nll": nll, "bers": rt.op_bers(),
+                               "layer0_vs_plain": replay,
+                               "replay_s": replay_s}
+        del eng
+    print(f"{indent}trained model scored on the kernel route (fused GEMM + "
+          f"draw bitflip): NLL fresh {scores['0y']['nll']:.4f}, aged 9 y "
+          f"{scores['9y']['nll']:.4f} (uniform {data.uniform_nll():.4f}); "
+          f"launches {counts}", flush=True)
+    for age, sc in scores.items():
+        r = sc["layer0_vs_plain"]
+        print(f"{indent}score at {age}, layer 0 vs plain, bit for bit "
+              f"(replayed in {sc['replay_s']:.1f} s): GEMMs "
+              + ", ".join(f"{x['M']}x{x['K']}x{x['N']} plan "
+                          f"{x['plan']['bm']}x{x['plan']['bn']}"
+                          f"/{x['plan']['splits']} "
+                          f"({x['upset_outputs']} upset)"
+                          for x in r if x["kernel"] == "fused_aged_matmul")
+              + "; draws " + ", ".join(
+                  f"{tuple(x['shape'])} ({x['flips']} flips)"
+                  for x in r if x["kernel"] == "bitflip_draw"), flush=True)
+    torch.cuda.empty_cache()
+    return scores, counts
+
+
 def train_phase(dev, cfg) -> dict:
     """[10] Training: the full-width cell, the trained model scored on the
     kernel route at 0 and 9 years, card against CPU, the checkpoint round
     trips, and ``repro_torch.benchmarks.fig1b_ber`` on the card."""
     import torch
-    from repro_torch import kernels
     from repro_torch.benchmarks import fig1b_ber
-    from repro_torch.core.fleet import FleetRuntime
-    from repro_torch.serve.engine import ServeEngine
     res, cfg8, state, data = train_full_width(dev, cfg)
     print(f"[10] llama3_8b full width, {cfg8.n_layers} of 32 layers, "
           f"{res['params_b']:.2f} B float32 params, AdamW, B={TRAIN_BATCH} "
@@ -2152,44 +2227,8 @@ def train_phase(dev, cfg) -> dict:
     params = state.params
     del state
     torch.cuda.empty_cache()
-    tokens = data.batch_at(1000).tokens
-    scores, counts = {}, {k: 0 for k in kernels.KERNEL_NAMES}
-    for age in (0.0, 9.0):
-        rt = FleetRuntime(n_devices=1, policy="fault_tolerant", device=dev)
-        rt.set_age(years=age)
-        eng = ServeEngine(cfg8, params, runtime=rt, max_len=TRAIN_SEQ,
-                          use_systolic_kernel=True, device=dev)
-        kernels.reset_launch_counts()
-        nll, replay, replay_s = recorded_score(eng, tokens, cfg8.n_layers, dev)
-        c = kernels.launch_counts()
-        check(math.isfinite(nll), f"score at {age} y: {nll}")
-        check(c["fused_aged_matmul"] == 7 * cfg8.n_layers
-              and c["bitflip_draw"] == 2 * cfg8.n_layers,
-              f"score launches at {age} y: {c}")
-        for k in counts:
-            counts[k] += c[k]
-        scores[f"{age:g}y"] = {"nll": nll, "bers": rt.op_bers(),
-                               "layer0_vs_plain": replay,
-                               "replay_s": replay_s}
-    res["scores"], res["launches"] = scores, counts
-    print(f"     trained model scored on the kernel route (fused GEMM + "
-          f"draw bitflip): NLL fresh {scores['0y']['nll']:.4f}, aged 9 y "
-          f"{scores['9y']['nll']:.4f} (uniform {data.uniform_nll():.4f}); "
-          f"launches {counts}", flush=True)
-    for age, sc in scores.items():
-        r = sc["layer0_vs_plain"]
-        print(f"     score at {age}, layer 0 vs plain, bit for bit (replayed "
-              f"in {sc['replay_s']:.1f} s): GEMMs "
-              + ", ".join(f"{x['M']}x{x['K']}x{x['N']} plan "
-                          f"{x['plan']['bm']}x{x['plan']['bn']}"
-                          f"/{x['plan']['splits']} "
-                          f"({x['upset_outputs']} upset)"
-                          for x in r if x["kernel"] == "fused_aged_matmul")
-              + "; draws " + ", ".join(
-                  f"{tuple(x['shape'])} ({x['flips']} flips)"
-                  for x in r if x["kernel"] == "bitflip_draw"), flush=True)
-    del eng
-    torch.cuda.empty_cache()
+    res["scores"], res["launches"] = score_trained(dev, cfg8, params, data,
+                                                   "     ")
     res["card_vs_cpu"] = train_card_vs_cpu(dev, cfg)
     cv = res["card_vs_cpu"]
     print(f"     reduced llama3_8b, 3 steps: card vs CPU losses within "
@@ -4164,9 +4203,7 @@ def mesh_kernel_rows(dev, cfg, whisper_cfg) -> dict:
             ws = torch.rand((1, N), device=dev, generator=gen) * 0.01 + 1e-3
             seeds = [ops.fold_seed(-91, s) for s in range(S)]
             bounds = shard_bounds(N, S)
-            bs = itertools.cycle([b] + [b.clone() for _ in range(
-                -(-120_000_000 // b.numel()) - 1)])
-            nb = lambda: next(bs)
+            nb, nbc = cold_copies(b)
             kernels.reset_launch_counts()
             out = fused_aged_matmul_shards(a, b, xs, ws, bers, seeds)
             up = fused_aged_matmul_shards(a, b, None, None, bers, seeds)
@@ -4195,7 +4232,7 @@ def mesh_kernel_rows(dev, cfg, whisper_cfg) -> dict:
             check(per_call == 1, f"shard GEMM kernels per call {per_call}")
             lib = lib_dev = None
             if M > 16:
-                lk = lambda: torch._int_mm(a, nb())
+                lk = lambda: torch._int_mm(a, nbc())
                 lib = cuda_time_ms(lk)
                 lib_dev = device_ms(lk)[0]
             t_b, by = bound(M * K + K * N + 4 * (M + N) + 4 * M * N,
@@ -4464,6 +4501,284 @@ def print_mesh(res: dict, smi_line: str) -> None:
     print(f"    [15] done in {res['seconds']:.1f} s ("
           + ", ".join(f"{k} {v:.1f}" for k, v in res["parts_s"].items())
           + ")", flush=True)
+
+
+# [16]'s data-parallel cell (cell 16): [10]'s model and batch over one NCCL
+# rank, the int8 error-feedback mean; then two gloo ranks sharing the card
+DP_STEPS = 4
+DP_TWO_RANK_STEPS = 3
+# the compressed runs' later losses and params, card against CPU: a
+# gradient an ulp apart can round to the next int8 step, and AdamW moves
+# that element by up to lr (tests/test_torch_dp_train.py)
+DP_LOSS_RTOL = 1e-3
+DP_LR = 3e-3
+
+
+def _dp_two_rank(mesh, params, grads) -> dict:
+    """One rank of [16]'s two-rank run (spawned; ``mesh`` over the gloo
+    group): ``DP_TWO_RANK_STEPS`` compressed steps of reduced llama3_8b
+    from ``params`` (flat numpy), B=4, S=16, remat; then the int32 sums of
+    the compressed mean of this rank's row of ``grads``."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.distributed import collectives
+    from repro_torch.models import family
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.train.steps import (TrainState, dp_residuals_init,
+                                         make_dp_train_step)
+    from repro_torch.tree import flatten, unflatten
+    torch.backends.cuda.matmul.allow_tf32 = False
+    small = get_config("llama3_8b").reduced()
+    data = SyntheticLM(vocab=small.vocab, seq_len=16, global_batch=4)
+    p = unflatten(family.init_params(small, 0, device="cpu"), {
+        k: torch.tensor(v, device=mesh.device) for k, v in params.items()})
+    state = TrainState(p, adamw_init(p), dp_residuals_init(p, mesh))
+    step = make_dp_train_step(small, AdamWConfig(
+        lr=DP_LR, warmup_steps=2, total_steps=10), mesh, compress=True,
+        remat=True)
+    losses = []
+    for i in range(DP_TWO_RANK_STEPS):
+        tb = data.batch_at(i)
+        state, m = step(state, {"tokens": tb.tokens, "labels": tb.labels})
+        losses.append(float(m["loss"]))
+    sums = []
+    g = {k: torch.tensor(v[mesh.rank], device=mesh.device)
+         for k, v in grads.items()}
+    collectives.tree_psum_compressed(g, collectives.zeros_residuals(g),
+                                     mesh.group, sums=sums)
+    return {"losses": losses, "sums": [x.cpu().numpy() for x in sums],
+            "params": {k: v.cpu().numpy()
+                       for k, v in flatten(state.params).items()}}
+
+
+def dp_two_ranks_vs_cpu() -> dict:
+    """[16]'s two ranks on the card (gloo, both on ``cuda:0``) against the
+    same two ranks on the CPU: the int32 sums of the same gradients equal,
+    the first loss within TRAIN_LOSS_RTOL, the later ones within
+    DP_LOSS_RTOL, params within 3 steps of lr (the share past
+    TRAIN_PARAM_ATOL reported), each run's ranks holding equal params."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import run_local_ranks
+    from repro_torch.train.steps import init_train_state
+    from repro_torch.tree import flatten
+    small = get_config("llama3_8b").reduced()
+    params = {k: v.numpy() for k, v in flatten(
+        init_train_state(small, 1, device="cpu").params).items()}
+    rng = np.random.default_rng(16)
+    grads = {k: rng.standard_normal((2,) + v.shape).astype(np.float32)
+             for k, v in params.items()}
+    runs, secs = {}, {}
+    for where in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        runs[where] = run_local_ranks(_dp_two_rank, 2, params, grads,
+                                      backend="gloo", device=where,
+                                      timeout=300)
+        secs[where] = time.perf_counter() - t0
+    card, cpu = runs["cuda"], runs["cpu"]
+    sums_equal = all(np.array_equal(a, b) for r in range(2)
+                     for a, b in zip(card[r]["sums"], cpu[r]["sums"]))
+    check(sums_equal and len(card[0]["sums"]) == len(params),
+          "two ranks: the card's int32 sums differ from the CPU's")
+    for run in (card, cpu):
+        check(all(np.array_equal(v, run[0]["params"][k])
+                  for k, v in run[1]["params"].items()),
+              "two ranks: the ranks' params differ")
+    gl, cl = card[0]["losses"], cpu[0]["losses"]
+    rel = [abs(a - b) / abs(b) for a, b in zip(gl, cl)]
+    check(rel[0] <= TRAIN_LOSS_RTOL and max(rel) <= DP_LOSS_RTOL,
+          f"two ranks: card losses {gl} vs CPU {cl}")
+    diffs = {k: np.abs(v.astype(np.float64) - cpu[0]["params"][k])
+             for k, v in card[0]["params"].items()}
+    worst = max(float(d.max()) for d in diffs.values())
+    n_el = sum(d.size for d in diffs.values())
+    past = sum(int((d > TRAIN_PARAM_ATOL).sum()) for d in diffs.values())
+    check(worst <= DP_TWO_RANK_STEPS * DP_LR,
+          f"two ranks: card vs CPU params differ by {worst:.3g}")
+    return {"losses_card": gl, "losses_cpu": cl, "loss_rel": rel,
+            "sums_equal": sums_equal, "leaves": len(params),
+            "param_max_abs_diff": worst,
+            "param_share_past_atol": past / n_el, "seconds": secs}
+
+
+class _CountCollectives:
+    """Counts the ``torch.distributed.all_reduce`` calls made inside it and
+    the bytes each sends, by dtype."""
+
+    def __enter__(self):
+        import torch.distributed as dist
+        self.dist, self.fn = dist, dist.all_reduce
+        self.calls, self.bytes = 0, {}
+
+        def counted(t, *args, **kw):
+            self.calls += 1
+            key = str(t.dtype).replace("torch.", "")
+            self.bytes[key] = self.bytes.get(key, 0) + t.numel() * \
+                t.element_size()
+            return self.fn(t, *args, **kw)
+
+        dist.all_reduce = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.dist.all_reduce = self.fn
+
+
+def dp_full_width(dev, cfg) -> tuple:
+    """``make_dp_train_step(compress=True, remat=True)`` over a one-rank
+    NCCL group: llama3_8b at full width, [10]'s 8 layers, B=4, S=256,
+    float32 AdamW and residuals, ``DP_STEPS`` steps; the collectives and
+    bytes of a step, one profiled step (the ``dp_grad_mean`` range's
+    device time) and one with CUDA events around the mean."""
+    import os
+    import tempfile
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.data import SyntheticLM
+    from repro_torch.distributed import collectives
+    from repro_torch.launch.mesh import init_data_group
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train.steps import (init_train_state, make_dp_train_step,
+                                         make_loss_fn)
+    from repro_torch.tree import leaves
+    cfg8 = dataclasses.replace(cfg, n_layers=TRAIN_LAYERS)
+    data = SyntheticLM(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                       global_batch=TRAIN_BATCH)
+    opt = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=DP_STEPS + 3)
+    batch = lambda i: {"tokens": data.batch_at(i).tokens,
+                       "labels": data.batch_at(i).labels}
+    with tempfile.TemporaryDirectory() as tmp:
+        mesh = init_data_group(os.path.join(tmp, "store"), 0, 1,
+                               backend="nccl", device=dev)
+        try:
+            torch.cuda.reset_peak_memory_stats(dev)
+            state = init_train_state(cfg8, 0, device=dev, compressed=True)
+            step = make_dp_train_step(cfg8, opt, mesh, compress=True,
+                                      remat=True)
+            plan = collectives.bucket_plan(
+                state.params, period=len(cfg8.block_pattern))
+            losses, times = [], []
+            for i in range(DP_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if i == 0:
+                    with _CountCollectives() as cc:
+                        state, m = step(state, batch(i))
+                else:
+                    state, m = step(state, batch(i))
+                losses.append(float(m["loss"]))
+                times.append(time.perf_counter() - t0)
+            peak = torch.cuda.max_memory_allocated(dev)
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                state, m = step(state, batch(DP_STEPS))
+                float(m["loss"])
+            ranged = [e for e in prof.events() if e.name == "dp_grad_mean"]
+            prof_ms = max((getattr(e, "device_time_total", 0.0)
+                           for e in ranged), default=0.0) / 1e3
+            # the mean's span on the stream, from CUDA events around it
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            inner = collectives.tree_psum_compressed
+
+            def timed(*a, **kw):
+                ev[0].record()
+                out = inner(*a, **kw)
+                ev[1].record()
+                return out
+
+            collectives.tree_psum_compressed = timed
+            try:
+                state, m = step(state, batch(DP_STEPS + 1))
+                float(m["loss"])
+            finally:
+                collectives.tree_psum_compressed = inner
+            torch.cuda.synchronize()
+            span_ms = ev[0].elapsed_time(ev[1])
+            res_max = max(float(r.abs().max())
+                          for r in leaves(state.residuals))
+            # the first step's batch again, on the trained params
+            b0 = {k: torch.as_tensor(v, device=dev)
+                  for k, v in batch(0).items()}
+            with torch.no_grad():
+                again = float(make_loss_fn(cfg8)(state.params, b0)[0])
+        finally:
+            dist.destroy_process_group()
+    n_params = sum(t.numel() for t in leaves(state.params))
+    step_ms = float(np.median(times[1:])) * 1e3
+    res = {"layers": TRAIN_LAYERS, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+           "remat": True, "ranks": 1, "backend": "nccl",
+           "params_b": n_params / 1e9, "losses": losses, "step_s": times,
+           "step_ms_median": step_ms,
+           "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3),
+           "peak_gb": peak / 1e9, "plan": plan,
+           "collectives_a_step": cc.calls, "bytes_a_step": cc.bytes,
+           "mean_device_ms_profiler": prof_ms,
+           "profile_found_range": bool(ranged),
+           "mean_span_ms_events": span_ms, "residual_max": res_max,
+           "loss_step0_batch_after": again}
+    # each step draws a new batch, so the losses move with the data: the
+    # first batch's loss on the trained params must be below its first one
+    check(all(math.isfinite(x) for x in losses), f"losses {losses}")
+    check(again < losses[0], f"step 0's batch: loss {losses[0]:.4f} before, "
+          f"{again:.4f} after {DP_STEPS + 2} steps")
+    check(peak < TRAIN_PEAK_LIMIT, f"DP training peak {peak / 1e9:.2f} GB")
+    check(cc.calls == plan["collectives"] + 1,
+          f"{cc.calls} all_reduce calls a step, planned "
+          f"{plan['collectives']} + the metrics'")
+    check(math.isfinite(res_max) and res_max > 0, f"residuals {res_max}")
+    params = state.params
+    del state
+    torch.cuda.empty_cache()
+    return res, cfg8, params, data
+
+
+def dp_phase(dev, cfg) -> dict:
+    """[16] Compressed data-parallel training (cell 16): the full-width
+    step over one NCCL rank, the trained model scored on the kernel route
+    at 0 and 9 years, and two gloo ranks on the card against the CPU."""
+    import torch
+    t0 = time.perf_counter()
+    res, cfg8, params, data = dp_full_width(dev, cfg)
+    b = res["bytes_a_step"]
+    print(f"[16] compressed data-parallel training, llama3_8b full width, "
+          f"{cfg8.n_layers} of 32 layers ({res['params_b']:.2f} B float32 "
+          f"params + residuals), B={TRAIN_BATCH} S={TRAIN_SEQ}, remat, one "
+          f"NCCL rank: losses " + ", ".join(f"{x:.4f}" for x in res["losses"])
+          + f" (step 0's batch after training: "
+          f"{res['loss_step0_batch_after']:.4f}); {res['step_ms_median']:.1f}"
+          f" ms a step (median of the last {DP_STEPS - 1}), "
+          f"{res['tokens_per_s']:.0f} tokens/s; peak {res['peak_gb']:.2f} GB",
+          flush=True)
+    print(f"     the compressed mean: {res['mean_device_ms_profiler']:.2f} "
+          f"ms device time (profiler, dp_grad_mean), "
+          f"{res['mean_span_ms_events']:.2f} ms on the stream (CUDA "
+          f"events); {res['collectives_a_step']} all_reduce calls a step "
+          f"({res['plan']['buckets']} int32 buckets, the scales, the "
+          f"metrics), bytes a step "
+          + ", ".join(f"{k} {v / 1e9:.3f} GB" if v > 1e6 else f"{k} {v} B"
+                      for k, v in b.items())
+          + f"; residuals' largest |r| {res['residual_max']:.3g}",
+          flush=True)
+    res["scores"], res["launches"] = score_trained(dev, cfg8, params, data,
+                                                   "     ")
+    del params
+    torch.cuda.empty_cache()
+    res["two_ranks"] = dp_two_ranks_vs_cpu()
+    tr = res["two_ranks"]
+    print(f"     two gloo ranks on the card vs the CPU, reduced llama3_8b, "
+          f"{DP_TWO_RANK_STEPS} steps: int32 sums of {tr['leaves']} leaves "
+          f"equal; losses card " + ", ".join(f"{x:.5f}" for x in
+                                             tr["losses_card"])
+          + " / CPU " + ", ".join(f"{x:.5f}" for x in tr["losses_cpu"])
+          + f"; params within {tr['param_max_abs_diff']:.2g} "
+          f"({100 * tr['param_share_past_atol']:.3f} % past "
+          f"{TRAIN_PARAM_ATOL}); card {tr['seconds']['cuda']:.1f} s, CPU "
+          f"{tr['seconds']['cpu']:.1f} s", flush=True)
+    res["seconds"] = time.perf_counter() - t0
+    return res
 
 
 def main(argv=None) -> int:
@@ -4821,6 +5136,11 @@ def main(argv=None) -> int:
     mesh_counts = report["mesh"]["launches"]
     stamp("15")
 
+    # 16. compressed data-parallel training (cell 16) ------------------------
+    report["dp"] = dp_phase(dev, cfg)
+    dp_counts = report["dp"]["launches"]
+    stamp("16")
+
     # 11. summary ---------------------------------------------------------
     # launches summed over the ten paths' runs, each counted from 0; the
     # explicit-randoms bitflip_words is on no path any more: it stays the
@@ -4831,7 +5151,7 @@ def main(argv=None) -> int:
                 + moe_fleet_counts[name] + train_counts[name]
                 + resilience_counts[name] + family_counts[name]
                 + entry_counts[name] + online_counts[name]
-                + mesh_counts[name]
+                + mesh_counts[name] + dp_counts[name]
                 for name in kernels.KERNEL_NAMES}
     # the representative shape of each kernel: the decode weight matmul
     # that dominates the fused route (gate/up, M = 2; 4 x 2 in lane mode),

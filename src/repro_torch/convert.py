@@ -84,22 +84,49 @@ def params_from_reference(np_params: Dict[str, Any], cfg: ModelConfig, *,
     return out
 
 
-def train_state_from_reference(flat: Dict[str, np.ndarray], cfg: ModelConfig,
-                               *, dtype=torch.float32, device="cuda"):
-    """A reference train-state checkpoint (the flat arrays
-    :func:`repro_torch.checkpoint.load_checkpoint` returns without a
-    template) -> the port's :class:`~repro_torch.train.steps.TrainState`:
-    params in ``dtype``, float32 moments, the int32 step."""
+def _nested(tree):
+    """A reference state of NamedTuples, dicts and lists -> nested dicts
+    (NamedTuple fields by name, ``None`` fields dropped), leaves as
+    numpy."""
+    if hasattr(tree, "_asdict"):
+        return {k: _nested(v) for k, v in tree._asdict().items()
+                if v is not None}
+    if isinstance(tree, dict):
+        return {k: _nested(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_nested(v) for v in tree]
+    return np.asarray(tree)
+
+
+def train_state_from_reference(ref, cfg: ModelConfig, *, rank=None,
+                               dtype=torch.float32, device="cuda"):
+    """A reference train state -> the port's
+    :class:`~repro_torch.train.steps.TrainState`: params in ``dtype``,
+    float32 moments, the int32 step.
+
+    ``ref`` is a reference ``TrainState`` (leaves numpy reads) or the flat
+    arrays :func:`repro_torch.checkpoint.load_checkpoint` returns without
+    a template.  A compressed data-parallel state keeps its residuals with
+    a leading per-shard axis ``(n, ...)``; ``rank`` picks that rank's
+    slice, as each rank of the port holds its own."""
     from .optim import OptState
     from .train.steps import TrainState
     device = resolve_device(device)
-    tree = nest(flat)
+    tree = nest(ref) if isinstance(ref, dict) else _nested(ref)
     moments = lambda t: params_from_reference(t, cfg, dtype=torch.float32,
                                               device=device)
     opt = tree["opt"]
     step = torch.as_tensor(np.asarray(opt["step"]), dtype=torch.int32,
                            device=device)
+    residuals = None
+    if "residuals" in tree:
+        if rank is None:
+            raise ValueError("the state's residuals hold one slice a data "
+                             "shard: pass rank=")
+        residuals = moments(_map(tree["residuals"],
+                                 lambda x, name: np.asarray(x)[rank]))
     return TrainState(
         params=params_from_reference(tree["params"], cfg, dtype=dtype,
                                      device=device),
-        opt=OptState(mu=moments(opt["mu"]), nu=moments(opt["nu"]), step=step))
+        opt=OptState(mu=moments(opt["mu"]), nu=moments(opt["nu"]), step=step),
+        residuals=residuals)

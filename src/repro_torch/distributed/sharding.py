@@ -31,7 +31,7 @@ the reference's stacked layer axis: a port leaf's spec is the reference's
 spec of the stacked leaf without its leading stack entries.  Placing
 tensors by these specs over several processes (the reference's
 ``shard_tree``, the activation constraints and the ``shard_map`` route)
-is ROADMAP A.8b; on one device, :class:`repro_torch.serve.sharded.
+is ROADMAP A.8c; on one device, :class:`repro_torch.serve.sharded.
 MeshServeEngine` runs every shard.
 """
 from __future__ import annotations

@@ -9,7 +9,8 @@ reference's warmup, ``--microbatches`` gradient accumulation, per-block
 checkpoints under ``--ckpt-dir``, the straggler watchdog).  The reference
 shards the state over a ``("data", "model")`` mesh by its production
 rules; the port runs one device, and ``--model-parallel > 1`` raises
-(ROADMAP A.8b).
+(tensor-parallel training, ROADMAP A.8c; data-parallel training over
+ranks is ``repro_torch.train.steps.make_dp_train_step``).
 """
 from __future__ import annotations
 
@@ -39,14 +40,14 @@ def main(argv=None):
     ap.add_argument("--remat", action="store_true")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--model-parallel", type=int, default=1,
-                    help="only 1: sharded training is ROADMAP A.8b")
+                    help="only 1: tensor-parallel training is ROADMAP A.8c")
     ap.add_argument("--device", default="cuda",
                     help="where the model trains (default cuda)")
     args = ap.parse_args(argv)
     if args.model_parallel != 1:
         raise NotImplementedError(
-            "--model-parallel > 1 needs the sharding rules, which are not "
-            "ported: ROADMAP A.8b")
+            "--model-parallel > 1 is tensor-parallel training over ranks, "
+            "which is not ported: ROADMAP A.8c")
     dev = resolve_device(args.device)
 
     cfg = get_config(args.arch)

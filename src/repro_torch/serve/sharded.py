@@ -19,7 +19,7 @@ counter-upset kernel (``use_fused_kernel=True``), or the plain product and
 :func:`repro_torch.kernels.ops.inject_bitflips_sharded` with the same draws
 (``False``), so the tokens equal the reference's on both routes.  Float
 params are cast to ``serve_dtype`` (bfloat16) once, as the reference casts
-them.  Placing the shards over several processes is ROADMAP A.8b.
+them.  Placing the shards over several processes is ROADMAP A.8c.
 """
 from __future__ import annotations
 
@@ -91,7 +91,7 @@ class MeshServeEngine:
         if shrules._dp(mesh) != 1:
             raise NotImplementedError(
                 "a mesh with more than one data replica needs its shards "
-                "placed over several processes: ROADMAP A.8b")
+                "placed over several processes: ROADMAP A.8c")
         self.mesh = mesh
         self.tp = shrules._tp(mesh)
         if fleet is not None and runtime is not None:

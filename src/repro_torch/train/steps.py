@@ -7,8 +7,14 @@ requiring gradients only while it runs, sums the microbatches' gradients
 in float32 in microbatch order, as the reference's ``lax.scan`` adds them
 onto float32 zeros (in the params' ``.grad`` for float32 params, in
 float32 buffers for the others), divides by the count and hands them to :func:`repro_torch.optim.adamw_update`, which
-updates params and moments in place.  The data-parallel step with
-compressed residuals waits for the distributed layer (ROADMAP A.8b).
+updates params and moments in place.
+
+:func:`make_dp_train_step` is the reference's explicit data-parallel step
+over the ranks of a ``torch.distributed`` group
+(:class:`repro_torch.launch.mesh.LogicalMesh`): each rank takes its rows of
+the global batch, and the ranks average their gradients with the int8
+error-feedback mean (:mod:`repro_torch.distributed.collectives`) or the
+plain one before the same AdamW update on every rank.
 """
 from __future__ import annotations
 
@@ -18,7 +24,9 @@ import numpy as np
 import torch
 
 from ..configs import ModelConfig
-from ..device import resolve_device
+from ..device import resolve_device, true_div
+from ..distributed import collectives
+from ..distributed.sharding import _dp, _tp
 from ..models import family
 from ..models import transformer as tf
 from ..optim import AdamWConfig, OptState, adamw_init, adamw_update
@@ -28,7 +36,7 @@ from ..tree import leaves, tree_map
 class TrainState(NamedTuple):
     params: Any
     opt: OptState
-    residuals: Optional[Any] = None      # error-feedback state (DP; A.8b)
+    residuals: Optional[Any] = None      # error-feedback state (DP)
 
 
 def init_train_state(cfg: ModelConfig, seed: int = 0, *,
@@ -36,14 +44,13 @@ def init_train_state(cfg: ModelConfig, seed: int = 0, *,
                      compressed: bool = False) -> TrainState:
     """Random params of the config's family from ``seed``
     (:func:`repro_torch.models.family.init_params`) and a fresh optimizer
-    state on ``device``."""
-    if compressed:
-        raise NotImplementedError(
-            "compressed data-parallel residuals are not ported (ROADMAP "
-            "A.8b)")
+    state on ``device``; ``compressed`` adds zero error-feedback
+    residuals."""
     params = family.init_params(cfg, seed, dtype,
                                 device=resolve_device(device))
-    return TrainState(params=params, opt=adamw_init(params))
+    return TrainState(params=params, opt=adamw_init(params),
+                      residuals=collectives.zeros_residuals(params)
+                      if compressed else None)
 
 
 # --------------------------------------------------------------------------- #
@@ -163,13 +170,86 @@ def grads_of(params, sums=None):
     return tree_map(grad, params)
 
 
-def make_dp_train_step(*args, **kwargs):
-    raise NotImplementedError(
-        "the data-parallel step with compressed gradients is not ported "
-        "(ROADMAP A.8b)")
+def make_dp_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, mesh, *,
+                       compress: bool = True, remat: bool = False,
+                       aux_weight: float = 0.01) -> Callable:
+    """The explicit data-parallel step over ``mesh``'s group:
+    ``(state, global batch) -> (state, metrics)`` on every rank.
+
+    Rank ``r`` of ``n`` takes rows ``[r B / n, (r + 1) B / n)`` of the
+    global batch (the split ``shard_map``'s ``P(axes)`` makes), the
+    gradients of the loss on them, and their mean over the group:
+    :func:`~repro_torch.distributed.collectives.tree_psum_compressed` with
+    this rank's residuals (``state.residuals``, updated in place), or the
+    plain :func:`~repro_torch.distributed.collectives.tree_psum`.  The
+    metrics are averaged over the group; AdamW then makes the same update
+    on every rank, so the replicated params stay equal.  The mean runs
+    under the profiler range ``dp_grad_mean``."""
+    if mesh is None or mesh.group is None:
+        raise ValueError("make_dp_train_step needs a mesh over a started "
+                         "process group (repro_torch.launch.mesh."
+                         "init_data_group)")
+    if _tp(mesh) != 1:
+        raise NotImplementedError(
+            f"a model axis of {_tp(mesh)} over ranks is tensor-parallel "
+            f"training: ROADMAP A.8c")
+    loss_fn = make_loss_fn(cfg, remat=remat, aux_weight=aux_weight)
+    n, rank, group = _dp(mesh), mesh.rank, mesh.group
+
+    def train_step(state: TrainState, batch):
+        if compress and state.residuals is None:
+            raise ValueError("a compressed step needs residuals "
+                             "(dp_residuals_init)")
+        params = state.params
+        ps = leaves(params)
+        batch = _to_device(batch, ps[0].device)
+        B = batch["tokens"].shape[0]
+        if B % n:
+            raise ValueError(f"global batch {B} does not split over {n} "
+                             f"ranks")
+        per = B // n
+        local = {k: v[rank * per:(rank + 1) * per] for k, v in batch.items()}
+        for p in ps:
+            p.grad = None
+            p.requires_grad_(True)
+        try:
+            with torch.enable_grad():
+                loss, m = loss_fn(params, local)
+                loss.backward()
+        finally:
+            for p in ps:
+                p.requires_grad_(False)
+        with torch.no_grad(), torch.profiler.record_function("dp_grad_mean"):
+            grads = grads_of(params)
+            if compress:
+                grads, res = collectives.tree_psum_compressed(
+                    grads, state.residuals, group,
+                    period=len(cfg.block_pattern))
+            else:
+                grads, res = collectives.tree_psum(grads, group), \
+                    state.residuals
+            names = list(m)
+            mets = torch.stack([m[k].detach().to(torch.float32)
+                                for k in names])
+            torch.distributed.all_reduce(mets, group=group)
+            mets = true_div(mets, float(n))
+        metrics = dict(zip(names, mets.unbind(0)))
+        new_params, new_opt, opt_m = adamw_update(
+            grads, state.opt, params, opt_cfg,
+            period=len(cfg.block_pattern))
+        for p in ps:
+            p.grad = None
+        return (TrainState(new_params, new_opt, res),
+                dict(metrics, **opt_m))
+
+    return train_step
 
 
-def dp_residuals_init(*args, **kwargs):
-    raise NotImplementedError(
-        "data-parallel error-feedback residuals are not ported (ROADMAP "
-        "A.8b)")
+def dp_residuals_init(params, mesh):
+    """This rank's error-feedback residuals: float32 zeros shaped like the
+    params.  The reference keeps one copy a data shard on a leading
+    ``(n, ...)`` axis; a rank of ``mesh``'s group holds its own slice."""
+    if _tp(mesh) != 1:
+        raise NotImplementedError("a model axis over ranks is "
+                                  "tensor-parallel training: ROADMAP A.8c")
+    return collectives.zeros_residuals(params)

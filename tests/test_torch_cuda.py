@@ -838,3 +838,53 @@ def test_cuda_counter_upset_matches_plain(cuda_device, shape, axis, S):
     want = ops.inject_bitflips_sharded(x, bers, seed=-1234, axis=axis)
     assert torch.equal(got, want)
     assert kernels.launch_counts()["counter_upset_shards"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend,world", [("nccl", 1), ("gloo", 2)])
+def test_cuda_dp_steps_match_cpu(cuda_device, backend, world):
+    """``make_dp_train_step`` on the card (one NCCL rank, or two gloo ranks
+    sharing it) against the same ranks on the CPU (gloo), reduced
+    llama3_8b, 3 steps compressed and plain: the compressed mean's int32
+    sums of the same gradients equal; the first loss within 1e-5; the
+    plain run's losses within 1e-5 and params within 2e-4 (the training
+    tests' tolerances); the compressed run's later losses within 1e-3 and
+    params within 3 steps of lr (a gradient an ulp apart can round to the
+    next int8 step: tests/test_torch_dp_train.py)."""
+    import numpy as np
+    import torch_dist_ranks as ranks
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import run_local_ranks
+    from repro_torch.train.steps import init_train_state
+    from repro_torch.tree import flatten
+    cfg = get_config("llama3_8b").reduced()
+    params = {k: v.numpy() for k, v in flatten(
+        init_train_state(cfg, 1, device="cpu").params).items()}
+    rng = np.random.default_rng(world)
+    grads = {k: rng.standard_normal((world,) + v.shape).astype(np.float32)
+             for k, v in params.items()}
+    runs = {dev: run_local_ranks(
+        ranks.dp_rank, world, "llama3_8b", params, (True, False),
+        ranks.DP_STEPS, grads, backend=backend if dev == "cuda" else "gloo",
+        device=dev, timeout=300) for dev in ("cuda", "cpu")}
+    lr = ranks.DP_OPT["lr"]
+    for r in range(world):
+        card, cpu = runs["cuda"][r], runs["cpu"][r]
+        assert len(card["sums"]) == len(params)
+        for a, b in zip(card["sums"], cpu["sums"]):
+            np.testing.assert_array_equal(a, b)
+        for compress in (True, False):
+            got, want = card[compress], cpu[compress]
+            np.testing.assert_allclose(got["losses"][0], want["losses"][0],
+                                       rtol=1e-5)
+            np.testing.assert_allclose(got["losses"], want["losses"],
+                                       rtol=1e-3 if compress else 1e-5)
+            for k, v in got["params"].items():
+                np.testing.assert_allclose(
+                    v, want["params"][k], rtol=0,
+                    atol=3 * lr if compress else 2e-4, err_msg=k)
+            assert got["params"].keys() == runs["cuda"][0][compress][
+                "params"].keys()
+        for k, v in card[True]["params"].items():      # replicated
+            np.testing.assert_array_equal(v, runs["cuda"][0][True]
+                                          ["params"][k])

@@ -3,7 +3,8 @@ against the reference's own on its one CPU device (and the ``runtime=``
 and clean paths against its ``ServeEngine``); ``serve --mesh`` (at ``--tp
 1`` against the reference's ``main(argv)``, at ``--tp 4`` against the
 port's engine), ``mesh_bench --quick`` and ``run --only mesh``; the lane
-engines' refusal of a shard-granular fleet; and what ROADMAP A.8b leaves,
+engines' refusal of a shard-granular fleet; and A.8b's entry points (the
+data-parallel half, ported) beside tensor-parallel training (A.8c),
 which still raises naming it."""
 import json
 import re
@@ -22,6 +23,7 @@ from repro_torch.configs import get_config
 from repro_torch.core.fleet import FleetRuntime
 from repro_torch.data import SyntheticLM
 from repro_torch.launch import serve, train
+from repro_torch.launch.mesh import make_local_mesh
 from repro_torch.serve.engine import FleetServeEngine
 from repro_torch.serve.online import OnlineFleetEngine
 from repro_torch.serve.sharded import MeshServeEngine
@@ -138,10 +140,12 @@ def test_lane_engines_refuse_a_sharded_fleet():
 
 
 def test_a8b_entry_points_still_raise():
+    """A.8b's data-parallel half is ported: its entry points refuse a mesh
+    without a process group (tests/test_torch_dp_train.py runs them over
+    one), and tensor-parallel training still raises, naming A.8c."""
     cfg = get_config("llama3_8b").reduced()
-    for fn in (lambda: steps.make_dp_train_step(cfg, None, None),
-               lambda: steps.dp_residuals_init({}, None),
-               lambda: train.main(["--model-parallel", "2", "--device",
-                                   "cpu"])):
-        with pytest.raises(NotImplementedError, match=re.escape("A.8b")):
-            fn()
+    with pytest.raises(ValueError, match="process group"):
+        steps.make_dp_train_step(cfg, None, None)
+    assert steps.dp_residuals_init({}, make_local_mesh(device="cpu")) == {}
+    with pytest.raises(NotImplementedError, match=re.escape("A.8c")):
+        train.main(["--model-parallel", "2", "--device", "cpu"])

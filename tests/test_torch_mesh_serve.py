@@ -96,7 +96,7 @@ def test_mesh_engine_defaults_checks_and_telemetry():
     with pytest.raises(ValueError, match="not both"):
         MeshServeEngine(cfg, params, tp=4, fleet=pf, runtime=pf.device(0),
                         device="cpu")
-    with pytest.raises(NotImplementedError, match="A.8b"):
+    with pytest.raises(NotImplementedError, match="A.8c"):
         MeshServeEngine(cfg, params, fleet=pf, device="cpu",
                         mesh=LogicalMesh(("data", "model"), (2, 4),
                                          torch.device("cpu")))

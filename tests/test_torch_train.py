@@ -24,6 +24,7 @@ from repro_torch.benchmarks import fig1b_ber
 from repro_torch.configs import get_config
 from repro_torch.convert import params_from_reference
 from repro_torch.data import SyntheticLM
+from repro_torch.launch.mesh import LogicalMesh
 from repro_torch.optim import (AdamWConfig, adamw_init, adamw_update,
                                cosine_schedule, global_norm)
 from repro_torch.optim.adamw import ref_order_groups
@@ -378,15 +379,24 @@ def test_bf16_microbatch_grads_sum_in_float32(monkeypatch):
 
 
 def test_refusals():
-    """What waits for the distributed layer (A.8) and unported config
-    fields raise instead of running something else."""
+    """The data-parallel entry points (ported: tests/test_torch_dp_train.py)
+    start from zero float32 residuals and refuse a mesh without a process
+    group; unported config fields raise instead of running something
+    else."""
     cfg = get_config("llama3_8b").reduced()
-    with pytest.raises(NotImplementedError, match="A.8"):
-        steps.init_train_state(cfg, 0, device="cpu", compressed=True)
-    with pytest.raises(NotImplementedError, match="A.8"):
+    st = steps.init_train_state(cfg, 0, device="cpu", compressed=True,
+                                dtype=torch.bfloat16)
+    mesh = LogicalMesh(("data", "model"), (1, 1), torch.device("cpu"))
+    for res in (st.residuals, steps.dp_residuals_init(st.params, mesh)):
+        got, want = flatten(res), flatten(st.params)
+        assert sorted(got) == sorted(want)
+        for k, v in got.items():
+            assert v.dtype == torch.float32 and v.shape == want[k].shape
+            assert not v.any()
+    with pytest.raises(ValueError, match="process group"):
         steps.make_dp_train_step(cfg, AdamWConfig(), None)
-    with pytest.raises(NotImplementedError, match="A.8"):
-        steps.dp_residuals_init({}, None)
+    with pytest.raises(ValueError, match="process group"):
+        steps.make_dp_train_step(cfg, AdamWConfig(), mesh)
     # a sliding window (refused before the hybrid family was ported): the
     # loss equals the reference's
     windowed, jwindowed = (dataclasses.replace(c, window=4) for c in

@@ -1,0 +1,270 @@
+"""Rank functions of the port's data-parallel tests: each runs in a
+process spawned by :func:`repro_torch.launch.mesh.run_local_ranks` (one
+rank of a gloo group, or NCCL on a card) and returns host data.
+
+No jax here: ``tests/test_torch_cuda.py`` runs these on the card, where
+there is none.  Inputs come in as numpy; the comparisons with the
+reference are made by the test modules.
+"""
+import numpy as np
+import torch
+
+# the reduced DP runs: global batch, sequence, AdamW
+DP_BATCH, DP_SEQ, DP_STEPS = 8, 16, 3
+DP_OPT = dict(lr=3e-3, total_steps=10, warmup_steps=2)
+# a gradient an ulp away from another run's can round to the next int8
+# step of the compressed mean: at most this share of the elements may
+# differ by such a step (tests/test_torch_dp_train.py)
+FLIP_SHARE = 1e-3
+
+
+def hold(got, want, atol, flip_atol, what):
+    """Two trees of host arrays by path: every leaf within ``atol`` but
+    for at most FLIP_SHARE of all the elements, and those within
+    ``flip_atol`` (each a number, or a function of the leaf's ``want``
+    values).  Returns how many elements lay past ``atol``."""
+    moved, n_el = 0, 0
+    assert sorted(got) == sorted(want), what
+    at = lambda tol, w: tol(w) if callable(tol) else tol
+    for k, v in got.items():
+        w = np.asarray(want[k])
+        d = np.abs(np.asarray(v, np.float64) - w)
+        lim = at(flip_atol, w)
+        assert d.max() <= lim, (what, k, float(d.max()), lim)
+        moved, n_el = moved + int((d > at(atol, w)).sum()), n_el + v.size
+    assert moved <= FLIP_SHARE * n_el, (what, moved, n_el)
+    return moved
+
+
+def _np(tree):
+    from repro_torch.tree import flatten
+    return {k: v.detach().cpu().numpy() for k, v in flatten(tree).items()}
+
+
+def _to(arrays, device):
+    return [torch.as_tensor(a).to(device) for a in arrays]
+
+
+def _rank_tree(tree, r, device, bf16=()):
+    """Row ``r`` of a tree of ``(n, ...)`` numpy arrays as tensors (the
+    paths in ``bf16`` as bfloat16)."""
+    from repro_torch.tree import map_with_path
+    return map_with_path(lambda path, x: torch.tensor(x[r], device=device).to(
+        torch.bfloat16 if path in bf16 else torch.float32), tree)
+
+
+def _by_path(tree, tensors, period=1):
+    """``tensors`` (one a tensor of ``tree``, in reference-leaf order) by
+    path."""
+    from repro_torch.distributed.collectives import _leaf_groups
+    from repro_torch.tree import flatten
+    path = {id(t): k for k, t in flatten(tree).items()}
+    order = [t for grp in _leaf_groups(tree, period) for t in grp]
+    return {path[id(t)]: x.cpu().numpy() for t, x in zip(order, tensors)}
+
+
+def collectives_rank(mesh, grads, residuals, bf16, ef_steps):
+    """For each group size ``n`` in ``grads`` (the first ``n`` ranks of
+    the world, a new group each), row ``[rank]`` of the port-layout trees
+    ``grads[n]`` / ``residuals[n]`` of ``(n, ...)`` arrays through
+    ``tree_psum_compressed`` (the default buckets; its int32 sums kept),
+    the same with 1 KiB buckets, ``psum_compressed_leaf`` on each
+    non-layer leaf, ``tree_psum``, and ``quantize_int8_global`` of ``g +
+    r``; at the largest ``n``, ``ef_steps`` steps of error feedback on
+    leaf ``a``'s gradient.  Host arrays by path."""
+    import torch.distributed as dist
+    from repro_torch.distributed import collectives as col
+    from repro_torch.tree import flatten
+    torch.set_num_threads(1)
+    host = lambda tree: {k: v.float().cpu().numpy()
+                         for k, v in flatten(tree).items()}
+    out = {}
+    for n in sorted(grads):
+        group = dist.new_group(list(range(n)))
+        if mesh.rank >= n:
+            continue
+        r, dev = mesh.rank, mesh.device
+        g = lambda: _rank_tree(grads[n], r, dev, bf16)
+        x = lambda: _rank_tree(residuals[n], r, dev)
+        gt, sums = g(), []
+        mean, new_r = col.tree_psum_compressed(gt, x(), group, sums=sums)
+        res = {"mean": host(mean), "res": host(new_r),
+               "dtype": {k: str(v.dtype) for k, v in flatten(mean).items()},
+               "keys": (sorted(mean), len(mean["layers"])),
+               "sums": _by_path(gt, sums)}
+        small = []
+        mb, rb = col.tree_psum_compressed(g(), x(), group, bucket_bytes=1024,
+                                          sums=small)
+        res["bucketed_equal"] = all(
+            torch.equal(a, b) for t1, t2 in ((mb, mean), (rb, new_r))
+            for a, b in zip(flatten(t1).values(), flatten(t2).values())
+        ) and all(torch.equal(a, b) for a, b in zip(small, sums))
+        g1, x1 = flatten(g()), flatten(x())
+        qs = {k: col.quantize_int8_global(g1[k].float() + x1[k])
+              for k in g1}
+        res["q"] = {k: q.cpu().numpy() for k, (q, _) in qs.items()}
+        res["smean"] = {k: float(col.mean_scale(s, group))
+                        for k, (_, s) in qs.items()}
+        res["leaf"] = {k: tuple(t.float().cpu().numpy() for t in
+                                col.psum_compressed_leaf(g1[k], x1[k], group))
+                       for k in g1 if not k.startswith("layers")}
+        res["plain"] = host(col.tree_psum(g(), group))
+        if n == max(grads):
+            ga = flatten(g())["a"]
+            xa = torch.zeros_like(ga, dtype=torch.float32)
+            traj = []
+            for _ in range(ef_steps):
+                m, xa = col.psum_compressed_leaf(ga.clone(), xa, group)
+                traj.append(m.cpu().numpy())
+            res["ef_means"] = np.stack(traj)
+        out[n] = res
+    return out
+
+
+def _dp_setup(arch, mesh, compress):
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import steps as st
+    torch.set_num_threads(1)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(arch).reduced()
+    data = SyntheticLM(vocab=cfg.vocab, seq_len=DP_SEQ, global_batch=DP_BATCH)
+    step = st.make_dp_train_step(cfg, AdamWConfig(**DP_OPT), mesh,
+                                 compress=compress)
+    return cfg, data, step
+
+
+def _step(step, state, data, i):
+    tb = data.batch_at(i)
+    state, m = step(state, {"tokens": tb.tokens, "labels": tb.labels})
+    return state, float(m["loss"])
+
+
+def _record(state, losses):
+    return {"losses": losses, "params": _np(state.params),
+            "residuals": None if state.residuals is None
+            else _np(state.residuals), "step": int(state.opt.step)}
+
+
+def dp_rank(mesh, arch, params, compress_modes, steps=DP_STEPS,
+            sum_grads=None):
+    """``steps`` steps of ``make_dp_train_step`` on reduced ``arch`` from
+    ``params`` (flat port-layout numpy arrays) for each ``compress`` in
+    ``compress_modes``: the losses, the final params and residuals; and the
+    int32 sums of the compressed mean of ``sum_grads`` (flat numpy ``(n,
+    ...)`` gradients, this rank's row) when given."""
+    from repro_torch.distributed import collectives as col
+    from repro_torch.models import family
+    from repro_torch.optim import adamw_init
+    from repro_torch.train import steps as st
+    from repro_torch.tree import unflatten
+    out = {}
+    for compress in compress_modes:
+        cfg, data, step = _dp_setup(arch, mesh, compress)
+        template = family.init_params(cfg, 0, device="cpu")
+        p = unflatten(template, {k: torch.tensor(v, device=mesh.device)
+                                 for k, v in params.items()})
+        state = st.TrainState(p, adamw_init(p), st.dp_residuals_init(
+            p, mesh) if compress else None)
+        losses = []
+        for i in range(steps):
+            state, loss = _step(step, state, data, i)
+            losses.append(loss)
+        out[compress] = _record(state, losses)
+    if sum_grads is not None:
+        sums = []
+        gs = {k: torch.as_tensor(v[mesh.rank]).to(mesh.device)
+              for k, v in sum_grads.items()}
+        col.tree_psum_compressed(gs, col.zeros_residuals(gs), mesh.group,
+                                 sums=sums)
+        out["sums"] = [s.cpu().numpy() for s in sums]
+    return out
+
+
+def dp_rank_from(mesh, arch, starts):
+    """One step from each reference state: ``starts[compress]`` lists the
+    reference's flat train states (``(n, ...)`` residuals when
+    compressed) before steps 0, 1, ...; each is carried into this rank's
+    port state (``train_state_from_reference(rank=)``) and stepped on
+    that step's batch.  Returns the records by mode, one a step."""
+    from repro_torch.convert import train_state_from_reference
+    out = {}
+    for compress, flats in starts.items():
+        cfg, data, step = _dp_setup(arch, mesh, compress)
+        recs = []
+        for i, flat in enumerate(flats):
+            state = train_state_from_reference(flat, cfg, rank=mesh.rank,
+                                               device=mesh.device)
+            state, loss = _step(step, state, data, i)
+            recs.append(_record(state, [loss]))
+        out[compress] = recs
+    return out
+
+
+def elastic_rank(mesh, arch, params, global_batch):
+    """The elastic re-mesh of a 4-rank data-parallel job: the plan from the
+    live ``(4, 1)`` mesh down to 2 ranks, the new mesh (ranks 2 and 3 get
+    none), a compressed train state resharded onto it (rank 0's values;
+    every other rank starts from different ones), then back up to 4
+    ranks, and the refusals of a model axis over ranks.  Host data."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import elastic
+    from repro_torch.launch import mesh as pmesh
+    from repro_torch.models import family
+    from repro_torch.optim import adamw_init
+    from repro_torch.train import steps as st
+    from repro_torch.tree import flatten, tree_map, unflatten
+    torch.set_num_threads(1)
+    cfg = get_config(arch).reduced()
+    template = family.init_params(cfg, 0, device="cpu")
+    p = unflatten(template, {k: torch.tensor(v) for k, v in params.items()})
+    if mesh.rank:                       # every other rank holds other values
+        p = tree_map(lambda x: x + mesh.rank, p)
+    state = st.TrainState(p, adamw_init(p), tree_map(
+        lambda x: torch.full_like(x, float(mesh.rank + 1)), p))
+    state.opt.step.fill_(3 + mesh.rank)
+    for m in flatten(state.opt.mu).values():
+        m.fill_(float(mesh.rank))
+    out = {"shape": mesh.shape, "local": pmesh.make_local_mesh(
+        device="cpu").shape}
+    plan = elastic.plan_remesh(mesh, 2, global_batch=global_batch)
+    out["plan"] = plan
+    new = elastic.make_mesh_from_plan(plan, device="cpu")
+    out["new"] = None if new is None else (
+        new.shape, dist.get_world_size(new.group), new.rank)
+    if new is not None:
+        moved = elastic.reshard_state(state, cfg, new)
+        out["moved"] = {"params": _np(moved.params), "mu": _np(moved.opt.mu),
+                        "step": int(moved.opt.step),
+                        "residuals": _np(moved.residuals)}
+    back_plan = elastic.plan_remesh_shape(plan.axis_names, dict(zip(
+        plan.axis_names, plan.new_shape)), 4, global_batch=global_batch)
+    out["back_plan"] = back_plan
+    back = elastic.make_mesh_from_plan(back_plan, device="cpu")
+    src = moved if new is not None else state
+    out["back"] = _np(elastic.reshard_state(src, cfg, back).params)
+    pod = elastic.make_mesh_from_plan(elastic.RemeshPlan(
+        (4,), (2, 2, 1), ("pod", "data", "model"), 1), device="cpu")
+    out["pod"] = (pod.shape, dist.get_world_size(pod.group))
+    out["pod_plan"] = elastic.plan_remesh(pod, 2, global_batch=global_batch)
+    refusals = {}
+    for name, call in (
+            ("local", lambda: pmesh.make_local_mesh(2, device="cpu")),
+            ("plan", lambda: elastic.make_mesh_from_plan(elastic.RemeshPlan(
+                (4, 1), (2, 2), ("data", "model"), 1), device="cpu"))):
+        try:
+            call()
+            refusals[name] = None
+        except NotImplementedError as e:
+            refusals[name] = str(e)
+    out["refusals"] = refusals
+    return out
+
+
+def failing_rank(mesh, message):
+    """Raises on rank 1, as a rank that fails mid-run."""
+    if mesh.rank == 1:
+        raise RuntimeError(message)
+    return mesh.rank
