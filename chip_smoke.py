@@ -55,7 +55,7 @@ Phases (any failure exits non-zero):
 6b. traffic-driven aging on [4]'s params: ``FleetRuntime.apply_load`` of
    the [6] fleet under 3 years of diurnal traffic at 55 % (144 epochs) for
    ``round_robin`` and ``wear_level``, and ``rest_to_recover`` with the
-   recovery pool and thermal feedback at 480 epochs, each on the card
+   recovery pool and thermal feedback at REST_EPOCHS (240), each on the card
    against the same call on the CPU (supplies equal, no (device, op)
    moved; shifts within 1e-4, and whether they are bit-equal),
    wear_level's fleet-max ΔVth below round_robin's, the co-sim's wall
@@ -67,7 +67,7 @@ Phases (any failure exits non-zero):
    static BERs; the ``state_dict`` round trip, ``resize`` +
    ``apply_load`` bit-exact against the undisturbed run, ``health()``; and
    ``repro_torch.benchmarks.sched_bench`` / ``disruption_bench`` on the
-   card at 48 epochs, one timed repetition (any FAIL fails);
+   card at BENCH_EPOCHS (24), one timed repetition (any FAIL fails);
 7. the MoE path: qwen3_moe_235b at its published widths (head_dim 128,
    which the reference config leaves to derive as d_model // n_heads =
    64; 12 of 94 layers, bf16 random params) on ``FleetRuntime.for_model``
@@ -168,7 +168,7 @@ Phases (any failure exits non-zero):
    CLI on reduced llama3_8b's kernel route as a 4-lane wear_level fleet
    and as lane 2 of a static fleet (tokens == the same call with
    ``--torch-device cpu``, the lane / single-lane fused and draw launches
-   counted), ``launch.sweep``, ``launch.schedule --epochs 96``,
+   counted), ``launch.sweep``, ``launch.schedule --epochs 48``,
    ``examples.quickstart`` (tokens == the CPU's), ``launch.train --arch
    recurrentgemma_2b --full --steps 2 --batch 2 --seq 256`` (finite loss,
    peak under 76 GB), ``benchmarks.kernel_bench`` (the full list, every
@@ -224,9 +224,26 @@ Phases (any failure exits non-zero):
    reduced llama3_8b, against the same two ranks on the CPU (int32 sums
    of the same gradients equal, the first loss within 1e-5, the later
    ones within 1e-3, params within 3 steps of lr);
+17. mesh serving over ranks (cell 17): [15]'s llama3_8b, fleet, prompts
+   and calls over 4 gloo ranks sharing the card at tp = 4, each rank
+   holding only its column blocks (drawn a layer at a time by
+   ``init_mesh_params``) and ageing them at its shard's BERs: every rank's
+   greedy and sampled tokens equal [15]'s, 7 fused-GEMM launches a layer
+   and forward on a quarter of the columns and 2 counter-upset launches,
+   226 all-gathers a forward (staged through host memory: gloo gathers no
+   CUDA tensor), peak under 6 GB a rank; a ``(2, 2)`` mesh over 4 gloo
+   ranks whose replicas equal the one-device engine at tp = 2, and one
+   NCCL rank (a one-rank group in this process) at tp = 1 equal to the
+   one-device engine at tp = 1 (both on [15]'s params, in this run); the
+   fused GEMM at the rank-block shapes, timed with the card to itself
+   (nothing else runs on it in [17] while a time is taken); the clean
+   bf16 column-block products
+   (head and weights) against the whole product's columns; prefill ms,
+   ms a decode token, gathers and bytes a token and launches a forward
+   per rank;
 11. a ``{"kernels": [...]}`` line (launches summed over the runs of [4],
-   [5], [6], [6b], [7], [8], [10], [10b], [12], [13], [14], [15] and
-   [16]), the
+   [5], [6], [6b], [7], [8], [10], [10b], [12], [13], [14], [15], [16]
+   and [17]), the
    ``nvidia-smi`` line, and as the last line ``{"ok": true, "device":
    {...}}``.
 
@@ -1183,10 +1200,13 @@ YEAR_S = 365.25 * 24 * 3600.0
 LOAD_KW = {"workload": "diurnal", "utilization": 0.55, "n_epochs": 144,
            "horizon_s": 3 * YEAR_S}
 SHIFT_RTOL = 1e-4              # card against CPU, co-sim shifts
-# the scheduler benchmarks' horizon in [6b]: half their 96-epoch default,
-# one timed repetition (their checks are per epoch; the smoke's time went
-# to [10b])
-BENCH_EPOCHS = 48
+# the scheduler benchmarks' horizon in [6b]: a quarter of their 96-epoch
+# default, one timed repetition (their checks are per epoch; the smoke's
+# time went to [10b] and [17])
+BENCH_EPOCHS = 24
+# rest_to_recover's co-sim in [6b] (recovery and thermal feedback): 240
+# epochs of the 3 years, each on the card and on the CPU
+REST_EPOCHS = 240
 
 
 def _aged_fleet(dev):
@@ -1288,10 +1308,9 @@ def fleet_load_phase(dev, cfg, params, static) -> dict:
 
     res = {"load_kw": dict(LOAD_KW)}
     cos = {}
+    rest = dict(LOAD_KW, n_epochs=REST_EPOCHS, recovery=True, thermal=True)
     for router, kw in (("round_robin", LOAD_KW), ("wear_level", LOAD_KW),
-                       ("rest_to_recover", dict(LOAD_KW, n_epochs=480,
-                                                recovery=True,
-                                                thermal=True))):
+                       ("rest_to_recover", rest)):
         r = cosim_card_vs_cpu(dev, router, **kw)
         cos[router] = r
         res[router] = {k: r[k] for k in ("card_s", "cpu_s", "moved",
@@ -3622,6 +3641,10 @@ def serve_cli_vs_cpu(dev, name: str, argv: list) -> dict:
             "launches": counts, "tokens": res.tokens.tolist()}
 
 
+# launch.schedule's epochs in [13] (its default is 480 over 5 years)
+SCHEDULE_EPOCHS = 48
+
+
 def entry_points(dev) -> dict:
     """The port's CLIs, example and benchmarks on the card, each through
     its ``main(argv)`` in this process, output under ENTRY_DIR."""
@@ -3662,7 +3685,7 @@ def entry_points(dev) -> dict:
     res["sweep"] = {"seconds": res_s,
                     "saving_pct": np.asarray(sw["saving"]).tolist()}
     sc, sc_s = _captured("schedule", lambda: schedule.main(
-        ["--epochs", "96"]))
+        ["--epochs", str(SCHEDULE_EPOCHS)]))
     check(sc["wear_level"]["fleet_max_dvp_mv"]
           < sc["round_robin"]["fleet_max_dvp_mv"],
           "schedule: wear_level's fleet-max dVth not below round_robin's")
@@ -3740,7 +3763,8 @@ def entry_phase(dev) -> dict:
           f"{ep['serve_fleet']['seconds']:.1f} s and lane 2 (static) "
           f"{ep['serve_lane']['seconds']:.1f} s: tokens == CPU's; launches "
           f"{ep['launches']}", flush=True)
-    print(f"    sweep {ep['sweep']['seconds']:.1f} s, schedule (96 epochs) "
+    print(f"    sweep {ep['sweep']['seconds']:.1f} s, schedule "
+          f"({SCHEDULE_EPOCHS} epochs) "
           f"{ep['schedule']['seconds']:.1f} s, quickstart "
           f"{ep['quickstart']['seconds']:.1f} s (tokens == CPU's), train "
           f"{TRAIN_ARCH} --full 2 steps {ep['train']['seconds']:.1f} s "
@@ -4781,6 +4805,390 @@ def dp_phase(dev, cfg) -> dict:
     return res
 
 
+# --------------------------------------------------------------------------- #
+# [17] mesh serving over ranks: each rank holds and ages its column blocks
+# --------------------------------------------------------------------------- #
+RANK_TP = 4                      # cell 17: gloo ranks sharing cuda:0
+RANK_PEAK_LIMIT = 6e9            # bytes a rank: its blocks, one layer's draw
+RANK_TIMEOUT = 240               # seconds a spawned run of [17] may take
+RANK_2X2_STEPS = 4               # tokens of [17]'s (2, 2) mesh and NCCL rank
+
+
+def _mesh_rank(mesh, layers: int, prompts, runs) -> dict:
+    """One rank of [17] (a spawned gloo rank, or the NCCL rank of a
+    one-rank group in this process; ``mesh`` over its group): for each run
+    ``(name, fleet, calls)``, llama3_8b at its published widths and
+    ``layers``, this rank's blocks drawn a layer at a time
+    (``init_mesh_params``, [15]'s seed 0, bf16), a ``MeshServeEngine`` over
+    ``make_serve_mesh(fleet.n_shards)`` on ``fleet`` (the parent's shard
+    fleet, aged MESH_AGES: every rank serves the same one, and none
+    simulates its lifetime again), fused route, and its ``calls`` ``(name,
+    tokens, sampling)`` in order.
+    Per call the tokens, host-clock timings, all-gathers and kernel
+    launches; per run the peak memory, the bytes held, and the (K, N) of
+    every fused GEMM of the first call."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_serve_mesh
+    from repro_torch.serve.sharded import MeshServeEngine, init_mesh_params
+    t_enter = time.time()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.init()            # the memory statistics need the allocator
+    dev = mesh.device
+    cfg = dataclasses.replace(get_config("llama3_8b"), n_layers=layers)
+    out = {"t_enter": t_enter}
+    for name, fleet, calls in runs:
+        tp = fleet.n_shards
+        m = make_serve_mesh(tp, device=dev)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        params = init_mesh_params(cfg, m, seed=0, dtype=torch.bfloat16)
+        torch.cuda.synchronize(dev)
+        rec = {"rank": mesh.rank, "shard": m.shard, "replica": m.replica,
+               "shape": m.shape, "build_s": time.perf_counter() - t0}
+        eng = MeshServeEngine(cfg, params, mesh=m, fleet=fleet, max_len=64,
+                              device=dev)
+        rec["held_gb"] = eng.held_bytes / 1e9
+        widths, inner = [], ops.fused_aged_matmul
+
+        def recorded(a, b, *args, **kw):
+            widths.append((int(a.shape[1]), int(b.shape[1])))
+            return inner(a, b, *args, **kw)
+
+        for i, (call, n, kw) in enumerate(calls):
+            kernels.reset_launch_counts()
+            ops.fused_aged_matmul = recorded if i == 0 else inner
+            try:
+                res = eng.generate(prompts, n, **kw)
+            finally:
+                ops.fused_aged_matmul = inner
+            rec[call] = {"tokens": res.tokens.tolist(),
+                         "timings": res.timings, "gathers": res.gathers,
+                         "launches": kernels.launch_counts(),
+                         "by_path": kernels.launch_counts_by_path()}
+        rec["gemm_kn"] = sorted(set(widths))
+        rec["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+        out[name] = rec
+        del eng, params
+    out["t_exit"] = time.time()
+    return out
+
+
+def clean_block_rounding(dev, cfg) -> list:
+    """The clean bf16 products of a rank's column block against the same
+    columns of the whole product on the card (cuBLAS chooses its kernel
+    by shape): llama3_8b's head (K = d, N = vocab) and its seven weight
+    shapes, M = 2 (decode) and 32 (prefill), blocks of tp = 4 and 2: how
+    many outputs differ and by how much."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(17)
+    shapes = [("head", cfg.d_model, cfg.vocab)] + [
+        (op, K, N) for _, K, N, op in llama_gemm_shapes(cfg)]
+    rows = []
+    for op, K, N in shapes:
+        w = (torch.randn((K, N), generator=gen, device=dev)
+             * K ** -0.5).to(torch.bfloat16)
+        for M in (2, 32):
+            x = torch.randn((M, K), generator=gen, device=dev).to(
+                torch.bfloat16)
+            whole = x @ w
+            for tp in (4, 2):
+                nb = N // tp
+                diff, n_diff = 0.0, 0
+                for s in range(tp):
+                    blk = x @ w[:, s * nb:(s + 1) * nb].contiguous()
+                    d = (blk.float() - whole[:, s * nb:(s + 1) * nb].float()
+                         ).abs()
+                    diff = max(diff, float(d.max()))
+                    n_diff += int((d > 0).sum())
+                rows.append({"op": op, "M": M, "K": K, "N": N, "tp": tp,
+                             "differ": n_diff, "of": M * N,
+                             "max_abs_diff": diff,
+                             "whole_max_abs": float(whole.float().abs()
+                                                    .max())})
+        del w
+    torch.cuda.empty_cache()
+    return rows
+
+
+def rank_block_rows(dev, cfg) -> list:
+    """The fused GEMM (dequant mode) at the shapes a rank of [17] gives
+    it, llama3_8b's weights cut to a quarter of their columns, M = 2
+    (decode) and 32 (prefill), BER 1e-3: bit-exact against its plain
+    version, one fast-path launch a call (the wrapper's count), timed
+    beside the whole width's device time at the same M, the bound and,
+    above 16 rows, ``torch._int_mm``."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.fused_aged_matmul import fused_aged_matmul
+    gen = torch.Generator(device=dev).manual_seed(1717)
+    ber, rows = 1e-3, []
+    for M in (2, 32):
+        for _, K, N, what in llama_gemm_shapes(cfg):
+            nq = N // RANK_TP
+            a = torch.randint(-127, 128, (M, K), dtype=torch.int8,
+                              device=dev, generator=gen)
+            b = torch.randint(-127, 128, (K, N), dtype=torch.int8,
+                              device=dev, generator=gen)
+            bq = b[:, :nq].contiguous()
+            xs = torch.rand((M, 1), device=dev, generator=gen) * 0.01 + 1e-3
+            ws = torch.rand((1, nq), device=dev, generator=gen) * 0.01 + 1e-3
+            seed = ops.fold_seed(-17, 3)
+            bm, bn, _ = ops._resolve_blocks(M, nq, K, 256, 256, 256)
+            kernels.reset_launch_counts()
+            out = fused_aged_matmul(a, bq, xs, ws, ber, seed, bm=bm, bn=bn)
+            exp = ref.fused_aged_matmul_ref(a, bq, xs, ws, ber, seed, bm=bm,
+                                            bn=bn)
+            torch.cuda.synchronize()
+            err = max_abs_err(out, exp)
+            check(err == 0.0 and torch.equal(out, exp),
+                  f"fused_aged_matmul rank block M={M} K={K} N={nq}: max "
+                  f"|err| {err}")
+            check(kernels.launch_counts_by_path()["fused_aged_matmul"]
+                  == {"fast": 1, "generic": 0},
+                  f"rank-block GEMM M={M} K={K} N={nq} off the fast path")
+            nb, nbc = cold_copies(bq)
+            wb, _ = cold_copies(b)
+            wbm, wbn, _ = ops._resolve_blocks(M, N, K, 256, 256, 256)
+            ws_all = torch.rand((1, N), device=dev, generator=gen) + 1e-3
+            fk = lambda: fused_aged_matmul(a, nb(), xs, ws, ber, seed, bm=bm,
+                                           bn=bn)
+            whole = lambda: fused_aged_matmul(a, wb(), xs, ws_all, ber, seed,
+                                              bm=wbm, bn=wbn)
+            fr = lambda: ref.fused_aged_matmul_ref(a, bq, xs, ws, ber, seed,
+                                                   bm=bm, bn=bn)
+            lib = None
+            if M > 16:
+                lib = cuda_time_ms(lambda: torch._int_mm(a, nbc()))
+            dev_ms, per_call = device_ms(fk, match="int8_gemm")
+            t_b, by = bound(M * K + K * nq + 4 * (M + nq) + 4 * M * nq,
+                            2.0 * M * K * nq)
+            rows.append(dict(
+                M=M, K=K, N=nq, N_whole=N, op=what, model="llama3_8b/4",
+                max_abs_err=err, ms=cuda_time_ms(fk), dev_ms=dev_ms,
+                kernels_per_call_profiler=per_call,
+                whole_dev_ms=device_ms(whole, match="int8_gemm")[0],
+                plain_ms=cuda_time_ms(fr, iters=3, warmup=1),
+                bound_ms=t_b, bound_by=by, library_ms=None, int_mm_ms=lib))
+            del a, b, bq, nb, nbc, wb
+    torch.cuda.empty_cache()
+    return rows
+
+
+def rank_mesh_phase(dev, layers: int, mesh_res: dict) -> dict:
+    """[17] cell 17: llama3_8b at its published widths ([15]'s model,
+    fleet, prompts and calls) over ``RANK_TP`` gloo ranks sharing the
+    card, each holding and ageing its column blocks, then a ``(2, 2)``
+    mesh over the same 4 ranks; one NCCL rank at tp = 1 (this process, a
+    one-rank group as [16]'s).  [15]'s tokens are the yardstick of the
+    first, the one-device engine's at tp = 2 and 1 on [15]'s params (a
+    fresh engine's first call of RANK_2X2_STEPS tokens) of the others.
+    Each part has the card to itself: the rank-block rows are timed first,
+    and every rank's run starts after the one before has ended."""
+    import os
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch.mesh import init_data_group, run_local_ranks
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serve.sharded import MeshServeEngine
+    t_phase = time.perf_counter()
+    parts = {}
+
+    def lap(name):
+        parts[name] = time.perf_counter() - t_phase - sum(parts.values())
+    cfg = dataclasses.replace(get_config("llama3_8b"), n_layers=layers)
+    L = cfg.n_layers
+    prompts = SyntheticLM(vocab=cfg.vocab, seq_len=16,
+                          global_batch=2).batch_at(0).tokens
+    res = {"layers": L, "tp": RANK_TP, "ages_years": list(MESH_AGES),
+           "parts_s": parts}
+    totals = dict.fromkeys(kernels.KERNEL_NAMES, 0)
+    greedy = ("greedy", MESH_STEPS, {})
+    short = ("greedy", RANK_2X2_STEPS, {})
+    res["kernel_rows"] = rank_block_rows(dev, cfg)
+    lap("kernel_rows")
+    res["clean_blocks"] = clean_block_rounding(dev, cfg)
+    lap("clean_blocks")
+    # the shard fleets the ranks serve, aged here once (each rank gets a
+    # copy through the call file: the same BERs, no lifetime simulation)
+    fleets = {tp: _mesh_fleet(dev, tp) for tp in (RANK_TP, 2, 1)}
+    # the one-device engine at tp = 2 and 1 on [15]'s params: a fresh
+    # engine's first call, as the ranks' (2, 2) and NCCL runs make it
+    params = init_params(cfg, seed=0, dtype=torch.bfloat16, device=dev)
+    one = {}
+    for tp in (2, 1):
+        eng = MeshServeEngine(cfg, params, tp=tp, fleet=fleets[tp],
+                              max_len=64, device=dev)
+        kernels.reset_launch_counts()
+        one[tp] = eng.generate(prompts, RANK_2X2_STEPS).tokens.tolist()
+        for k, v in kernels.launch_counts().items():
+            totals[k] += v
+    del eng, params
+    torch.cuda.empty_cache()
+    res["one_device_tokens"] = one
+    lap("one_device")
+    # the NCCL rank: a one-rank group in this process
+    res["nccl_base_gb"] = torch.cuda.memory_allocated(dev) / 1e9
+    with tempfile.TemporaryDirectory() as tmp:
+        mesh = init_data_group(os.path.join(tmp, "store"), 0, 1,
+                               backend="nccl", device=dev)
+        try:
+            nccl = [_mesh_rank(mesh, L, prompts,
+                               [("nccl", fleets[1], [short])])]
+        finally:
+            dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    lap("nccl_rank")
+
+    spawned = time.time()
+    gloo = run_local_ranks(
+        _mesh_rank, 4, L, prompts,
+        [("tp4", fleets[RANK_TP], [("first", 2, {}), greedy,
+                                   ("sampled", MESH_STEPS,
+                                    {"temperature": 0.8, "top_k": 50})]),
+         ("2x2", fleets[2], [short])], backend="gloo", device=str(dev),
+        timeout=RANK_TIMEOUT)
+    lap("gloo_ranks")
+    # the spawn's seconds before the rank function ran, and its run
+    res["spawn_s"] = {"to_enter": max(r["t_enter"] for r in gloo) - spawned,
+                      "run": max(r["t_exit"] - r["t_enter"] for r in gloo)}
+    runs = {name: [r[name] for r in recs] for recs, names in
+            ((gloo, ("tp4", "2x2")), (nccl, ("nccl",))) for name in names}
+    res["runs"] = runs
+    for recs in runs.values():
+        for rec in recs:
+            for call in ("first", "greedy", "sampled"):
+                for k, v in rec.get(call, {}).get("launches", {}).items():
+                    totals[k] += v
+
+    greedy15 = mesh_res["greedy"]["tokens"]
+    sampled15 = mesh_res["sampled"]["tokens"]
+    quarter = {(cfg.d_model, cfg.n_heads * cfg.hd // RANK_TP),
+               (cfg.d_model, cfg.n_kv_heads * cfg.hd // RANK_TP),
+               (cfg.d_model, cfg.d_ff // RANK_TP),
+               (cfg.d_ff, cfg.d_model // RANK_TP)}
+    for rec in runs["tp4"]:
+        r = rec["rank"]
+        check(rec["shard"] == r and rec["shape"] == {"data": 1,
+                                                      "model": RANK_TP},
+              f"[17] rank {r}: shard {rec['shard']} of {rec['shape']}")
+        check(rec["greedy"]["tokens"] == greedy15
+              and rec["sampled"]["tokens"] == sampled15,
+              f"[17] rank {r}: tokens {rec['greedy']['tokens']} / "
+              f"{rec['sampled']['tokens']} != [15]'s {greedy15} / "
+              f"{sampled15}")
+        check(set(map(tuple, rec["gemm_kn"])) == quarter,
+              f"[17] rank {r}: fused GEMM (K, N) {rec['gemm_kn']}, not a "
+              f"quarter of the columns {sorted(quarter)}")
+        check(rec["peak_gb"] * 1e9 < RANK_PEAK_LIMIT,
+              f"[17] rank {r}: peak {rec['peak_gb']:.2f} GB")
+    for name, recs in runs.items():
+        n = MESH_STEPS if name == "tp4" else RANK_2X2_STEPS
+        for rec in recs:
+            for call in ("greedy", "sampled"):
+                if call not in rec:
+                    continue
+                c, bp = rec[call]["launches"], rec[call]["by_path"]
+                gemm = "fused_aged_matmul" if name != "nccl" \
+                    else "fused_aged_matmul_shards"
+                want = {gemm: 7 * L * n, "counter_upset_shards": 2 * L * n}
+                check(all(c[k] == want.get(k, 0) for k in c)
+                      and bp[gemm] == {"fast": want[gemm], "generic": 0},
+                      f"[17] {name} rank {rec['rank']} {call}: launches "
+                      f"{c} (by path {bp[gemm]}) != {want}")
+                g = rec[call]["gathers"]
+                tp = rec["shape"]["model"]
+                check(g["calls"] == (7 * L + 2) * n * (tp > 1),
+                      f"[17] {name} rank {rec['rank']}: {g['calls']} "
+                      f"all-gathers in {n} forwards")
+    for rec in runs["2x2"]:
+        check(rec["greedy"]["tokens"] == one[2],
+              f"[17] (2, 2) rank {rec['rank']} (replica {rec['replica']}):"
+              f" tokens {rec['greedy']['tokens']} != the one-device "
+              f"engine's at tp = 2 {one[2]}")
+    check(runs["nccl"][0]["greedy"]["tokens"] == one[1],
+          f"[17] NCCL rank: tokens {runs['nccl'][0]['greedy']['tokens']} "
+          f"!= the one-device engine's at tp = 1 {one[1]}")
+
+    def per_token(rec) -> dict:
+        greedy = rec["greedy"]
+        n = len(greedy["tokens"][0])
+        out = {"prefill_ms": greedy["timings"]["prefill_s"] * 1e3,
+               "decode_ms_per_token": greedy["timings"]["decode_s"]
+               / (n - 1) * 1e3,
+               "gathers_per_forward": greedy["gathers"]["calls"] / n,
+               "launches_per_forward": {
+                   k: v / n for k, v in greedy["launches"].items() if v},
+               "peak_gb": rec["peak_gb"], "held_gb": rec["held_gb"],
+               "build_s": rec["build_s"]}
+        if "first" in rec:      # a call of 2 tokens: 6 decode tokens fewer
+            n, g0, g1 = MESH_STEPS - 2, rec["first"]["gathers"], \
+                greedy["gathers"]
+            out.update({k + "_per_token": (g1[k] - g0[k]) / n
+                        for k in ("calls", "bytes", "staged_bytes")})
+        return out
+
+    res["per_rank"] = {name: [per_token(rec) for rec in recs]
+                       for name, recs in runs.items()}
+    res["launches"] = totals
+    res["seconds"] = time.perf_counter() - t_phase
+    return res
+
+
+def print_rank_mesh(res: dict, smi_line: str) -> None:
+    print(f"[17] llama3_8b full width ({res['layers']} layers) over "
+          f"{res['tp']} gloo ranks sharing the card at tp = {res['tp']}, "
+          f"shards aged {res['ages_years']} y, bf16, fused route "
+          f"({smi_line}): greedy and sampled tokens == [15]'s on every "
+          f"rank; (2, 2): both replicas == the one-device engine at tp = 2;"
+          f" one NCCL rank (in this process, the card to itself) == the "
+          f"one-device engine at tp = 1", flush=True)
+    for name, rows in res["per_rank"].items():
+        for r, x in enumerate(rows):
+            tok = "" if "calls_per_token" not in x else (
+                f"; {x['calls_per_token']:.0f} all-gathers a decode token "
+                f"({x['bytes_per_token'] / 1e6:.3f} MB gathered, "
+                f"{x['staged_bytes_per_token'] / 1e6:.3f} MB through host "
+                f"memory)")
+            print(f"    {name:4s} rank {r}: prefill {x['prefill_ms']:.1f} ms,"
+                  f" decode {x['decode_ms_per_token']:.1f} ms/token; "
+                  f"{x['gathers_per_forward']:.0f} all-gathers a forward"
+                  f"{tok}; peak {x['peak_gb']:.2f} GB (holds "
+                  f"{x['held_gb']:.2f} GB, built in {x['build_s']:.1f} s); "
+                  f"launches a forward {x['launches_per_forward']}",
+                  flush=True)
+    worst = max(res["clean_blocks"], key=lambda r: r["max_abs_diff"])
+    n_diff = sum(r["differ"] for r in res["clean_blocks"])
+    n_out = sum(r["of"] for r in res["clean_blocks"])
+    print(f"    clean bf16 column blocks vs the whole product (cuBLAS): "
+          f"{n_diff} of {n_out} outputs differ over "
+          f"{len(res['clean_blocks'])} (op, M, tp) cases; largest |diff| "
+          f"{worst['max_abs_diff']:.3g} ({worst['op']} M={worst['M']} "
+          f"tp={worst['tp']}, whole max {worst['whole_max_abs']:.3g}); "
+          f"fused GEMM (K, N) a rank at tp = {res['tp']}: "
+          f"{res['runs']['tp4'][0]['gemm_kn']}", flush=True)
+    for r in res["kernel_rows"]:
+        lib = "-" if r["int_mm_ms"] is None else f"{r['int_mm_ms'] * 1e3:.1f}"
+        print(f"    fused_aged_matmul rank block M={r['M']:<2d} K={r['K']:<5d}"
+              f" N={r['N']:<4d} ({r['op']:7s} / {RANK_TP}) exact; device "
+              f"{r['dev_ms'] * 1e3:.1f} us (whole N={r['N_whole']} "
+              f"{r['whole_dev_ms'] * 1e3:.1f}), wrapper {r['ms'] * 1e3:.1f} "
+              f"us, bound {r['bound_ms'] * 1e3:.1f} us ({r['bound_by']}), "
+              f"_int_mm {lib} us, plain {r['plain_ms']:.3f} ms", flush=True)
+    print(f"    [17] done in {res['seconds']:.1f} s ("
+          + ", ".join(f"{k} {v:.1f}" for k, v in res["parts_s"].items())
+          + f"; the gloo spawn's start {res['spawn_s']['to_enter']:.1f} s "
+          f"and rank function {res['spawn_s']['run']:.1f} s)", flush=True)
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--layers", type=int, default=32,
@@ -5141,6 +5549,12 @@ def main(argv=None) -> int:
     dp_counts = report["dp"]["launches"]
     stamp("16")
 
+    # 17. mesh serving over ranks (cell 17) ----------------------------------
+    report["rank_mesh"] = rank_mesh_phase(dev, args.layers, report["mesh"])
+    print_rank_mesh(report["rank_mesh"], smi_line)
+    rank_counts = report["rank_mesh"]["launches"]
+    stamp("17")
+
     # 11. summary ---------------------------------------------------------
     # launches summed over the ten paths' runs, each counted from 0; the
     # explicit-randoms bitflip_words is on no path any more: it stays the
@@ -5151,7 +5565,7 @@ def main(argv=None) -> int:
                 + moe_fleet_counts[name] + train_counts[name]
                 + resilience_counts[name] + family_counts[name]
                 + entry_counts[name] + online_counts[name]
-                + mesh_counts[name] + dp_counts[name]
+                + mesh_counts[name] + dp_counts[name] + rank_counts[name]
                 for name in kernels.KERNEL_NAMES}
     # the representative shape of each kernel: the decode weight matmul
     # that dominates the fused route (gate/up, M = 2; 4 x 2 in lane mode),
@@ -5170,6 +5584,7 @@ def main(argv=None) -> int:
             and r["op"] == "gate/up",
             "counter_upset_shards": lambda r: r["op"] == "llama qkt prefill"}
     rows.update(report["mesh"]["kernel_rows"])
+    rows["fused_aged_matmul"] += report["rank_mesh"]["kernel_rows"]
     line = []
     for name in ("fused_aged_matmul", "fused_aged_matmul_lanes",
                  "fused_aged_matmul_shards", "bitflip_draw",

@@ -27,6 +27,10 @@ Where the reference takes ``axis_names`` inside a ``shard_map`` body, the
 port takes the ``torch.distributed`` group of the mesh's data axis
 (:class:`repro_torch.launch.mesh.LogicalMesh`'s ``group``); every call goes
 through it, a group of one rank included.
+
+Mesh serving over ranks (the serve layout's all-gathers, where the
+reference lets GSPMD gather the output blocks it pins replicated) uses
+:func:`all_gather_cat`: pure data movement, counted per call.
 """
 from __future__ import annotations
 
@@ -223,3 +227,46 @@ def tree_psum(grads, group):
         return true_div(s, n)
 
     return tree_map(mean, grads)
+
+
+def all_gather_cat(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """Every rank's ``x`` of ``group`` concatenated along ``dim`` in rank
+    order: an all-gather, pure data movement (every rank's ``x`` has the
+    same shape).
+
+    Gloo gathers no CUDA tensor, so under gloo a CUDA ``x`` is staged
+    through host memory: copied to the host, gathered there, and the
+    whole copied back to ``x``'s device.  NCCL gathers on the card.  Each
+    call adds one to ``all_gather_cat.calls``, the gathered tensor's bytes
+    to ``.bytes`` and, when staged, the bytes of both host copies to
+    ``.staged_bytes`` (:func:`gather_counts`)."""
+    n = dist.get_world_size(group)
+    src = x.contiguous()
+    staged = src.device.type != "cpu" and dist.get_backend(group) == "gloo"
+    if staged:
+        src = src.cpu()
+    parts = [torch.empty_like(src) for _ in range(n)]
+    dist.all_gather(parts, src, group=group)
+    out = torch.cat(parts, dim=dim)
+    nbytes = out.numel() * out.element_size()
+    if staged:
+        out = out.to(x.device)
+        all_gather_cat.staged_bytes += nbytes + nbytes // n
+    all_gather_cat.calls += 1
+    all_gather_cat.bytes += nbytes
+    return out
+
+
+def gather_counts() -> dict:
+    """:func:`all_gather_cat`'s calls, bytes gathered and bytes staged
+    through host memory since :func:`reset_gather_counts`."""
+    return {"calls": all_gather_cat.calls, "bytes": all_gather_cat.bytes,
+            "staged_bytes": all_gather_cat.staged_bytes}
+
+
+def reset_gather_counts() -> None:
+    all_gather_cat.calls = all_gather_cat.bytes = 0
+    all_gather_cat.staged_bytes = 0
+
+
+reset_gather_counts()

@@ -8,7 +8,8 @@ global batch is unchanged.  :func:`plan_remesh_shape` plans from a named
 shape alone, :func:`plan_remesh` from a live mesh;
 :func:`make_mesh_from_plan` makes the new group over the first ranks and
 :func:`reshard_state` carries the replicated state onto it.  A model axis
-above 1 over ranks is tensor-parallel placement (ROADMAP A.8c).
+above 1 over ranks is tensor-parallel training (ROADMAP A.8c's training
+half).
 """
 from __future__ import annotations
 

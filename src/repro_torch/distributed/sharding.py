@@ -28,20 +28,36 @@ Two layouts share the rules (``layout=`` of :func:`param_pspec`):
 The port's trees keep one dict per layer (``layers`` / ``enc_layers`` /
 ``dec_layers`` are lists, :mod:`repro_torch.convert`), so no leaf carries
 the reference's stacked layer axis: a port leaf's spec is the reference's
-spec of the stacked leaf without its leading stack entries.  Placing
-tensors by these specs over several processes (the reference's
-``shard_tree``, the activation constraints and the ``shard_map`` route)
-is ROADMAP A.8c; on one device, :class:`repro_torch.serve.sharded.
-MeshServeEngine` runs every shard.
+spec of the stacked leaf without its leading stack entries.
+
+Serving over ranks (the serve layout placed over a
+:func:`repro_torch.launch.mesh.make_serve_mesh` mesh whose model axis spans
+the ranks of a process group): :func:`shard_tree` keeps each rank's block
+of every sharded leaf as a :class:`RankBlock`; :func:`serve_mesh_scope`
+puts the mesh in scope around a generation, and there the model's op
+boundaries turn each rank's output block into the whole tensor
+(:func:`block_product`, :func:`lookup_rows`) by an all-gather, where the
+reference pins them replicated and GSPMD gathers.
+Every such combine is pure data movement, so the tokens equal one
+device's.  In one process (a mesh without ``model_group``) every shard
+runs on the one device: :func:`shard_tree` keeps the whole tree and the
+hooks are the identity.  The activation constraint of training
+(``constrain_activation``) belongs to tensor-parallel training, ROADMAP
+A.8c's training half.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+import contextlib
+import dataclasses
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
+import torch
+import torch.nn.functional as F
 
 from ..configs import ModelConfig
 from ..tree import map_with_path
+from .collectives import all_gather_cat
 
 MODEL_AXIS = "model"
 
@@ -291,3 +307,219 @@ def encdec_cache_spec(cfg: ModelConfig, mesh, batch: int) -> Dict[str, tuple]:
         sp = (None, b, MODEL_AXIS, None, None)
     return {"k": _spec(*sp), "v": _spec(*sp)}
 
+
+# --------------------------------------------------------------------------- #
+# serving over ranks: placement and the op-boundary gathers
+# --------------------------------------------------------------------------- #
+def _spec_at(specs, path: str) -> tuple:
+    node = specs
+    for key in path.split("/"):
+        node = node[int(key)] if isinstance(node, list) else node[key]
+    return node
+
+
+@dataclasses.dataclass(frozen=True)
+class RankBlock:
+    """A rank's block of a whole parameter leaf, as :func:`shard_tree`
+    keeps it: ``data`` is block ``shard`` of ``tp`` equal blocks of the
+    leaf along ``dim``.  It is not a tensor, so no product can take it for
+    a whole weight: the model's op boundaries compute with it only through
+    :func:`block_product` and :func:`lookup_rows` (and
+    :func:`repro_torch.kernels.ops.aged_linear` inside them), and a cast
+    or a move goes through :meth:`map`.  ``shape`` is the whole leaf's,
+    which the spec rules read; ``dtype`` and ``device`` are the data's."""
+    data: torch.Tensor
+    dim: int
+    shard: int
+    tp: int
+
+    @property
+    def shape(self) -> torch.Size:
+        shape = list(self.data.shape)
+        shape[self.dim] *= self.tp
+        return torch.Size(shape)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.data.dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.data.device
+
+    @property
+    def span(self) -> slice:
+        """The part of the whole leaf's ``dim`` that the block covers."""
+        n = self.data.shape[self.dim]
+        return slice(self.shard * n, (self.shard + 1) * n)
+
+    def map(self, fn) -> "RankBlock":
+        """The same block of ``fn(data)`` (a cast, a move, a reshape that
+        keeps ``dim``)."""
+        return dataclasses.replace(self, data=fn(self.data))
+
+
+def held(w) -> torch.Tensor:
+    """The tensor this rank holds of the leaf ``w``: a block's data, else
+    ``w``.  For the product functions of :func:`block_product`."""
+    return w.data if isinstance(w, RankBlock) else w
+
+
+def span(w) -> slice:
+    """The part of ``w``'s block dim that this rank holds: a block's
+    span, else all of it."""
+    return w.span if isinstance(w, RankBlock) else slice(None)
+
+
+def fold(w, nc: int):
+    """``w`` as a 2-D weight, its first ``nc`` dims folded into the rows
+    and the rest into the columns.  A block along dim ``nc`` (the first
+    output dim) stays a block, of the folded columns; a block along any
+    other dim is refused."""
+    if not isinstance(w, RankBlock):
+        return w.reshape(int(np.prod(w.shape[:nc])), -1)
+    if w.dim != nc:
+        raise ValueError(f"a block along dim {w.dim} of a weight whose "
+                         f"first {nc} dims contract is not a column block")
+    k = int(np.prod(w.data.shape[:nc]))
+    return RankBlock(w.data.reshape(k, -1), 1, w.shard, w.tp)
+
+
+def shard_tree(tree, specs, mesh):
+    """``tree`` as this rank holds it under ``mesh`` by ``specs`` (the
+    serve layout's :func:`param_specs`): a leaf split over ``"model"`` is
+    cut into ``tp`` equal blocks along that dim, and this rank keeps block
+    ``mesh.shard`` as a :class:`RankBlock` of a copy of its own (so the
+    whole leaf can be freed); every other leaf stays whole.  The blocks
+    are the spec's: ``param_pspec`` already replicates a leaf whose dim
+    ``tp`` does not divide.  A leaf that is this rank's block already
+    stays as it is.  On a one-process mesh every shard runs on the one
+    device, and the tree comes back as it is."""
+    if getattr(mesh, "model_group", None) is None:
+        return tree
+    tp, s = _tp(mesh), mesh.shard
+
+    def one(path, x):
+        spec = _spec_at(specs, path)
+        dims = [i for i, ax in enumerate(spec) if ax == MODEL_AXIS]
+        if any(ax not in (None, MODEL_AXIS) for ax in spec) or len(dims) > 1:
+            raise ValueError(f"{path}: spec {spec} is not a serve-layout "
+                             "spec (one model-axis dim, no data axes)")
+        if isinstance(x, RankBlock):
+            if dims != [x.dim] or (x.shard, x.tp) != (s, tp):
+                raise ValueError(f"{path}: block {x.shard} of {x.tp} along "
+                                 f"dim {x.dim}, where this rank holds block "
+                                 f"{s} of {tp} by the spec {spec}")
+            return x
+        if not dims:
+            return x
+        n = x.shape[dims[0]] // tp
+        return RankBlock(x.narrow(dims[0], s * n, n).clone(), dims[0], s, tp)
+
+    return map_with_path(one, tree)
+
+
+_SERVE_MESH = None
+
+
+def serve_mesh_active():
+    """The mesh of the enclosing :func:`serve_mesh_scope`, if any."""
+    return _SERVE_MESH
+
+
+@contextlib.contextmanager
+def serve_mesh_scope(mesh):
+    """Put ``mesh`` in scope for the serve layout's op-boundary hooks (the
+    mesh engine enters it around a generation)."""
+    global _SERVE_MESH
+    prev = _SERVE_MESH
+    _SERVE_MESH = mesh
+    try:
+        yield
+    finally:
+        _SERVE_MESH = prev
+
+
+def _rank_mesh():
+    """The mesh in scope when its model axis spans ranks, else ``None``."""
+    mesh = _SERVE_MESH
+    return mesh if getattr(mesh, "model_group", None) is not None else None
+
+
+def _block_mesh(w: RankBlock) -> None:
+    """Raise unless the rank mesh in scope is the one ``w`` is a block
+    of."""
+    mesh = _rank_mesh()
+    if mesh is None or (mesh.shard, _tp(mesh)) != (w.shard, w.tp):
+        where = "no rank mesh" if mesh is None else \
+            f"shard {mesh.shard} of {_tp(mesh)}"
+        raise RuntimeError(f"block {w.shard} of {w.tp} computed under "
+                           f"{where}: it is not the whole weight")
+
+
+def constrain_replicated(x: torch.Tensor, dim: Optional[int] = None):
+    """This rank's block of ``x`` (its part of ``dim``) as the whole
+    tensor: an all-gather over the model group of the rank mesh in scope,
+    the blocks in shard order.  The identity for ``dim=None`` (``x`` is
+    whole already: a replicated weight's product) and outside a rank
+    mesh, as the reference's hook is outside its scope."""
+    mesh = _rank_mesh()
+    if mesh is None or dim is None:
+        return x
+    return all_gather_cat(x, dim, mesh.model_group)
+
+
+def block_product(x, w, product, out_dims: Dict[int, int]) -> torch.Tensor:
+    """``product(x, w)`` as the whole output, for a weight leaf ``w``.
+
+    The one place where a rank's block meets the model: for a
+    :class:`RankBlock` ``w`` (under the rank mesh it is a block of),
+    ``product(x, w)`` is this rank's block of the output along
+    ``out_dims[w.dim]`` (the output dim that ``w``'s block dim becomes),
+    gathered over the mesh's model group in shard order.  A block along a
+    dim ``out_dims`` does not map (a contracted dim) is refused.
+    ``product`` reads the block's tensor through :func:`held`, or hands
+    the block to :func:`repro_torch.kernels.ops.aged_linear`, which
+    computes the block's columns at its own shard's BER and stream."""
+    if not isinstance(w, RankBlock):
+        return product(x, w)
+    _block_mesh(w)
+    if w.dim not in out_dims:
+        raise ValueError(f"a block along dim {w.dim} is contracted by this "
+                         "product: its output is not a block of the whole")
+    return constrain_replicated(product(x, w), out_dims[w.dim])
+
+
+def lookup_rows(table, ids: torch.Tensor) -> torch.Tensor:
+    """``table``'s rows ``ids``, whole.  A rank's column block of the
+    table gives the rows' columns, gathered along the last dim; a row
+    (vocab) block looks up the ids it owns, the ranks' lookups are
+    gathered, and each id takes its owner's row — pure data movement,
+    where the reference adds the non-owners' zeros."""
+    if not isinstance(table, RankBlock):
+        return F.embedding(ids, table)
+    _block_mesh(table)
+    if table.dim == 1:
+        return constrain_replicated(F.embedding(ids, table.data), -1)
+    n = table.data.shape[0]
+    local = ids - table.span.start
+    own = (local >= 0) & (local < n)
+    rows = F.embedding(torch.where(own, local, 0), table.data)
+    every = constrain_replicated(rows[None], 0)          # (tp, ..., d)
+    owner = torch.div(ids, n, rounding_mode="floor").to(torch.int64)
+    return torch.take_along_dim(every, owner[None, ..., None], dim=0)[0]
+
+
+def serve_shard_map_info(n_out: int) -> Optional[Tuple[Any, str, int]]:
+    """``(mesh, "model", tp)`` when the serve mesh in scope has tensor
+    parallelism and ``n_out`` output columns split evenly over it (each
+    shard's column block is then the block
+    :func:`repro_torch.kernels.ops.shard_slices` assigns), else ``None`` —
+    the reference's rule for its ``shard_map`` kernel route."""
+    mesh = _SERVE_MESH
+    if mesh is None or MODEL_AXIS not in mesh.axis_names:
+        return None
+    tp = _tp(mesh)
+    if tp <= 1 or n_out % tp != 0:
+        return None
+    return mesh, MODEL_AXIS, tp

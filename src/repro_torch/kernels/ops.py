@@ -23,6 +23,13 @@
   drawing the streams the reference's ``shard_map``-wrapped kernel and its
   kernel-free route draw.  Lanes and shards together are refused, as the
   reference's fleet engine refuses shard-granular fleets.
+* Rank blocks: under a serve mesh whose model axis spans ranks, a weight
+  that is a rank's column block (a :class:`repro_torch.distributed.
+  sharding.RankBlock`) makes :func:`aged_linear` compute only that block,
+  exactly columns ``s`` of the one-device result: at ``ber[s]`` from the stream
+  ``fold_seed(seed, s)`` over the block's own tile grid (one launch of the
+  fused GEMM on the block), or, under one scalar BER, from the key's draws
+  of the block's words in the whole product.
 """
 from __future__ import annotations
 
@@ -30,6 +37,7 @@ import torch
 
 from .. import random as prandom
 from ..device import true_div
+from ..distributed import sharding as shrules
 from ..random import M32
 from . import ref
 from .bitflip import bitflip_draw, bitflip_draw_lanes
@@ -282,7 +290,19 @@ def aged_linear(x: torch.Tensor, w: torch.Tensor, *, ber=0.0,
     plain int8 product and :func:`inject_bitflips_sharded`.  Both dequantise
     as ``(float(acc) * xs) * ws``.  Lanes and per-shard BERs together are
     refused.
+
+    ``w`` may be a rank's column block ``s`` of ``S`` (a
+    :class:`repro_torch.distributed.sharding.RankBlock`, under a serve
+    mesh over ranks): the result is then the block's columns of the whole
+    product alone (:func:`_rank_block`), which
+    :func:`repro_torch.distributed.sharding.block_product` gathers.
     """
+    block = None
+    if isinstance(w, shrules.RankBlock):
+        if w.dim != 1:
+            raise ValueError(f"a block along dim {w.dim} of the weight is "
+                             "not a column block")
+        block, w = (w.shard, w.tp), w.data
     sharded = is_ber_vector(ber) if lanes is None else \
         any(is_ber_vector(b) for b in ber)
     if sharded and lanes is not None:
@@ -296,6 +316,13 @@ def aged_linear(x: torch.Tensor, w: torch.Tensor, *, ber=0.0,
     xq, xs = quantize_int8(x2, axis=-1)
     wq, ws = quantize_int8(w, axis=0)
     N = w.shape[1]
+    if block is not None and inject:
+        if lanes is not None:
+            raise NotImplementedError("lanes of a rank's weight block are "
+                                      "not a route")
+        out = _rank_block(xq, wq, xs, ws, block, ber, key, seed,
+                          use_kernel and fused, use_kernel)
+        return out.reshape(*lead, N).to(x.dtype)
     if sharded and inject:
         if seed is None:
             seed = seed_from_key(key)
@@ -328,6 +355,45 @@ def aged_linear(x: torch.Tensor, w: torch.Tensor, *, ber=0.0,
                else inject_bitflips_ref(acc, ber, key, lanes=lanes))
     out = acc.to(torch.float32) * xs * ws
     return out.reshape(*lead, N).to(x.dtype)
+
+
+def _rank_block(xq, wq, xs, ws, block, ber, key, seed, fused: bool,
+                use_kernel: bool) -> torch.Tensor:
+    """The dequantised float32 columns of rank block ``s`` of ``S``
+    (``block``) of the injected product, as the one-device routes compute
+    them: under ``(S,)`` BERs, block ``s`` upset at ``ber[s]`` from the
+    stream ``fold_seed(seed, s)`` over its own tile grid, by one launch of
+    the fused GEMM on the block (``fused``) or the plain product and
+    :func:`upset_counter_block`; under one BER, the plain route's draws
+    of the block's words in the whole ``(M, S * N)`` product.  The weight
+    scales ``ws`` are per column, so the block's are the whole weight's."""
+    s, S = block
+    M, N = xq.shape[0], wq.shape[1]
+    if is_ber_vector(ber):
+        if len(ber) != S:
+            raise ValueError(f"{len(ber)} shard BERs on a mesh of {S}")
+        if seed is None:
+            seed = seed_from_key(key)
+        seed_s, ber_s = fold_seed(seed, s), float(ber[s])
+        if fused:
+            return fused_aged_matmul(xq, wq, xs, ws, ber=ber_s, seed=seed_s)
+        acc = upset_counter_block(ref.systolic_matmul_ref(xq, wq), ber_s,
+                                  seed_s)
+        return acc.to(torch.float32) * xs * ws
+    if use_kernel:
+        raise NotImplementedError(
+            "one BER on a rank's weight block takes the plain route (the "
+            "mesh engine's runtime= route); the kernel routes draw over the "
+            "whole product")
+    if key is None:
+        key = prandom.PRNGKey(seed)
+    dev = xq.device
+    index = torch.arange(M, dtype=torch.int64, device=dev)[:, None] * (S * N) \
+        + s * N + torch.arange(N, dtype=torch.int64, device=dev)[None, :]
+    acc = ref.bitflip_draw_ref(ref.systolic_matmul_ref(xq, wq),
+                               flip_key_words(key), upset_probability(ber),
+                               index=index)
+    return acc.to(torch.float32) * xs * ws
 
 
 def is_ber_vector(ber) -> bool:

@@ -35,14 +35,18 @@ def bitflip_words_ref(x: torch.Tensor, u: torch.Tensor, pos: torch.Tensor,
     return torch.where(u < q, x ^ mask, x)
 
 
-def bitflip_draw_ref(x: torch.Tensor, key_words, q: float) -> torch.Tensor:
+def bitflip_draw_ref(x: torch.Tensor, key_words, q: float,
+                     index: torch.Tensor | None = None) -> torch.Tensor:
     """The bit-flip pass drawing its own randoms: word ``i`` of the flat
     ``x`` takes ``u`` from word ``i`` of a uniform draw of the key
     ``key_words[:2]`` and ``pos`` from word ``i`` of a bits draw of the key
     ``key_words[2:]``, ``& 31`` — the words the reference draws for it over
-    its padded layout, with no padding."""
+    its padded layout, with no padding.  ``index`` (int64, ``x``'s shape)
+    gives each word's index in a larger tensor ``x`` is a block of, whose
+    draws it then takes."""
     ku0, ku1, kl0, kl1 = (int(k) & M32 for k in key_words)
-    index = torch.arange(x.numel(), dtype=torch.int64, device=x.device)
+    index = torch.arange(x.numel(), dtype=torch.int64, device=x.device) \
+        if index is None else index.reshape(-1)
     u = prandom.float_from_bits(prandom.bits_at(ku0, ku1, index))
     pos = (prandom.bits_at(kl0, kl1, index) & 31).to(torch.int32)
     return bitflip_words_ref(x.reshape(-1), u, pos, q).reshape(x.shape)

@@ -7,13 +7,16 @@ mesh serving engine runs every model-axis shard of one device on that
 device (the fleet lanes run several devices on one card the same way), so
 ``make_serve_mesh(tp)`` takes any ``tp``.
 
-A mesh may also span the ranks of a ``torch.distributed`` group: its data
-axes are the group's ranks (``group``, and this process's ``rank`` in it),
-its model axis 1.  :func:`init_data_group` starts such a group from a
-``file://`` store (no network) and :func:`run_local_ranks` runs a function
-on each rank of one host.  A model axis above 1 over ranks is
-tensor-parallel placement, ROADMAP A.8c; so is serving a mesh whose data
-axes hold more than one replica.
+A mesh may also span the ranks of a ``torch.distributed`` group (``group``,
+and this process's ``rank`` in it).  :func:`init_data_group` starts such a
+group from a ``file://`` store (no network) and :func:`run_local_ranks`
+runs a function on each rank of one host.  Training meshes over ranks are
+data-parallel, ``(world, 1)``: a model axis above 1 in training is
+tensor-parallel training, ROADMAP A.8c's training half.  A serving mesh
+(:func:`make_serve_mesh`) under a started group places its model axis over
+the ranks, ``(world // tp, tp)``: rank ``r`` is shard ``r % tp`` of data
+replica ``r // tp``, and ``model_group`` holds the ``tp`` ranks of its
+replica (the group the shards' all-gathers run in).
 """
 from __future__ import annotations
 
@@ -30,20 +33,23 @@ import torch.distributed as dist
 
 from ..device import resolve_device
 
-A8C = "tensor-parallel placement over ranks: ROADMAP A.8c"
+A8C = "tensor-parallel training over ranks: ROADMAP A.8c"
 
 
 @dataclasses.dataclass(frozen=True)
 class LogicalMesh:
     """A named mesh shape on one torch device: ``shape`` maps each axis
     name to its size, in ``axis_names`` order.  ``group`` is the
-    ``torch.distributed`` group whose ranks make up the data axes (``None``:
-    one process) and ``rank`` this process's rank in it."""
+    ``torch.distributed`` group whose ranks make up the mesh (``None``: one
+    process) and ``rank`` this process's rank in it.  ``model_group`` is
+    set on a serving mesh whose model axis spans ranks: the ranks of this
+    rank's data replica, shard ``s`` at rank ``s`` of it."""
     axis_names: Tuple[str, ...]
     sizes: Tuple[int, ...]
     device: torch.device
     group: Any = None
     rank: int = 0
+    model_group: Any = None
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -55,6 +61,16 @@ class LogicalMesh:
         for s in self.sizes:
             n *= s
         return n
+
+    @property
+    def shard(self) -> int:
+        """This rank's index on the model axis (0 in one process)."""
+        return self.rank % self.sizes[-1] if self.group is not None else 0
+
+    @property
+    def replica(self) -> int:
+        """This rank's data replica (0 in one process)."""
+        return self.rank // self.sizes[-1] if self.group is not None else 0
 
 
 def visible_devices(device="cuda") -> int:
@@ -129,10 +145,12 @@ def _rank_main(rank, world_size, backend, device, out_dir):
         init_file = os.path.join(out_dir, "store")
         mesh = init_data_group(init_file, rank, world_size, backend=backend,
                                device=device)
-        try:
-            result = fn(mesh, *args)
-        finally:
-            dist.destroy_process_group()
+        result = fn(mesh, *args)
+        if world_size > 1:
+            # no rank tears the group down while another may still be in
+            # a collective of it (gloo aborts the process then)
+            dist.barrier()
+        dist.destroy_process_group()
         torch.save(result, os.path.join(out_dir, f"rank{rank}.pt"))
     except BaseException:
         with open(os.path.join(out_dir, f"rank{rank}.err"), "w") as f:
@@ -190,10 +208,30 @@ def run_local_ranks(fn, world_size: int, *args, backend: str,
 
 
 def make_serve_mesh(tp: Optional[int] = None, device="cuda"):
-    """Tensor-parallel serving mesh ``("data", "model")`` of shape ``(1,
-    tp)`` on ``device``; ``tp`` defaults to the visible devices, as the
-    reference counts its devices."""
-    tp = visible_devices(device) if tp is None else int(tp)
+    """Tensor-parallel serving mesh ``("data", "model")``.
+
+    In one process: shape ``(1, tp)`` on ``device``, every shard on it;
+    ``tp`` defaults to the visible devices, as the reference counts its
+    devices.  Under a started process group: its ranks, ``(world // tp,
+    tp)`` (``tp`` defaults to the world), as the reference spans its
+    devices; rank ``r`` is shard ``r % tp`` of replica ``r // tp``, and the
+    mesh's ``model_group`` is its replica's ranks.  Every rank of the group
+    calls this (it makes one ``dist.new_group`` a replica); ``device`` is
+    this rank's."""
+    grouped = dist.is_available() and dist.is_initialized()
+    n = dist.get_world_size() if grouped else None
+    if tp is None:
+        tp = n if grouped else visible_devices(device)
+    tp = int(tp)
     if tp < 1:
         raise ValueError(f"tp must be >= 1, got {tp}")
-    return LogicalMesh(("data", "model"), (1, tp), resolve_device(device))
+    if not grouped:
+        return LogicalMesh(("data", "model"), (1, tp), resolve_device(device))
+    if n % tp:
+        raise ValueError(f"{n} ranks do not split into tp={tp}")
+    rank = dist.get_rank()
+    replicas = [dist.new_group(list(range(d * tp, (d + 1) * tp)))
+                for d in range(n // tp)]
+    return LogicalMesh(("data", "model"), (n // tp, tp),
+                       resolve_device(device), group=dist.group.WORLD,
+                       rank=rank, model_group=replicas[rank // tp])

@@ -24,7 +24,13 @@ as its ``--device``.  ``--mesh`` serves one device of ``--tp`` mesh
 shards aged on their own (staggered ``--age-years * (s+1)/tp``) through
 :class:`~repro_torch.serve.sharded.MeshServeEngine`, on the fused
 shard-mode kernels (``--fused``, the default) or the plain route
-(``--no-fused``); ``--tp`` defaults to the visible devices.  Not ported:
+(``--no-fused``); ``--tp`` defaults to the visible devices.  Inside a
+started process group, ``--mesh`` places the shards over its ranks, as the
+reference's spans its devices (``--tp`` defaults to the world; rank 0
+prints): :func:`rank_main` is the function to hand
+:func:`repro_torch.launch.mesh.run_local_ranks` with the argument list,
+e.g. ``run_local_ranks(rank_main, 4, ["--arch", "llama3_8b", "--mesh",
+"--torch-device", "cpu"], backend="gloo", device="cpu")``.  Not ported:
 ``--stats`` (the reference's compiled-function caches; the port compiles
 nothing), which raises ``NotImplementedError``.
 """
@@ -244,13 +250,22 @@ def main(argv=None):
 
 
 
+def rank_main(mesh, argv):
+    """:func:`main` on one rank of a started process group (the signature
+    :func:`repro_torch.launch.mesh.run_local_ranks` calls): ``--mesh``
+    then places the shards over the group's ranks."""
+    return main(argv)
+
+
 def _run_mesh(args, cfg, params, pol, dev):
     """One device of ``tp`` mesh shards, each aged on its own, served in
-    one sharded dispatch."""
+    one sharded dispatch; inside a started process group, the shards
+    placed over its ranks (every rank serves, rank 0 prints)."""
     from ..serve.sharded import MeshServeEngine, default_serve_mesh
 
     mesh = default_serve_mesh(args.tp, device=dev)
     tp = mesh.shape["model"]
+    say = print if mesh.rank == 0 else (lambda *a, **k: None)
     fleet = FleetRuntime(n_devices=1, n_shards=tp, policy=pol,
                          max_loss_pct=args.budget, device=dev)
     for s in range(tp):
@@ -261,10 +276,10 @@ def _run_mesh(args, cfg, params, pol, dev):
                                utilization=args.utilization,
                                horizon_s=args.horizon_years * YEAR_S)
         wear = cos.device_wear()[-1]
-        print(f"[serve] routed {args.horizon_years:g}y of {args.workload} "
-              f"traffic over the {tp} shards via {args.router}: max ΔVth "
-              f"{wear.max():.1f} mV (spread "
-              f"{wear.max() - wear.min():.1f} mV)")
+        say(f"[serve] routed {args.horizon_years:g}y of {args.workload} "
+            f"traffic over the {tp} shards via {args.router}: max ΔVth "
+            f"{wear.max():.1f} mV (spread "
+            f"{wear.max() - wear.min():.1f} mV)")
 
     max_len = args.prompt_len + args.gen_len + 1
     prompts = SyntheticLM(vocab=cfg.vocab, seq_len=args.prompt_len,
@@ -280,16 +295,17 @@ def _run_mesh(args, cfg, params, pol, dev):
                           **extra_inputs(cfg, args.batch))
     pol_name = getattr(fleet.policy, "name", "fault_tolerant")
     ages = ", ".join(f"{a:.1f}y" for a in res.ages_years)
-    print(f"[serve] arch={cfg.name} mesh tp={tp} policy={pol_name} "
-          f"budget={args.budget}% on {dev} — one sharded dispatch, "
-          f"per-shard aging")
-    print(f"[serve] shard ages: [{ages}]  device power: {res.power_w:.2f} W")
-    print("[serve] per-shard BER table (rows=shards):")
-    print("         " + " ".join(f"{op:>8s}" for op in res.operators))
+    where = (f"{mesh.size} ranks, mesh {mesh.shape}" if mesh.group
+             is not None else "one sharded dispatch")
+    say(f"[serve] arch={cfg.name} mesh tp={tp} policy={pol_name} "
+        f"budget={args.budget}% on {dev} — {where}, per-shard aging")
+    say(f"[serve] shard ages: [{ages}]  device power: {res.power_w:.2f} W")
+    say("[serve] per-shard BER table (rows=shards):")
+    say("         " + " ".join(f"{op:>8s}" for op in res.operators))
     for s in range(res.bers.shape[0]):
-        print(f"  shard{s} " + " ".join(f"{b:8.1e}" for b in res.bers[s]))
-    print(f"[serve] generated {res.tokens.shape} tokens; "
-          f"first row: {res.tokens[0][:12].tolist()}")
+        say(f"  shard{s} " + " ".join(f"{b:8.1e}" for b in res.bers[s]))
+    say(f"[serve] generated {res.tokens.shape} tokens; "
+        f"first row: {res.tokens[0][:12].tolist()}")
     return res
 
 

@@ -23,6 +23,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs import ModelConfig
 from ..device import resolve_device
+from ..distributed import sharding as shrules
 from . import attention as attn_lib
 from .layers import (FaultConfig, _normal, init_norm, mlp_apply, mlp_init,
                      norm, op_einsum, sinusoid_positions)
@@ -32,10 +33,13 @@ MAX_DEC_POS = 8192  # learned decoder position table (paper backbone stub)
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.bfloat16,
-                device="cuda") -> Dict:
+                device="cuda", place=None) -> Dict:
     """Random params from a seeded ``torch.Generator`` on ``device``, with
-    the reference's tree and scales (``dec_pos`` ``N(0,1) * 0.01``)."""
+    the reference's tree and scales (``dec_pos`` ``N(0,1) * 0.01``).
+    ``place`` is applied to each top-level leaf and layer as it is drawn
+    (:func:`repro_torch.models.transformer.init_params`)."""
     device = resolve_device(device)
+    place = place or (lambda tree: tree)
     gen = torch.Generator(device=device).manual_seed(seed)
     d = cfg.d_model
     nrm = lambda: init_norm(cfg.norm, d, dtype, device)
@@ -53,15 +57,17 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.bfloat16,
                 "norm2": nrm(),
                 "ffn": mlp_init(d, cfg.d_ff, cfg.mlp, dtype, device, gen)}
 
-    return {
-        "embed": _normal((cfg.vocab, d), 0.02, dtype, device, gen),
-        "dec_pos": _normal((MAX_DEC_POS, d), 0.01, dtype, device, gen),
-        "enc_layers": [enc_layer() for _ in range(cfg.n_encoder_layers)],
-        "dec_layers": [dec_layer() for _ in range(cfg.n_layers)],
-        "enc_final": nrm(),
-        "final_norm": nrm(),
-        "lm_head": _normal((d, cfg.vocab), d ** -0.5, dtype, device, gen),
-    }
+    params = place({"embed": _normal((cfg.vocab, d), 0.02, dtype, device,
+                                     gen)})
+    params.update(place({"dec_pos": _normal((MAX_DEC_POS, d), 0.01, dtype,
+                                            device, gen)}))
+    params["enc_layers"] = [place(enc_layer())
+                            for _ in range(cfg.n_encoder_layers)]
+    params["dec_layers"] = [place(dec_layer()) for _ in range(cfg.n_layers)]
+    params.update(place({"enc_final": nrm(), "final_norm": nrm()}))
+    params.update(place({"lm_head": _normal((d, cfg.vocab), d ** -0.5,
+                                            dtype, device, gen)}))
+    return params
 
 
 def _self_attn(h, ap, cfg: ModelConfig, *, causal: bool, fi=None, salt=0,
@@ -157,9 +163,9 @@ def decode(params, cfg: ModelConfig, tokens, enc_out=None, kv=None, *,
     or None)``."""
     if kv is None:
         kv = cross_kv(params, cfg, enc_out, fi=fi)
-    x = torch.nn.functional.embedding(tokens, params["embed"])
+    x = shrules.lookup_rows(params["embed"], tokens)
     pos = torch.arange(tokens.shape[1], device=x.device) + pos_offset
-    x = x + params["dec_pos"][pos][None]
+    x = x + shrules.lookup_rows(params["dec_pos"], pos)[None]
     layer = _maybe_remat(_dec_layer, remat and cache is None)
     new_cache = [] if cache is not None else None
     for i, lp in enumerate(params["dec_layers"]):
@@ -168,7 +174,9 @@ def decode(params, cfg: ModelConfig, tokens, enc_out=None, kv=None, *,
         if new_cache is not None:
             new_cache.append(nc)
     x = norm(x, params["final_norm"], cfg.norm)
-    return (x @ params["lm_head"]).to(torch.float32), new_cache
+    logits = shrules.block_product(
+        x, params["lm_head"], lambda x, w: x @ shrules.held(w), {1: -1})
+    return logits.to(torch.float32), new_cache
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,

@@ -36,10 +36,11 @@ def extra_shape(cfg: ModelConfig) -> Tuple[int, int]:
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.bfloat16,
-                device="cuda") -> Dict:
-    """Random params of the config's family from ``seed``."""
+                device="cuda", place=None) -> Dict:
+    """Random params of the config's family from ``seed`` (``place``: see
+    :func:`repro_torch.models.transformer.init_params`)."""
     init = encdec.init_params if cfg.n_encoder_layers else tf.init_params
-    return init(cfg, seed, dtype, device=device)
+    return init(cfg, seed, dtype, device=device, place=place)
 
 
 def text_logits(params, cfg: ModelConfig, tokens, *,

@@ -12,6 +12,14 @@ its own BERs and streams.  A shard config (one device of S mesh shards:
 per-operator ``(S,)`` BER vectors) upsets each shard's block of a weight
 matmul's output columns, and of the qkt/sv flattened heads, at the shard's
 own BER, from counter streams keyed on ``fold_seed(seed_for(op, salt), s)``.
+
+Under a serve mesh over ranks
+(:func:`repro_torch.distributed.sharding.serve_mesh_scope`), a weight that
+is this rank's block gives this rank's output block, which
+:func:`~repro_torch.distributed.sharding.block_product` gathers into the
+whole output (the reference's pin at the same op boundaries); a
+replicated weight's product, and the qkt/sv products of the gathered
+activations, are computed whole on every rank, as on one device.
 """
 from __future__ import annotations
 
@@ -24,6 +32,7 @@ import torch.nn.functional as F
 from .. import fmath
 from .. import random as prandom
 from ..device import true_div
+from ..distributed import sharding as shrules
 from ..kernels import ops as kops
 
 
@@ -138,9 +147,16 @@ def op_linear(x: torch.Tensor, w: torch.Tensor, op: str,
     streams keyed on ``seed_for(op, salt)`` on every route: one launch of
     the fused GEMM's shard mode on the fused kernel route, the plain
     product and :func:`repro_torch.kernels.ops.inject_bitflips_sharded`
-    otherwise (the same draws)."""
+    otherwise (the same draws).  A rank's column block of ``w`` (a serve
+    mesh over ranks) computes its columns, gathered
+    (:func:`repro_torch.distributed.sharding.block_product`)."""
+    return shrules.block_product(
+        x, w, lambda x, w: _linear(x, w, op, fi, salt), {1: -1})
+
+
+def _linear(x, w, op, fi, salt):
     if fi is None:
-        return x @ w
+        return x @ shrules.held(w)
     shard_bers = fi.shards(op)
     if shard_bers is not None:
         return kops.aged_linear(x, w, ber=shard_bers,
@@ -161,10 +177,13 @@ def op_einsum(spec: str, x: torch.Tensor, w: torch.Tensor, op: str,
     """Einsum for fused head layouts; the faulted path flattens both sides
     to one 2-D systolic matmul (contraction letters must be a suffix of x's
     spec and a prefix of w's: "bsd,dhk->bshk", "bshk,hkd->bsd")."""
-    if fi is None:
-        return torch.einsum(spec, x, w)
-    ins, _ = spec.split("->")
+    ins, out_spec = spec.split("->")
     x_spec, w_spec = ins.split(",")
+    if fi is None:
+        return shrules.block_product(
+            x, w, lambda x, w: torch.einsum(spec, x, shrules.held(w)),
+            {i: out_spec.index(c) for i, c in enumerate(w_spec)
+             if c in out_spec})
     contract = [c for c in x_spec if c in w_spec]
     nc = len(contract)
     if not x_spec[-nc:] == w_spec[:nc] == "".join(contract):
@@ -173,7 +192,7 @@ def op_einsum(spec: str, x: torch.Tensor, w: torch.Tensor, op: str,
     for d in w.shape[:nc]:
         k *= d
     x2 = x.reshape(*x.shape[:x.dim() - nc], k)
-    out = op_linear(x2, w.reshape(k, -1), op, fi, salt)
+    out = op_linear(x2, shrules.fold(w, nc), op, fi, salt)
     return out.reshape(*x.shape[:x.dim() - nc], *w.shape[nc:])
 
 

@@ -12,6 +12,9 @@ dispatched on its own (its capacity, queue positions and overflow row), as
 the reference's ``vmap`` over fleet lanes does.  Dropped tokens fall back
 to the residual path.  The expert FFNs are clean batched matmuls: the
 reference computes them outside every fault hook, and so does the port.
+Under a serve mesh over ranks a rank holds a block of the experts: it runs
+their queues alone, and the experts' outputs are gathered before the
+combine (the reference pins ``out_buf`` replicated there).
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs import MoEConfig
+from ..distributed import sharding as shrules
 from .layers import FaultConfig, _normal, mlp_apply, mlp_init, op_linear
 
 
@@ -106,12 +110,19 @@ def moe_apply(x: torch.Tensor, p: Dict, moe: MoEConfig, variant: str,
     # every lane's rows of one expert side by side: (E, N*C, d)
     buf = buf[:, :, :C].transpose(0, 1).reshape(E, N * C, d)
 
-    # expert FFN: (E, N*C, d) @ (E, d, f), clean as in the reference
-    if variant == "gated":
-        h = F.silu(torch.bmm(buf, p["w_gate"])) * torch.bmm(buf, p["w_up"])
-    else:
-        h = F.gelu(torch.bmm(buf, p["w_up"]), approximate="tanh")
-    out_buf = torch.bmm(h, p["w_down"]).reshape(E, N, C, d).transpose(0, 1)
+    # expert FFN: (E, N*C, d) @ (E, d, f), clean as in the reference; a
+    # rank's block of the experts runs its own queues, gathered after
+    def experts(buf, w_up):
+        buf = buf[shrules.span(w_up)]
+        up = torch.bmm(buf, shrules.held(w_up))
+        if variant == "gated":
+            h = F.silu(torch.bmm(buf, shrules.held(p["w_gate"]))) * up
+        else:
+            h = F.gelu(up, approximate="tanh")
+        return torch.bmm(h, shrules.held(p["w_down"]))
+
+    out_buf = shrules.block_product(buf, p["w_up"], experts, {0: 0})
+    out_buf = out_buf.reshape(E, N, C, d).transpose(0, 1)
 
     # gather back (a dropped pair reads row C - 1, as jax clamps an
     # out-of-range gather, and is zeroed) and combine with router weights

@@ -34,6 +34,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs import ModelConfig
 from ..device import resolve_device
+from ..distributed import sharding as shrules
 from . import attention as attn_lib
 from .layers import (FaultConfig, _normal, apply_rope, init_norm, mlp_apply,
                      mlp_init, norm, op_einsum, op_linear, rms_norm)
@@ -98,26 +99,33 @@ def _block_init(kind: str, cfg: ModelConfig, dtype, device, gen) -> Dict:
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.bfloat16,
-                device="cuda") -> Dict:
+                device="cuda", place=None) -> Dict:
     """Random params from a seeded ``torch.Generator`` on ``device``, with
     the reference's scales (``N(0,1) * d**-0.5`` projections, ``0.02``
     embeddings) and tree (no ``lm_head`` under tied embeddings, a
     ``prefix_proj`` for prefix embeddings; float32 MoE router, RG-LRU
-    ``lam``, RWKV ``decay_base`` and ``bonus_u``)."""
+    ``lam``, RWKV ``decay_base`` and ``bonus_u``).
+
+    ``place`` (a function of a dict of params) is applied to each
+    top-level leaf and each layer as soon as it is drawn, so a caller can
+    keep part of it (a rank's blocks) and let the rest go before the next
+    draw; the draws are the same either way."""
     _decoder_only(cfg)
     device = resolve_device(device)
+    place = place or (lambda tree: tree)
     gen = torch.Generator(device=device).manual_seed(seed)
     d = cfg.d_model
-    params: Dict = {
+    params: Dict = place({
         "embed": _normal((cfg.vocab, d), 0.02, dtype, device, gen),
         "final_norm": init_norm(cfg.norm, d, dtype, device),
-    }
+    })
     if not cfg.tie_embeddings:
-        params["lm_head"] = _normal((d, cfg.vocab), d ** -0.5, dtype, device,
-                                    gen)
+        params.update(place({"lm_head": _normal(
+            (d, cfg.vocab), d ** -0.5, dtype, device, gen)}))
     if cfg.prefix_tokens:
-        params["prefix_proj"] = _normal((d, d), d ** -0.5, dtype, device, gen)
-    params["layers"] = [_block_init(kind, cfg, dtype, device, gen)
+        params.update(place({"prefix_proj": _normal(
+            (d, d), d ** -0.5, dtype, device, gen)}))
+    params["layers"] = [place(_block_init(kind, cfg, dtype, device, gen))
                         for kind in layer_kinds(cfg)]
     return params
 
@@ -250,9 +258,10 @@ def embed_tokens(params, cfg: ModelConfig, tokens, prefix_embeds=None,
     """Token embeddings (scaled by sqrt(d) where the config says so),
     after the prefix's: ``prefix_embeds (B, P, d)`` through the clean
     ``prefix_proj`` (the reference's ``op_linear(..., "embed")`` with no
-    fault config)."""
+    fault config).  A rank's block of the table gives whole rows
+    (:func:`repro_torch.distributed.sharding.lookup_rows`)."""
     # a gather; its backward sums rows by sorted index, not by atomics
-    x = torch.nn.functional.embedding(tokens, params["embed"])
+    x = shrules.lookup_rows(params["embed"], tokens)
     if cfg.scale_embeds:
         x = x * torch.full((), cfg.d_model ** 0.5, dtype=x.dtype,
                            device=x.device)
@@ -267,8 +276,16 @@ def embed_tokens(params, cfg: ModelConfig, tokens, prefix_embeds=None,
 
 
 def unembed(params, cfg: ModelConfig, x):
-    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return (x @ w).to(torch.float32)
+    """Logits, float32; a rank's vocab block of the head gives its
+    columns, gathered (:func:`repro_torch.distributed.sharding.
+    block_product`)."""
+    if cfg.tie_embeddings:
+        logits = shrules.block_product(
+            x, params["embed"], lambda x, w: x @ shrules.held(w).T, {0: -1})
+    else:
+        logits = shrules.block_product(
+            x, params["lm_head"], lambda x, w: x @ shrules.held(w), {1: -1})
+    return logits.to(torch.float32)
 
 
 def forward_logits(params, cfg: ModelConfig, tokens, *, prefix_embeds=None,

@@ -888,3 +888,61 @@ def test_cuda_dp_steps_match_cpu(cuda_device, backend, world):
         for k, v in card[True]["params"].items():      # replicated
             np.testing.assert_array_equal(v, runs["cuda"][0][True]
                                           ["params"][k])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend,world", [("nccl", 1), ("gloo", 2)])
+def test_cuda_mesh_ranks_match_one_device(cuda_device, backend, world):
+    """``MeshServeEngine`` over ``world`` ranks on the card at tp = world
+    (one NCCL rank, or two gloo ranks sharing it), reduced llama3_8b in
+    float32, a shard fleet, greedy and sampled on the fused and the plain
+    route: every rank's tokens equal the one-device engine's on the card
+    at the same tp, which equal the CPU's.  On the fused route a rank
+    launches one fused GEMM a faulted weight product (on its column
+    block at tp = 2, where every reduced width divides; the shard mode
+    on its one shard at tp = 1) and one counter-upset kernel a qkt/sv
+    injection; two gloo ranks stage their gathers through host memory
+    (gloo gathers no CUDA tensor), one rank gathers nothing."""
+    import numpy as np
+    import torch_dist_ranks as ranks
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import run_local_ranks
+    from repro_torch.models import family
+    from repro_torch.serve.sharded import MeshServeEngine
+    from repro_torch.tree import flatten
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("llama3_8b").reduced()
+    L, n = cfg.n_layers, 4
+    params = family.init_params(cfg, 1, torch.float32, device="cpu")
+    p = np.random.default_rng(world).integers(0, cfg.vocab, (2, 8)).astype(
+        np.int32)
+    runs = [dict(tp=world, fleet="plain", fused=f, seed=seed, prompts=p, n=n,
+                 kw=kw) for seed, kw in ((0, {}), (3, dict(temperature=0.8,
+                                                          top_k=8)))
+            for f in (True, False)]
+    jobs = {"llama3_8b": {"params": {k: v.numpy() for k, v in flatten(
+        params).items()}, "runs": runs}}
+    out = run_local_ranks(ranks.mesh_serve_rank, world, jobs,
+                          backend=backend, device="cuda", timeout=300)
+    gemm = "fused_aged_matmul" if world > 1 else "fused_aged_matmul_shards"
+    for i, run in enumerate(runs):
+        want = {}
+        for dev in ("cuda", "cpu"):
+            eng = MeshServeEngine(
+                cfg, params, tp=world, fleet=ranks.shard_fleet(world, dev),
+                max_len=32, seed=run["seed"], serve_dtype=torch.float32,
+                use_fused_kernel=run["fused"], device=dev)
+            want[dev] = eng.generate(p, n, **run["kw"]).tokens
+        np.testing.assert_array_equal(want["cuda"], want["cpu"])
+        for r in range(world):
+            rec = out[r]["llama3_8b"]["runs"][i]
+            np.testing.assert_array_equal(rec["tokens"], want["cuda"])
+            c = rec["launches"]
+            if run["fused"]:
+                assert c == {**dict.fromkeys(c, 0), gemm: 7 * L * n,
+                             "counter_upset_shards": 2 * L * n}, c
+            else:
+                assert not any(c.values()), c
+            g = rec["gathers"]
+            assert g["calls"] == (7 * L + 2) * n * (world > 1)
+            assert (g["staged_bytes"] > 0) == (world > 1)

@@ -13,7 +13,11 @@ engine's tokens, which the reference cannot produce on this jax over
 several devices.  Both sides serve float32 params: the engine's default
 bf16 cast is exact on both, but bf16 generation drifts between the two
 packages' float paths (ROADMAP §C), so exact tokens are held in
-float32."""
+float32.  The ranks' tests (tests/test_torch_mesh_ranks*.py) share the
+oracle and :func:`ranks_beside`."""
+import functools
+import threading
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -26,6 +30,7 @@ from repro.train.steps import init_train_state as jax_init_train_state
 from repro_torch.configs import get_config
 from repro_torch.convert import params_from_reference
 from repro_torch.core.fleet import FleetRuntime
+from repro_torch.launch.mesh import run_local_ranks
 
 AGES = (1.5, 4.0, 6.5, 9.0)
 BER_RTOL = 1e-3
@@ -69,12 +74,48 @@ def oracle_tokens(jcfg, jparams, jfleet, prompts, n_steps, *, seed=0,
         bers={op: jnp.asarray(tab[:, i], jnp.float32)
               for i, op in enumerate(jfleet.operators)},
         key=sub, step=jnp.int32(0), use_systolic_kernel=False, fused=False)
-    gen = jax_steps.make_generate_fn(jcfg, max_len, n_steps, top_k)
+    gen = _generate_fn(jcfg, max_len, n_steps, top_k)
     tokens, _ = gen(jparams, jnp.asarray(prompts, jnp.int32), fi, call_key,
                     jnp.float32(temperature), *extras)
     return np.asarray(tokens)
 
 
+@functools.lru_cache(maxsize=None)
+def _generate_fn(jcfg, max_len, n_steps, top_k):
+    """The reference's generation, jitted as its mesh engine jits it, once
+    a signature (greedy and sampled calls share it: the temperature is
+    traced)."""
+    return jax.jit(jax_steps.make_generate_fn(jcfg, max_len, n_steps,
+                                              top_k))
+
+
 def prompts(vocab: int, seed: int, batch: int = 2, length: int = 8):
     return np.random.default_rng(seed).integers(
         0, vocab, (batch, length)).astype(np.int32)
+
+
+def ranks_beside(fn, world: int, *args, beside):
+    """``run_local_ranks(fn, world, *args)`` on gloo CPU ranks, in a thread
+    while ``beside()`` (the reference's oracle, the one-device engine)
+    runs here: -> ``(the ranks' results, beside's result)``.  A failing
+    rank raises here."""
+    out, errors = [], []
+
+    def spawn():
+        try:
+            out.append(run_local_ranks(fn, world, *args, backend="gloo",
+                                       device="cpu", timeout=300))
+        except Exception as e:                      # re-raised below
+            errors.append(e)
+
+    thread = threading.Thread(target=spawn)
+    thread.start()
+    try:
+        here = beside()
+    finally:
+        thread.join(timeout=600)
+    if thread.is_alive():
+        raise RuntimeError(f"{world} ranks did not finish")
+    if errors:
+        raise errors[0]
+    return out[0], here

@@ -64,9 +64,10 @@ def test_mesh_sampled_tokens_match_reference(dense):
 
 
 def test_mesh_engine_defaults_checks_and_telemetry():
-    """The bf16 cast and the serve-layout specs; the fleet / mesh checks;
+    """The bf16 cast and the serve-layout specs; the fleet checks;
     telemetry only under ``enable_taps``; an age change reaches the
-    served BERs (the table is cached per fleet table)."""
+    served BERs (the table is cached per fleet table); a one-process mesh
+    of two data replicas serves the one replica's tokens."""
     _, cfg, _, params = model("llama3_8b")
     jf, pf = shard_fleets(4)
     eng = MeshServeEngine(cfg, params, tp=4, fleet=pf, max_len=32,
@@ -96,7 +97,13 @@ def test_mesh_engine_defaults_checks_and_telemetry():
     with pytest.raises(ValueError, match="not both"):
         MeshServeEngine(cfg, params, tp=4, fleet=pf, runtime=pf.device(0),
                         device="cpu")
-    with pytest.raises(NotImplementedError, match="A.8c"):
-        MeshServeEngine(cfg, params, fleet=pf, device="cpu",
-                        mesh=LogicalMesh(("data", "model"), (2, 4),
-                                         torch.device("cpu")))
+    # two data replicas on the one device serve the same prompts: one
+    # computation gives both (over ranks: tests/test_torch_mesh_ranks.py)
+    two = MeshServeEngine(cfg, params, fleet=pf, max_len=32, device="cpu",
+                          mesh=LogicalMesh(("data", "model"), (2, 4),
+                                           torch.device("cpu")))
+    np.testing.assert_array_equal(two.generate(p, 3).tokens,
+                                  MeshServeEngine(cfg, params, tp=4,
+                                                  fleet=pf, max_len=32,
+                                                  device="cpu")
+                                  .generate(p, 3).tokens)

@@ -268,3 +268,93 @@ def failing_rank(mesh, message):
     if mesh.rank == 1:
         raise RuntimeError(message)
     return mesh.rank
+
+
+# mesh serving over ranks: the shards' ages (years), as the one-device
+# mesh tests age them (tests/test_torch_mesh_common.py)
+MESH_AGES = (1.5, 4.0, 6.5, 9.0)
+
+
+def shard_fleet(tp, device, cfg=None):
+    """A one-device fleet of ``tp`` shards aged MESH_AGES (cycled): the
+    model's operator domains when ``cfg`` is given (the MoE router's)."""
+    from repro_torch.core.fleet import FleetRuntime
+    fleet = FleetRuntime.for_model(cfg, n_devices=1, n_shards=tp,
+                                   device=device) if cfg is not None else \
+        FleetRuntime(n_devices=1, n_shards=tp, device=device)
+    for s in range(tp):
+        fleet.set_age(years=MESH_AGES[s % len(MESH_AGES)], shard=s)
+    return fleet
+
+
+def mesh_serve_rank(mesh, jobs, dtype="float32"):
+    """For each reduced arch of ``jobs`` (``{arch: {"params": flat
+    port-layout numpy arrays of the whole tree, "runs": [...],
+    "build_seed": int or None}}``), each run on a ``MeshServeEngine`` over
+    ``make_serve_mesh(run["tp"])`` of this group (every rank runs every
+    run): a shard fleet aged MESH_AGES (``run["fleet"]``: ``"plain"``,
+    ``"model"`` for the model's domains, ``"runtime"`` for its shard 0's
+    scalar BERs, ``None`` to serve clean), one ``generate``.  Returns per
+    arch and run the tokens, this rank's shard and replica, its
+    all-gathers, kernel launches, the bytes it holds and the specs; and
+    with a
+    ``build_seed``, this rank's leaves of ``init_mesh_params`` at ``tp =
+    world``, by path (host arrays)."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding as shrules
+    from repro_torch.launch.mesh import make_serve_mesh
+    from repro_torch.models import family
+    from repro_torch.serve.sharded import MeshServeEngine, init_mesh_params
+    from repro_torch.tree import flatten, unflatten
+    torch.set_num_threads(1)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dt = getattr(torch, dtype)
+    out = {}
+    for arch, job in jobs.items():
+        cfg = get_config(arch).reduced()
+        whole = unflatten(family.init_params(cfg, 0, device="cpu"), {
+            k: torch.tensor(v) for k, v in job["params"].items()})
+        recs = []
+        for run in job["runs"]:
+            m = make_serve_mesh(run["tp"], device=mesh.device)
+            kind = run["fleet"]
+            fleet = None if kind in (None, "runtime") else shard_fleet(
+                run["tp"], mesh.device, cfg if kind == "model" else None)
+            runtime = shard_fleet(1, mesh.device).device(0) \
+                if kind == "runtime" else None
+            eng = MeshServeEngine(cfg, whole, mesh=m, fleet=fleet,
+                                  runtime=runtime, max_len=32,
+                                  seed=run["seed"], serve_dtype=dt,
+                                  use_fused_kernel=run["fused"],
+                                  device=mesh.device)
+            extras = {k: np.asarray(v)
+                      for k, v in run.get("extras", {}).items()}
+            kernels.reset_launch_counts()
+            res = eng.generate(run["prompts"], run["n"],
+                               **run.get("kw", {}), **extras)
+            recs.append({"tokens": res.tokens, "shard": m.shard,
+                         "replica": m.replica, "shape": m.shape,
+                         "gathers": res.gathers,
+                         "launches": kernels.launch_counts(),
+                         "held_bytes": eng.held_bytes,
+                         "specs": dict(_spec_items(eng.specs))})
+        out[arch] = {"runs": recs}
+        if job.get("build_seed") is not None:
+            m = make_serve_mesh(device=mesh.device)
+            built = init_mesh_params(cfg, m, job["build_seed"], dt)
+            out[arch]["built"] = {k: shrules.held(v).cpu().numpy()
+                                  for k, v in flatten(built).items()}
+    return out
+
+
+def _spec_items(specs, prefix=""):
+    """``(path, spec)`` of a spec tree (its leaves are tuples)."""
+    if isinstance(specs, dict):
+        for k, v in specs.items():
+            yield from _spec_items(v, f"{prefix}/{k}" if prefix else k)
+    elif isinstance(specs, list):
+        for i, v in enumerate(specs):
+            yield from _spec_items(v, f"{prefix}/{i}" if prefix else str(i))
+    else:
+        yield prefix, specs
