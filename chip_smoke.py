@@ -207,8 +207,10 @@ Phases (any failure exits non-zero):
    plain versions (the shard-mode GEMM at M = 2 and 544 on llama3_8b's
    shapes with S = 4, device time beside the unsharded fused mode's, the
    bound and ``torch._int_mm``; the counter-upset kernel on llama3_8b's
-   qkt/sv heads and whisper_large_v3's (2, 20, 1500, 1500) encoder
-   scores); reduced llama3_8b (tp = 4 and 3), qwen3_moe_235b and
+   qkt/sv heads, whisper_large_v3's (2, 20, 1500, 1500) encoder
+   scores and llama3_8b's (2, 32, 2048, 2048) scores of a 2,048-token
+   prompt, each device time beside its bound and the thread-a-word
+   design's); reduced llama3_8b (tp = 4 and 3), qwen3_moe_235b and
    whisper_large_v3 card == CPU; ``serve --mesh --tp 4`` and
    ``mesh_bench --quick`` through their ``main(argv)``;
 16. compressed data-parallel training (cell 16): [10]'s llama3_8b (full
@@ -4188,6 +4190,12 @@ MESH_STEPS = 8
 # hashes of counter_bits (21) and the flip (7); the shard and tile index
 # arithmetic is not counted, so the bound is a least time
 COUNTER_INT_OPS = 28
+# the counter-upset kernel's device us at [15]'s shapes in its first,
+# thread-a-word design (PERF.md section 6, "Earlier"; NVIDIA H100 80GB
+# HBM3, 700.00 W), printed beside each row's time
+COUNTER_EARLIER_US = {"llama qkt prefill": 1.9, "llama sv prefill": 2.7,
+                      "llama qkt decode": 1.8, "llama sv decode": 1.9,
+                      "whisper encoder qkt": 894.2}
 
 
 def _mesh_fleet(dev, tp: int = MESH_TP, ages=MESH_AGES):
@@ -4204,8 +4212,9 @@ def mesh_kernel_rows(dev, cfg, whisper_cfg) -> dict:
     544 on llama3_8b's weight shapes with S = 4 (device time beside the
     unsharded fused mode's at the same shape, the bound and, above 16 rows,
     ``torch._int_mm``); the counter-upset kernel on llama3_8b's qkt/sv
-    heads (prefill and decode) and whisper_large_v3's encoder qkt
-    ``(2, 20, 1500, 1500)``."""
+    heads (prefill and decode), whisper_large_v3's encoder qkt
+    ``(2, 20, 1500, 1500)`` and llama3_8b's qkt of a 2,048-token prompt
+    ``(2, 32, 2048, 2048)`` (268 M words)."""
     import torch
     from repro_torch import kernels
     from repro_torch.kernels import ops, ref
@@ -4275,7 +4284,8 @@ def mesh_kernel_rows(dev, cfg, whisper_cfg) -> dict:
               ((2, H, 1, 64), "llama qkt decode"),
               ((2, H, 1, hd), "llama sv decode"),
               ((2, wh.n_heads, wh.encoder_seq, wh.encoder_seq),
-               "whisper encoder qkt")]
+               "whisper encoder qkt"),
+              ((2, H, 2048, 2048), "llama qkt prompt 2048")]
     for shape, what in shapes:
         x = torch.randint(-2 ** 31, 2 ** 31 - 1, shape, dtype=torch.int32,
                           device=dev, generator=gen)
@@ -4512,8 +4522,11 @@ def print_mesh(res: dict, smi_line: str) -> None:
               f"({r['bound_by']}), _int_mm dev {lib} us, plain "
               f"{r['plain_ms']:.3f} ms", flush=True)
     for r in res["kernel_rows"]["counter_upset_shards"]:
-        print(f"    counter_upset_shards n={r['n']:<9d} {r['op']:20s} exact "
-              f"({r['flips']} flips); device {r['dev_ms'] * 1e3:.1f} us, "
+        was = COUNTER_EARLIER_US.get(r["op"])
+        print(f"    counter_upset_shards n={r['n']:<9d} {r['op']:21s} exact "
+              f"({r['flips']} flips); device {r['dev_ms'] * 1e3:.1f} us "
+              f"({100 * r['bound_ms'] / r['dev_ms']:.1f}% of the bound; "
+              f"thread-a-word design {'-' if was is None else was} us), "
               f"wrapper {r['ms'] * 1e3:.1f} us, bound "
               f"{r['bound_ms'] * 1e3:.1f} us ({r['bound_by']}), plain "
               f"{r['plain_ms']:.3f} ms", flush=True)

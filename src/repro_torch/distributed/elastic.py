@@ -7,7 +7,9 @@ parallelism absorbs the change, and ``dp * microbatches`` is kept so the
 global batch is unchanged.  :func:`plan_remesh_shape` plans from a named
 shape alone, :func:`plan_remesh` from a live mesh;
 :func:`make_mesh_from_plan` makes the new group over the first ranks and
-:func:`reshard_state` carries the replicated state onto it.  A model axis
+:func:`reshard_state` carries the replicated state onto it, and each new
+rank's error-feedback residuals from the old rank whose row the
+reference's step would give it.  A model axis
 above 1 over ranks is tensor-parallel training (ROADMAP A.8c's training
 half).
 """
@@ -22,7 +24,7 @@ import torch.distributed as dist
 
 from ..configs import ModelConfig
 from ..launch.mesh import A8C, LogicalMesh
-from ..tree import flatten, map_with_path
+from ..tree import flatten, map_with_path, unflatten
 from .sharding import state_specs
 
 
@@ -103,26 +105,52 @@ def make_mesh_from_plan(plan: RemeshPlan, device="cuda"
                        rank=dist.get_rank(group))
 
 
+def _data_degree(shape, names) -> int:
+    return int(np.prod([n for a, n in zip(names, shape) if a != "model"]))
+
+
 @torch.no_grad()
-def reshard_state(state, cfg: ModelConfig, new_mesh: LogicalMesh):
+def reshard_state(state, cfg: ModelConfig, new_mesh: Optional[LogicalMesh],
+                  *, plan: Optional[RemeshPlan] = None):
     """A train or serve state on ``new_mesh``: every replicated leaf a copy
     of the new group's first rank's, bit for bit (a broadcast).
 
     The port's :func:`~repro_torch.distributed.sharding.state_specs` must
     find every leaf replicated on the new mesh; a leaf sharded over a
-    model axis is tensor-parallel placement and raises.  The
-    error-feedback residuals of a compressed state belong to one rank
-    each: they restart from zero on the new mesh, as
-    :func:`repro_torch.train.steps.dp_residuals_init` starts them."""
+    model axis is tensor-parallel placement and raises.  A state without
+    residuals (the plain mean, a serve state) re-meshes to any size; the
+    ranks past the new mesh pass ``None`` and get ``None``.
+
+    The error-feedback residuals of a compressed state belong to one rank
+    each, and move as the reference's step splits its ``(n_old, ...)``
+    residuals over the new data axis (each new shard takes its block's
+    first row): new rank ``r`` continues from old rank ``r * n_old //
+    n_new``, bit for bit, a point-to-point copy over the started group
+    (rank 0 keeps its own).  Where ``n_new`` does not divide ``n_old``
+    (4 -> 3, or any growth) the reference's step refuses the residuals,
+    and so does this, with ``ValueError`` on every rank before anything
+    moves.  Such a state needs ``plan`` (the :class:`RemeshPlan` that made
+    ``new_mesh``), and every rank of the old mesh calls this, those past
+    the new mesh with ``None``, since they hold residuals that others
+    take.  The old and the new mesh are the first ranks of the started
+    group, as :func:`make_mesh_from_plan` makes them; sends work under
+    gloo (CPU tensors) and NCCL (CUDA tensors)."""
     residuals = getattr(state, "residuals", None)
     replicated = state._replace(residuals=None) if residuals is not None \
         else state
-    specs = state_specs(flatten(replicated), cfg, new_mesh)
-    sharded = sorted(k for k, sp in specs.items() if sp != ())
-    if sharded:
-        raise NotImplementedError(f"{sharded[0]} is sharded "
-                                  f"{specs[sharded[0]]} on the new mesh: "
-                                  f"{A8C}")
+    if residuals is not None:
+        _check_residual_plan(plan, new_mesh)
+    if new_mesh is not None:
+        specs = state_specs(flatten(replicated), cfg, new_mesh)
+        sharded = sorted(k for k, sp in specs.items() if sp != ())
+        if sharded:
+            raise NotImplementedError(f"{sharded[0]} is sharded "
+                                      f"{specs[sharded[0]]} on the new mesh:"
+                                      f" {A8C}")
+    carried = None if residuals is None else _carry_residuals(
+        residuals, plan, new_mesh)
+    if new_mesh is None:
+        return None
     src = dist.get_global_rank(new_mesh.group, 0)
 
     def place(path, x):
@@ -133,8 +161,58 @@ def reshard_state(state, cfg: ModelConfig, new_mesh: LogicalMesh):
         return y
 
     out = map_with_path(place, replicated)
-    if residuals is not None:
-        out = out._replace(residuals=map_with_path(
-            lambda path, r: torch.zeros(r.shape, dtype=r.dtype,
-                                        device=new_mesh.device), residuals))
-    return out
+    return out if carried is None else out._replace(residuals=carried)
+
+
+def _check_residual_plan(plan: Optional[RemeshPlan],
+                         new_mesh: Optional[LogicalMesh]) -> None:
+    """The refusals of a compressed re-mesh, the same on every rank."""
+    if plan is None:
+        raise ValueError("a compressed state's residuals move by the plan's "
+                         "data degrees: pass plan=")
+    n_old = _data_degree(plan.old_shape, plan.axis_names)
+    n_new = _data_degree(plan.new_shape, plan.axis_names)
+    if n_old % n_new:
+        raise ValueError(
+            f"error-feedback residuals of {n_old} data shards do not split "
+            f"over {n_new}: as the reference's step, a re-mesh of a "
+            f"compressed state needs the new data degree to divide the old "
+            f"(new rank r continues from old rank r * n_old // n_new)")
+    if dist.get_world_size() < n_old:
+        raise ValueError(f"the plan's old mesh needs {n_old} ranks, the "
+                         f"group has {dist.get_world_size()}")
+    if new_mesh is not None and (new_mesh.size != n_new
+                                 or new_mesh.rank != dist.get_rank()):
+        raise ValueError(f"the new mesh {new_mesh.shape} (rank "
+                         f"{new_mesh.rank}) is not the plan's over the first "
+                         f"{n_new} ranks")
+
+
+def _carry_residuals(residuals, plan: RemeshPlan,
+                     new_mesh: Optional[LogicalMesh]):
+    """This rank's residuals on the new mesh (``None`` past it): old rank
+    ``r * k`` sends its tree to old rank ``r`` (``k = n_old // n_new``)."""
+    n_old = _data_degree(plan.old_shape, plan.axis_names)
+    k = n_old // _data_degree(plan.new_shape, plan.axis_names)
+    rank = dist.get_rank()
+    flat = flatten(residuals)
+    leaves = list(flat.values())
+    pending, sent = [], []
+    if 0 < rank < n_old and k > 1 and rank % k == 0:
+        sent = [x.contiguous() for x in leaves]
+        pending += [dist.isend(x, dst=rank // k, tag=i)
+                    for i, x in enumerate(sent)]
+    got = None
+    if new_mesh is not None:
+        if rank * k == rank:             # rank 0, or a re-mesh to the same size
+            got = [x.to(new_mesh.device, copy=True) for x in leaves]
+        else:
+            got = [torch.empty(x.shape, dtype=x.dtype,
+                               device=new_mesh.device) for x in leaves]
+            pending += [dist.irecv(y, src=rank * k, tag=i)
+                        for i, y in enumerate(got)]
+    for req in pending:
+        req.wait()
+    if got is None:
+        return None
+    return unflatten(residuals, dict(zip(flat, got)))

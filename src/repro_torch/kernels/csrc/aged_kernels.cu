@@ -86,6 +86,7 @@
 // slices loaded synchronously, no split) masks every edge and takes the
 // shapes the fast path does not.
 
+#include <algorithm>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -870,10 +871,11 @@ __global__ void bitflip_draw_kernel(const int* __restrict__ x_all,
 // Counter-stream upsets of an int32 accumulator (R, D) split into shards, the
 // counterpart of the reference's inject_bitflips_sharded (a pure-jnp pass that
 // draws the fused kernel's counter stream over each shard's block-local tile
-// grid): the qkt/sv injections under per-shard BERs.  Shard s upsets its words
-// at q[s] from the stream of seed[s], word (lrow, lcol) of its block drawing
-// counter_bits((lrow % bm) * bn + lcol % bn, seed, (lrow / bm) * grid + lcol /
-// bn) with its own (bm, bn, grid).  Two splits:
+// grid): the flush upset of repro/kernels/fused_aged_matmul.py::
+// fused_aged_matmul on the qkt/sv heads of mesh serving, under per-shard BERs.
+// Shard s upsets its words at q[s] from the stream of seed[s], word (lrow,
+// lcol) of its block drawing counter_bits((lrow % bm) * bn + lcol % bn, seed,
+// (lrow / bm) * grid + lcol / bn) with its own (bm, bn, grid).  Two splits:
 //  - by column (by_row == 0): shard s owns columns [bound[s], bound[s + 1]),
 //    lrow = r, lcol = c - bound[s];
 //  - by a leading axis of n_ax entries (by_row == 1; the flattened heads):
@@ -881,8 +883,27 @@ __global__ void bitflip_draw_kernel(const int* __restrict__ x_all,
 //    shard s owns entries [bound[s], bound[s + 1]) and its block is (a, its
 //    entries, mid) flattened: lrow = (a * W_s + h - bound[s]) * mid + r % mid,
 //    lcol = c.
-// One thread a word; elementwise, bound by its 8 bytes a word and a few
-// integer divisions.
+// What bounds it on an H100: 8 bytes a word (read and written once) at
+// 3.35 TB/s, 2.4 ns a kiloword.  The hashes take ~28 integer instructions a
+// word, below that at the card's int32 issue rate; per-word index arithmetic
+// would not be (a 64-bit division is a software routine of dozens of
+// instructions, and the split needs five a word).  So the index math is
+// hoisted out of the column loop:
+//  - work comes by row: slices of T threads (T a power of two up to 32, set
+//    by the widest shard's width) each take a work item, a row and a range of
+//    `per_item` 4-word groups of it, with a grid-stride loop over items.  The
+//    row's shard, lrow, lrow / bm and (lrow % bm) * bn are worked out once an
+//    item (the only 64-bit arithmetic); in the column split a thread looks its
+//    shard up again only when its columns cross a bound;
+//  - words go 4 at a time: from the first 16-byte boundary of the row (its
+//    address, since a contiguous view may keep a storage offset) as int4
+//    loads and stores, when x and out share their alignment; the ragged head
+//    and tail take the scalar path, and without a shared alignment the groups
+//    take four scalar loads.  Two groups are loaded before either is hashed;
+//  - bn >= 8, so a group whose in-tile column m has m + 3 < bn lies in one
+//    logical tile: one 32-bit division (lcol / bn) and one stream_constant a
+//    group, then per word one fmix32 of the offset, the compare and the flip.
+//    A group across a tile edge or a shard bound takes the scalar path.
 struct UpsetShards {
   int n, by_row;
   long long mid, n_ax;
@@ -894,31 +915,183 @@ struct UpsetShards {
   float q[kMaxLanes];
 };
 
-__global__ void counter_upset_kernel(const int* __restrict__ x,
-                                     int* __restrict__ out, long long R,
-                                     long long D,
-                                     const __grid_constant__ UpsetShards sh) {
-  const long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
-  if (i >= R * D) return;
-  const long long r = i / D, c = i % D;
-  int s = 0;
-  long long lrow = r, lcol = c;
-  if (sh.by_row) {
-    const long long h = (r / sh.mid) % sh.n_ax;
-    while (s + 1 < sh.n && h >= sh.bound[s + 1]) ++s;
-    const long long w = sh.bound[s + 1] - sh.bound[s];
-    lrow = ((r / (sh.mid * sh.n_ax)) * w + (h - sh.bound[s])) * sh.mid + r % sh.mid;
-  } else {
-    while (s + 1 < sh.n && c >= sh.bound[s + 1]) ++s;
-    lcol = c - sh.bound[s];
-  }
-  const uint32_t lr = static_cast<uint32_t>(lrow);
-  const uint32_t lc = static_cast<uint32_t>(lcol);
+// One shard's draw constants for one row: its tile row and offset row.
+struct UpsetRow {
+  int s;
+  uint32_t tile_row, off_row, bn, seed;
+  float q;
+  long long col0;                // the block's first column (column split)
+};
+
+__device__ __forceinline__ UpsetRow upset_row(const UpsetShards& sh, int s,
+                                              uint32_t lr) {
   const uint32_t bm = static_cast<uint32_t>(sh.bm[s]);
   const uint32_t bn = static_cast<uint32_t>(sh.bn[s]);
-  const uint32_t tile = (lr / bm) * static_cast<uint32_t>(sh.grid[s]) + lc / bn;
-  const uint32_t offset = (lr % bm) * bn + lc % bn;
-  out[i] = flip_word(x[i], counter_bits(offset, sh.seed[s], tile), sh.q[s]);
+  return {s, (lr / bm) * static_cast<uint32_t>(sh.grid[s]), (lr % bm) * bn,
+          bn, sh.seed[s], sh.q[s], sh.by_row ? 0 : sh.bound[s]};
+}
+
+// Word c of the row: the per-word rule in full (a column-split row looks
+// its shard up from ur.s upwards).
+__device__ __forceinline__ int upset_scalar(int v, long long c, UpsetRow& ur,
+                                            const UpsetShards& sh,
+                                            uint32_t lr) {
+  if (!sh.by_row && c >= sh.bound[ur.s + 1]) {
+    int s = ur.s;
+    while (s + 1 < sh.n && c >= sh.bound[s + 1]) ++s;
+    ur = upset_row(sh, s, lr);
+  }
+  const uint32_t lc = static_cast<uint32_t>(c - ur.col0);
+  const uint32_t tc = lc / ur.bn;
+  return flip_word(v,
+                   fmix32((ur.off_row + lc - tc * ur.bn) * 0x9E3779B9u ^
+                          stream_constant(ur.seed, ur.tile_row + tc)),
+                   ur.q);
+}
+
+// The 4-word group at column c: one tile, one stream constant, when it lies
+// in one shard and one logical tile; else word by word.
+__device__ __forceinline__ int4 upset_group(int4 v, long long c, UpsetRow& ur,
+                                            const UpsetShards& sh,
+                                            uint32_t lr) {
+  if (!sh.by_row && c + 3 >= sh.bound[ur.s + 1]) {
+    if (c >= sh.bound[ur.s + 1]) {
+      int s = ur.s;
+      while (s + 1 < sh.n && c >= sh.bound[s + 1]) ++s;
+      ur = upset_row(sh, s, lr);
+    }
+    if (c + 3 >= sh.bound[ur.s + 1]) {
+      v.x = upset_scalar(v.x, c, ur, sh, lr);
+      v.y = upset_scalar(v.y, c + 1, ur, sh, lr);
+      v.z = upset_scalar(v.z, c + 2, ur, sh, lr);
+      v.w = upset_scalar(v.w, c + 3, ur, sh, lr);
+      return v;
+    }
+  }
+  const uint32_t lc = static_cast<uint32_t>(c - ur.col0);
+  const uint32_t tc = lc / ur.bn;
+  const uint32_t m = lc - tc * ur.bn;
+  if (m + 3 >= ur.bn) {
+    v.x = upset_scalar(v.x, c, ur, sh, lr);
+    v.y = upset_scalar(v.y, c + 1, ur, sh, lr);
+    v.z = upset_scalar(v.z, c + 2, ur, sh, lr);
+    v.w = upset_scalar(v.w, c + 3, ur, sh, lr);
+    return v;
+  }
+  const uint32_t sc = stream_constant(ur.seed, ur.tile_row + tc);
+  const uint32_t o = (ur.off_row + m) * 0x9E3779B9u;
+  v.x = flip_word(v.x, fmix32(o ^ sc), ur.q);
+  v.y = flip_word(v.y, fmix32((o + 0x9E3779B9u) ^ sc), ur.q);
+  v.z = flip_word(v.z, fmix32((o + 2u * 0x9E3779B9u) ^ sc), ur.q);
+  v.w = flip_word(v.w, fmix32((o + 3u * 0x9E3779B9u) ^ sc), ur.q);
+  return v;
+}
+
+// q = a / b and r = a % b, in 32 bits where both fit (a 64-bit division is
+// a much longer routine): the per-item index math of the kernel below.
+__device__ __forceinline__ void divmod(long long a, long long b, long long& q,
+                                       long long& r) {
+  if (((a | b) >> 32) == 0) {
+    q = static_cast<uint32_t>(a) / static_cast<uint32_t>(b);
+  } else {
+    q = a / b;
+  }
+  r = a - q * b;
+}
+
+__device__ __forceinline__ int4 load_group(const int* p, bool vector) {
+  if (vector) return __ldcs(reinterpret_cast<const int4*>(p));
+  return make_int4(p[0], p[1], p[2], p[3]);
+}
+
+__device__ __forceinline__ void store_group(int* p, int4 v, bool vector) {
+  if (vector) {
+    __stcs(reinterpret_cast<int4*>(p), v);
+  } else {
+    p[0] = v.x;
+    p[1] = v.y;
+    p[2] = v.z;
+    p[3] = v.w;
+  }
+}
+
+// Slice `lane` of T takes the groups lane, lane + T, ... of its item's range
+// [k * per_item, (k + 1) * per_item) of the row's groups; the item k == 0
+// also takes the row's scalar head and tail words.
+__global__ void __launch_bounds__(256)
+counter_upset_kernel(const int* __restrict__ x, int* __restrict__ out,
+                     long long R, long long D, int log2_t, int items_per_row,
+                     int per_item, const __grid_constant__ UpsetShards sh) {
+  const int T = 1 << log2_t;
+  const int lane = threadIdx.x & (T - 1);
+  const long long slices =
+      (static_cast<long long>(gridDim.x) * blockDim.x) >> log2_t;
+  const long long n_items = R * items_per_row;
+  const bool vector =
+      ((reinterpret_cast<uintptr_t>(x) ^ reinterpret_cast<uintptr_t>(out)) &
+       15u) == 0;
+  for (long long item =
+           (blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x) >>
+           log2_t;
+       item < n_items; item += slices) {
+    long long r = item, k = 0;
+    if (items_per_row > 1) divmod(item, items_per_row, r, k);
+    // the row's shard and block-local row
+    int s = 0;
+    long long lrow = r;
+    if (sh.by_row) {
+      long long entries, within, a, h;
+      divmod(r, sh.mid, entries, within);
+      divmod(entries, sh.n_ax, a, h);
+      while (s + 1 < sh.n && h >= sh.bound[s + 1]) ++s;
+      const long long w = sh.bound[s + 1] - sh.bound[s];
+      lrow = (a * w + (h - sh.bound[s])) * sh.mid + within;
+    }
+    const uint32_t lr = static_cast<uint32_t>(lrow);
+    const int* __restrict__ xr = x + r * D;
+    int* __restrict__ outr = out + r * D;
+    long long head = 0;
+    if (vector) {
+      head = static_cast<long long>(
+                 (16u - (reinterpret_cast<uintptr_t>(xr) & 15u)) & 15u) / 4;
+      if (head > D) head = D;
+    }
+    const long long n_groups = (D - head) / 4;
+    long long g = k * per_item + lane;
+    const long long g_end = min(n_groups, (k + 1) * per_item);
+    if (g < g_end) {
+      long long c = head + 4 * g;
+      int s0 = s;
+      if (!sh.by_row)
+        while (s0 + 1 < sh.n && c >= sh.bound[s0 + 1]) ++s0;
+      UpsetRow ur = upset_row(sh, s0, lr);
+      for (; g + T < g_end; g += 2 * T) {
+        const long long c0 = head + 4 * g, c1 = c0 + 4 * T;
+        const int4 v0 = load_group(xr + c0, vector);
+        const int4 v1 = load_group(xr + c1, vector);
+        store_group(outr + c0, upset_group(v0, c0, ur, sh, lr), vector);
+        store_group(outr + c1, upset_group(v1, c1, ur, sh, lr), vector);
+      }
+      if (g < g_end) {
+        const long long c0 = head + 4 * g;
+        store_group(outr + c0,
+                    upset_group(load_group(xr + c0, vector), c0, ur, sh, lr),
+                    vector);
+      }
+    }
+    if (k == 0) {
+      const long long tail0 = head + 4 * n_groups;
+      const long long n_scalar = head + (D - tail0);
+      for (long long t = lane; t < n_scalar; t += T) {
+        const long long c = t < head ? t : tail0 + (t - head);
+        int s0 = s;
+        if (!sh.by_row)
+          while (s0 + 1 < sh.n && c >= sh.bound[s0 + 1]) ++s0;
+        UpsetRow ur = upset_row(sh, s0, lr);
+        outr[c] = upset_scalar(__ldcs(xr + c), c, ur, sh, lr);
+      }
+    }
+  }
 }
 
 cudaError_t launch_generic(const int8_t* a, const int8_t* b, const float* xs,
@@ -1102,12 +1275,29 @@ int aged_counter_upset(const void* x, void* out, long long R, long long D,
   }
   for (int i = 0; i <= n_shards; ++i) sh.bound[i] = bounds[i];
   if (bounds[0] != 0 || bounds[n_shards] != (by_row ? n_ax : D)) return invalid;
+  // T slices of a warp a row: enough for its widest shard's groups
+  long long widest = by_row ? D : 0;
+  for (int i = 0; i < n_shards && !by_row; ++i)
+    widest = std::max<long long>(widest, bounds[i + 1] - bounds[i]);
+  const long long groups = (D + 3) / 4;
+  int log2_t = 0;
+  while (log2_t < 5 && (1LL << log2_t) < (widest + 3) / 4) ++log2_t;
+  const int T = 1 << log2_t;
+  // a row is cut into items of at least 8 groups a slice only when there
+  // are too few rows to fill the card (~16 k item slices)
+  constexpr long long kSlices = 16384;
+  long long items = std::max<long long>(1, (kSlices + R - 1) / R);
+  items = std::min<long long>(items, std::max<long long>(1, groups / (8 * T)));
+  const long long per_item = (groups + items - 1) / items;
   constexpr int kBlock = 256;
-  const long long blocks = (R * D + kBlock - 1) / kBlock;
-  if (blocks > 0x7FFFFFFFLL) return invalid;
+  const long long threads = R * items * T;
+  const long long blocks =
+      std::min<long long>((threads + kBlock - 1) / kBlock, 1LL << 20);
+  if (per_item > 0x7FFFFFFFLL) return invalid;
   counter_upset_kernel<<<static_cast<unsigned>(blocks), kBlock, 0,
                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(x), static_cast<int*>(out), R, D, sh);
+      static_cast<const int*>(x), static_cast<int*>(out), R, D, log2_t,
+      static_cast<int>(items), static_cast<int>(per_item), sh);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -6,6 +6,8 @@ it also runs on a machine that has only PyTorch:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
+import math
+
 import pytest
 import torch
 
@@ -822,15 +824,24 @@ def test_cuda_shard_gemm_generic_path_and_refusals(cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,axis", [
     ((2, 32, 16, 16), 1), ((2, 32, 1, 17), 1), ((2, 20, 64, 1500), 1),
-    ((2, 3, 5, 7), 1), ((32, 14336), -1), ((2, 128256), -1), ((5, 3), -1)])
+    ((2, 3, 5, 7), 1), ((2, 32, 1100, 8), 1), ((32, 14336), -1),
+    ((2, 128256), -1), ((5, 3), -1)])
 @pytest.mark.parametrize("S", [3, 4, 8])
-def test_cuda_counter_upset_matches_plain(cuda_device, shape, axis, S):
+@pytest.mark.parametrize("offset", [0, 1])
+def test_cuda_counter_upset_matches_plain(cuda_device, shape, axis, S,
+                                          offset):
     """The counter-upset kernel against its plain version on both splits:
     llama's qkt/sv heads at prefill and decode, whisper-like encoder rows,
-    fewer heads than shards, and column splits (uneven, partial tiles)."""
+    fewer heads than shards, rows past 65,535 (70,400 of 8 words), and
+    column splits (uneven, partial tiles, shard bounds off a multiple of 4
+    at (32, 14336) over 3); rows of D not a multiple of 4 start off a
+    16-byte boundary, and ``offset`` 1 starts the input one word into its
+    storage (a contiguous view the output's alignment does not share)."""
     g = torch.Generator(device=cuda_device).manual_seed(sum(shape) + S)
-    x = torch.randint(-2 ** 31, 2 ** 31 - 1, shape, dtype=torch.int32,
-                      device=cuda_device, generator=g)
+    n = math.prod(shape)
+    x = torch.randint(-2 ** 31, 2 ** 31 - 1, (n + offset,), dtype=torch.int32,
+                      device=cuda_device, generator=g)[offset:].view(shape)
+    assert x.is_contiguous() and x.storage_offset() == offset
     bers = tuple(2e-3 * (1 + s) for s in range(S))
     kernels.reset_launch_counts()
     got = ops.inject_bitflips_sharded(x, bers, seed=-1234, axis=axis,

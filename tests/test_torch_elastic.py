@@ -130,20 +130,24 @@ def test_make_mesh_from_plan_4_to_2(runs):
 
 def test_reshard_state_bit_equal(runs):
     """Rank 0's params, moments and step on both ranks of the new mesh,
-    bit for bit (each rank started from its own); the residuals restart from zero; and back up to 4 ranks,
-    every rank holds rank 0's params."""
+    bit for bit (each rank started from its own); new rank r's residuals
+    are old rank 2r's (ROADMAP C.7: old rank i held i + 1); and back up to
+    4 ranks, the residuals of 2 refused, every rank holds rank 0's
+    params."""
     params, out = runs
-    for rec in out[:2]:
+    for r, rec in enumerate(out[:2]):
         moved = rec["moved"]
         assert sorted(moved["params"]) == sorted(params)
         for k, v in moved["params"].items():
             np.testing.assert_array_equal(v, params[k], err_msg=k)
             np.testing.assert_array_equal(moved["mu"][k], 0.0)
-            np.testing.assert_array_equal(moved["residuals"][k], 0.0)
+            np.testing.assert_array_equal(moved["residuals"][k],
+                                          np.float32(2 * r + 1))
         assert moved["step"] == 3
     for rec in out:
         _same_plan(rec["back_plan"], jax_plan_remesh(
             FakeMesh({"data": 2, "model": 1}), 4, global_batch=GLOBAL_BATCH))
+        assert "do not split over 4" in rec["back_refused"]
         for k, v in rec["back"].items():
             np.testing.assert_array_equal(v, params[k], err_msg=k)
 

@@ -205,9 +205,11 @@ def dp_rank_from(mesh, arch, starts):
 def elastic_rank(mesh, arch, params, global_batch):
     """The elastic re-mesh of a 4-rank data-parallel job: the plan from the
     live ``(4, 1)`` mesh down to 2 ranks, the new mesh (ranks 2 and 3 get
-    none), a compressed train state resharded onto it (rank 0's values;
-    every other rank starts from different ones), then back up to 4
-    ranks, and the refusals of a model axis over ranks.  Host data."""
+    none), a compressed train state resharded onto it (rank 0's values,
+    each new rank the residuals of the old rank the plan gives it; every
+    rank starts from different ones), then back up to 4 ranks (its
+    residuals refused, the rest carried), and the refusals of a model
+    axis over ranks.  Host data."""
     import torch.distributed as dist
     from repro_torch.configs import get_config
     from repro_torch.distributed import elastic
@@ -234,8 +236,8 @@ def elastic_rank(mesh, arch, params, global_batch):
     new = elastic.make_mesh_from_plan(plan, device="cpu")
     out["new"] = None if new is None else (
         new.shape, dist.get_world_size(new.group), new.rank)
+    moved = elastic.reshard_state(state, cfg, new, plan=plan)
     if new is not None:
-        moved = elastic.reshard_state(state, cfg, new)
         out["moved"] = {"params": _np(moved.params), "mu": _np(moved.opt.mu),
                         "step": int(moved.opt.step),
                         "residuals": _np(moved.residuals)}
@@ -244,7 +246,13 @@ def elastic_rank(mesh, arch, params, global_batch):
     out["back_plan"] = back_plan
     back = elastic.make_mesh_from_plan(back_plan, device="cpu")
     src = moved if new is not None else state
-    out["back"] = _np(elastic.reshard_state(src, cfg, back).params)
+    try:                                # residuals of 2 ranks do not split
+        elastic.reshard_state(src, cfg, back, plan=back_plan)
+        out["back_refused"] = None
+    except ValueError as e:
+        out["back_refused"] = str(e)
+    out["back"] = _np(elastic.reshard_state(src._replace(residuals=None),
+                                            cfg, back).params)
     pod = elastic.make_mesh_from_plan(elastic.RemeshPlan(
         (4,), (2, 2, 1), ("pod", "data", "model"), 1), device="cpu")
     out["pod"] = (pod.shape, dist.get_world_size(pod.group))
@@ -260,6 +268,53 @@ def elastic_rank(mesh, arch, params, global_batch):
         except NotImplementedError as e:
             refusals[name] = str(e)
     out["refusals"] = refusals
+    return out
+
+
+def elastic_residuals_rank(mesh, arch, start, global_batch):
+    """A compressed data-parallel job re-meshed from its 4 ranks, from the
+    reference's state ``start`` (flat, ``(4, ...)`` residuals; this rank
+    takes its row): for each new data degree in 2 and 1, the plan, the new
+    mesh, the state resharded onto it (``carried``: the residuals each new
+    rank holds) and one compressed step on it on batch 1.  Then the
+    refusals of 4 -> 3 (a global batch of 12), 2 -> 4 and 1 -> 2: each
+    the ``ValueError``'s message, or ``None``.  Host data by rank."""
+    from repro_torch.convert import train_state_from_reference
+    from repro_torch.distributed import elastic
+    torch.set_num_threads(1)
+    state = None
+    out = {}
+    for n in (2, 1):
+        if state is None:
+            state = train_state_from_reference(start, _dp_setup(
+                arch, mesh, True)[0], rank=mesh.rank, device=mesh.device)
+        plan = elastic.plan_remesh(mesh, n, global_batch=global_batch)
+        new = elastic.make_mesh_from_plan(plan, device=mesh.device)
+        cfg = _dp_setup(arch, mesh, True)[0]
+        moved = elastic.reshard_state(state, cfg, new, plan=plan)
+        if new is None:
+            continue
+        _, data, step = _dp_setup(arch, new, True)
+        # copies: the step updates the residuals in place
+        rec = {"carried": {k: v.copy() for k, v in
+                           _np(moved.residuals).items()}}
+        moved, loss = _step(step, moved, data, 1)
+        rec.update(_record(moved, [loss]), mu=_np(moved.opt.mu),
+                   nu=_np(moved.opt.nu))
+        out[n] = rec
+    refused = {}
+    for name, old, n, batch in (("4->3", 4, 3, 12), ("2->4", 2, 4, 8),
+                                ("1->2", 1, 2, 8)):
+        plan = elastic.plan_remesh_shape(
+            ("data", "model"), {"data": old, "model": 1}, n,
+            global_batch=batch)
+        new = elastic.make_mesh_from_plan(plan, device=mesh.device)
+        try:
+            elastic.reshard_state(state, cfg, new, plan=plan)
+            refused[name] = None
+        except ValueError as e:
+            refused[name] = str(e)
+    out["refused"] = refused
     return out
 
 
