@@ -243,9 +243,23 @@ Phases (any failure exits non-zero):
    (head and weights) against the whole product's columns; prefill ms,
    ms a decode token, gathers and bytes a token and launches a forward
    per rank;
+18. int8 serving (cell 18): (a) cell 1's llama3_8b params quantised on
+   the card (``quantize_params``) and served as [4] (B=2, prompt 16, 8
+   greedy tokens at 9 y, fused route) from the int8 tree and from its
+   dequantised bf16 tree (``dequant_tree``): the same tokens, bit-equal
+   prefill logits under one fault config, 7 + 2 launches a layer and
+   forward, peak GB and decode ms/token of each; (b) a 2,048-token
+   prefill at 9 y into an int8 KV cache of ``max_len`` 4,096 and into a
+   bf16 one with the same fault seeds: the int8 cache equal to
+   ``quantize_cache_entry`` of the bf16 cache bit for bit, both caches'
+   bytes, 8 decode tokens on each and their ms/token; (c) a clean prefill
+   of qwen3_moe_235b at published widths (head_dim 128), B = 1,
+   ``INT8_MOE_LAYERS`` deep, under ``MOE_DISPATCH = "grouped"`` and
+   ``"global"``: bit-equal logits (at B = 1 the per-row capacity is the
+   global one);
 11. a ``{"kernels": [...]}`` line (launches summed over the runs of [4],
-   [5], [6], [6b], [7], [8], [10], [10b], [12], [13], [14], [15], [16]
-   and [17]), the
+   [5], [6], [6b], [7], [8], [10], [10b], [12], [13], [14], [15], [16],
+   [17] and [18]), the
    ``nvidia-smi`` line, and as the last line ``{"ok": true, "device":
    {...}}``.
 
@@ -347,8 +361,11 @@ def device_ms(fn, iters: int = 20, match: str | None = None) -> tuple:
 
     The profiler now and then drops kernel records, some or all of a
     trace's; a trace with no kernel, or with a count that is not a whole
-    number per call, has, and is taken again (up to five times, the last
-    kept as it is)."""
+    number per call, has, and is taken again (up to five times).  Where
+    every try dropped some, the time is the mean of the recorded kernels
+    times their nearest whole count a call, and the count a call is the
+    recorded one (below the true count: the callers' launch counters say
+    how many kernels a call launched)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -366,7 +383,17 @@ def device_ms(fn, iters: int = 20, match: str | None = None) -> tuple:
         n = sum(e.count for e in evs)
         if n > 0 and n % iters == 0:
             break
-    return sum(_dev_us(e) for e in evs) / 1e3 / iters, n / iters
+    ms = sum(_dev_us(e) for e in evs) / 1e3
+    if n % iters:
+        return ms / n * max(1, round(n / iters)), n / iters
+    return ms / iters, n / iters
+
+
+def one_kernel_a_call(per_call: float) -> bool:
+    """The profiler's kernel count a call (:func:`device_ms`) of a wrapper
+    whose launch counter showed one launch a call: one, or fewer where the
+    profiler dropped records on every try; never more."""
+    return 0 < per_call <= 1
 
 
 def int32_issue_per_s(dev) -> float:
@@ -564,7 +591,8 @@ def kernel_checks(dev, cfg, moe_cfg) -> dict:
                 lib = cuda_time_ms(lk)
                 lib_dev = device_ms(lk)[0]
             dev_ms, per_call = device_ms(fk, match="int8_gemm")
-            check(per_call == 1, f"fused GEMM kernels per call {per_call}")
+            check(one_kernel_a_call(per_call),
+                  f"fused GEMM kernels per call {per_call}")
             t_b, by = bound(M * K + K * N + 4 * (M + N) + 4 * M * N,
                             2.0 * M * K * N)
             # no one PyTorch call upsets and dequantises; _int_mm times the
@@ -644,7 +672,8 @@ def kernel_checks(dev, cfg, moe_cfg) -> dict:
               f"bitflip_draw launches {kernels.launch_counts()}")
         bk = lambda: bitflip_draw(x, words, q)
         dev_ms, per_call = device_ms(bk, match="bitflip_draw")
-        check(per_call == 1, f"bitflip_draw kernels per call {per_call}")
+        check(one_kernel_a_call(per_call),
+              f"bitflip_draw kernels per call {per_call}")
         # bytes: each word read and written once; instructions: the uniform's
         # hash for every word, the position's for every flipped word
         int_ops = THREEFRY_INT_OPS * (n + flips)
@@ -740,7 +769,8 @@ def lane_kernel_checks(dev, cfg, moe_cfg) -> dict:
             fk = lambda: lanes(nb(), xs, ws)
             f4 = lambda: singles(nb(), xs, ws)
             dev_ms, per_call = device_ms(fk, match="int8_gemm")
-            check(per_call == 1, f"lane GEMM kernels per call {per_call}")
+            check(one_kernel_a_call(per_call),
+                  f"lane GEMM kernels per call {per_call}")
             t_b, by = bound(M * K + K * N + 4 * (M + N) + 4 * M * N,
                             2.0 * M * K * N)
             rows["fused_aged_matmul_lanes"].append(dict(
@@ -778,7 +808,8 @@ def lane_kernel_checks(dev, cfg, moe_cfg) -> dict:
         check(flips > 0, f"bitflip_draw_lanes {shape}: no flips")
         bk = lambda: bitflip_draw_lanes(x, words, qs)
         dev_ms, per_call = device_ms(bk, match="bitflip_draw")
-        check(per_call == 1, f"bitflip_draw_lanes kernels per call "
+        check(one_kernel_a_call(per_call),
+              f"bitflip_draw_lanes kernels per call "
               f"{per_call}")
         int_ops = THREEFRY_INT_OPS * (L * n + flips)
         t_b, by = bound(8 * L * n, int_ops=int_ops, int_rate=int_rate)
@@ -4262,7 +4293,8 @@ def mesh_kernel_rows(dev, cfg, whisper_cfg) -> dict:
             sr = lambda: ref.fused_aged_matmul_shards_ref(
                 a, b, xs, ws, bers, seeds, bounds)
             dev_ms, per_call = device_ms(sk, match="int8_gemm")
-            check(per_call == 1, f"shard GEMM kernels per call {per_call}")
+            check(one_kernel_a_call(per_call),
+                  f"shard GEMM kernels per call {per_call}")
             lib = lib_dev = None
             if M > 16:
                 lk = lambda: torch._int_mm(a, nbc())
@@ -4305,7 +4337,8 @@ def mesh_kernel_rows(dev, cfg, whisper_cfg) -> dict:
                                                  use_kernel=True)
         cr = lambda: ops.inject_bitflips_sharded(x, bers, seed=-7, axis=1)
         dev_ms, per_call = device_ms(ck, match="counter_upset")
-        check(per_call == 1, f"counter upset kernels per call {per_call}")
+        check(one_kernel_a_call(per_call),
+              f"counter upset kernels per call {per_call}")
         t_b, by = bound(8 * n, int_ops=COUNTER_INT_OPS * n,
                         int_rate=int_rate)
         rows["counter_upset_shards"].append(dict(
@@ -5202,6 +5235,311 @@ def print_rank_mesh(res: dict, smi_line: str) -> None:
           f"and rank function {res['spawn_s']['run']:.1f} s)", flush=True)
 
 
+# [18] int8 serving at llama3_8b's full width (cell 18)
+INT8_STEPS = 8
+INT8_PREFILL = 2048              # (b)'s prompt
+INT8_MAX_LEN = 4096              # (b)'s caches
+INT8_MOE_LAYERS = 4              # (c)'s depth of qwen3_moe_235b (of 94)
+CELL1_PEAK_GB = 16.37            # cell 1's bf16 peak (PERF.md section 5)
+
+
+def _tree_bytes(tree) -> int:
+    from repro_torch.tree import leaves
+    return sum(t.numel() * t.element_size() for t in leaves(tree))
+
+
+def _profile_call(fn, top: int = 6) -> dict:
+    """``torch.profiler`` over one ``fn()``: the device busy ms (the
+    kernels' self times on one stream), the host ms of the profiled call,
+    the kernel launches and the ``top`` kernels by device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages()
+               if getattr(e, "device_type", None) == DeviceType.CUDA]
+    return {"device_busy_ms": sum(_dev_us(e) for e in kernels) / 1e3,
+            "profiled_wall_ms": wall * 1e3,
+            "n_kernel_launches": sum(e.count for e in kernels),
+            "top": [{"name": e.key[:80], "device_ms": _dev_us(e) / 1e3,
+                     "calls": e.count} for e in sorted(
+                         kernels, key=_dev_us, reverse=True)[:top]]}
+
+
+def _int8_generate(dev, cfg, params, runtime, prompts) -> dict:
+    """[4]'s call on ``params``: a 2-token warm-up, then 8 greedy tokens
+    with their launches, peak GB and decode ms/token."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.obs.taps import enable_taps
+    from repro_torch.serve.engine import ServeEngine
+    L = cfg.n_layers
+    eng = lambda: ServeEngine(cfg, params, runtime=runtime, max_len=64,
+                              use_systolic_kernel=True, seed=0, device=dev)
+    eng().generate(prompts, 2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launch_counts()
+    with enable_taps():
+        out = eng().generate(prompts, INT8_STEPS)
+    counts = kernels.launch_counts()
+    want = {"fused_aged_matmul": 7 * L * INT8_STEPS,
+            "bitflip_draw": 2 * L * INT8_STEPS}
+    check(all(counts[k] == want.get(k, 0) for k in counts),
+          f"[18] launches {counts} != {want}")
+    tok = out.tokens
+    check(tok.shape == (2, INT8_STEPS)
+          and bool(((tok >= 0) & (tok < cfg.vocab)).all())
+          and all(np.isfinite(v).all() for v in out.telemetry.values()),
+          f"[18] tokens {tok.tolist()} or taps not finite")
+    return {"tokens": tok.tolist(), "launches": counts,
+            "taps": {k: np.asarray(v).tolist()
+                     for k, v in out.telemetry.items()},
+            "prefill_ms": out.timings["prefill_s"] * 1e3,
+            "decode_ms_per_token": out.timings["decode_s"]
+            / (INT8_STEPS - 1) * 1e3,
+            "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+
+
+def _int8_cache_prefill(dev, cfg, q, toks, fi, quantized: bool):
+    """(b)'s prefill of ``toks`` into a cache of ``INT8_MAX_LEN`` (int8 or
+    bf16), then 8 greedy decode steps on it, and one more profiled: ->
+    (prefill logits, the cache after the prefill (cloned), decode tokens,
+    ms a decode token, launches, the profile)."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.models import transformer as tf
+    B, S = toks.shape
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        cache = tf.init_cache(cfg, B, INT8_MAX_LEN, device=dev,
+                              quantized=quantized)
+        logits, cache, _ = tf.forward_logits(q, cfg, toks, fi=fi,
+                                             states=cache, cache_len=S)
+        kept = [{n: ({f: t.clone() for f, t in c[n].items()} if quantized
+                     else c[n].clone()) for n in ("k", "v")} for c in cache]
+        tok = torch.argmax(logits[:, -1], -1)
+        toks_out = [tok]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in range(1, INT8_STEPS):
+            lg, cache = tf.decode_step(q, cfg, tok[:, None], cache, S + t,
+                                       fi=fi.for_step(t))
+            tok = torch.argmax(lg[:, -1], -1)
+            toks_out.append(tok)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / (INT8_STEPS - 1) * 1e3
+        counts = kernels.launch_counts()
+        prof = _profile_call(lambda: tf.decode_step(
+            q, cfg, tok[:, None], cache, S + INT8_STEPS,
+            fi=fi.for_step(INT8_STEPS)))
+    return (logits[:, -1].float(), kept,
+            torch.stack(toks_out, -1).tolist(), ms, counts, prof)
+
+
+def int8_phase(dev, layers: int) -> dict:
+    """[18] cell 18: an int8 weight tree and an int8 KV cache at
+    llama3_8b's full width on the fused route; the grouped MoE dispatch
+    on qwen3_moe_235b."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch import random as prandom
+    from repro_torch.configs import get_config
+    from repro_torch.core.fleet import FleetRuntime
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.layers import FaultConfig
+    from repro_torch.tree import leaves
+    t_phase = time.perf_counter()
+    parts = {}
+
+    def lap(name):
+        parts[name] = time.perf_counter() - t_phase - sum(parts.values())
+    cfg = dataclasses.replace(get_config("llama3_8b"), n_layers=layers)
+    L = cfg.n_layers
+    runtime = FleetRuntime(n_devices=1, policy="fault_tolerant", device=dev)
+    runtime.set_age(years=9.0)
+    prompts = SyntheticLM(vocab=cfg.vocab, seq_len=16,
+                          global_batch=2).batch_at(0).tokens
+    res = {"layers": L, "parts_s": parts}
+    totals = dict.fromkeys(kernels.KERNEL_NAMES, 0)
+
+    def add(counts):
+        for k in totals:
+            totals[k] += counts[k]
+
+    # (a) cell 1's params -> the int8 tree, served from it and from its
+    # dequantised bf16 tree
+    params = tf.init_params(cfg, seed=0, dtype=torch.bfloat16, device=dev)
+    res["bf16_tree_gb"] = _tree_bytes(params) / 1e9
+    q = tf.quantize_params(params, cfg)
+    del params
+    torch.cuda.empty_cache()
+    res["int8_tree_gb"] = _tree_bytes(q) / 1e9
+
+    def dequant_forward():              # what a forward dequantises
+        for lp in q["layers"]:
+            tf.dequant_tree(lp, torch.bfloat16)
+        tf.dequant_tree(q["lm_head"], torch.bfloat16)
+    res["dequant_ms_per_forward"] = cuda_time_ms(dequant_forward, iters=3,
+                                                 warmup=1)
+    check(all(t.dtype in (torch.int8, torch.float32, torch.bfloat16)
+              for t in leaves(q)) and tf.is_quantized(q),
+          "[18] the int8 tree's leaves")
+    fi = FaultConfig(bers=dict(runtime.op_bers()), key=prandom.PRNGKey(5),
+                     use_systolic_kernel=True, fused=True).with_seeds()
+    ptoks = torch.as_tensor(prompts, dtype=torch.int64, device=dev)
+    lap("quantize")
+    res["int8"] = _int8_generate(dev, cfg, q, runtime, prompts)
+    add(res["int8"]["launches"])
+    with torch.no_grad():
+        logits_q = tf.forward_logits(q, cfg, ptoks, fi=fi)[0]
+    lap("int8_serve")
+    # the int8 tree's own leaves wait on the host while its bf16 tree
+    # serves (the unquantised ones are the same tensors in both), so each
+    # run's peak is its own tree's
+    deq = tf.dequant_tree(q, torch.bfloat16)
+    shared = {id(t) for t in leaves(deq)}
+    q_host = [(t, t.to("cpu", copy=True)) for t in leaves(q)
+              if id(t) not in shared]
+    for t, _ in q_host:
+        t.data = torch.empty(0, dtype=t.dtype, device=dev)
+    torch.cuda.empty_cache()
+    res["bf16"] = _int8_generate(dev, cfg, deq, runtime, prompts)
+    add(res["bf16"]["launches"])
+    with torch.no_grad():
+        logits_b = tf.forward_logits(deq, cfg, ptoks, fi=fi)[0]
+    check(res["int8"]["tokens"] == res["bf16"]["tokens"],
+          f"[18] int8 tree tokens {res['int8']['tokens']} != its bf16 "
+          f"tree's {res['bf16']['tokens']}")
+    check(res["int8"]["taps"] == res["bf16"]["taps"],
+          "[18] the int8 and bf16 trees' logit taps differ")
+    check(torch.equal(logits_q, logits_b),
+          f"[18] prefill logits differ: max "
+          f"{max_abs_err(logits_q, logits_b)}")
+    del deq, logits_q, logits_b
+    torch.cuda.empty_cache()
+    for t, h in q_host:
+        t.data = h.to(dev)
+    del q_host
+    lap("bf16_serve")
+
+    # (b) a 2,048-token prefill into an int8 and a bf16 cache of 4,096
+    toks = torch.as_tensor(np.random.default_rng(18).integers(
+        0, cfg.vocab, (2, INT8_PREFILL)), device=dev)
+    fi_b = FaultConfig(bers=dict(runtime.op_bers()), key=prandom.PRNGKey(6),
+                       use_systolic_kernel=True, fused=True).with_seeds()
+    lq, cq, tq, ms_q, cnt_q, prof_q = _int8_cache_prefill(
+        dev, cfg, q, toks, fi_b, True)
+    lb, cb, tb, ms_b, cnt_b, prof_b = _int8_cache_prefill(
+        dev, cfg, q, toks, fi_b, False)
+    add(cnt_q)
+    add(cnt_b)
+    for cnt in (cnt_q, cnt_b):
+        check(cnt["fused_aged_matmul"] == 7 * L * INT8_STEPS
+              and cnt["bitflip_draw"] == 2 * L * INT8_STEPS,
+              f"[18] (b) launches {cnt}")
+    check(torch.equal(lq, lb), "[18] (b) prefill logits differ between "
+          "the int8 and the bf16 cache")
+    for i, (a, b) in enumerate(zip(cq, cb)):
+        for n in ("k", "v"):
+            want = tf.quantize_cache_entry(b[n])
+            check(all(torch.equal(a[n][f], want[f]) for f in want),
+                  f"[18] (b) layer {i} {n}: the int8 cache is not "
+                  "quantize_cache_entry of the bf16 cache")
+    check(bool(torch.isfinite(lq).all()), "[18] (b) logits not finite")
+    res["cache"] = {
+        "prefill": INT8_PREFILL, "max_len": INT8_MAX_LEN,
+        "int8_bytes": _tree_bytes(cq), "bf16_bytes": _tree_bytes(cb),
+        "int8_tokens": tq, "bf16_tokens": tb,
+        "int8_decode_ms_per_token": ms_q, "bf16_decode_ms_per_token": ms_b,
+        "decode_tokens_equal": tq == tb, "int8_decode_profile": prof_q,
+        "bf16_decode_profile": prof_b}
+    del q, cq, cb, lq, lb
+    torch.cuda.empty_cache()
+    lap("cache")
+
+    # (c) qwen3_moe_235b, a clean B = 1 prefill, grouped vs global
+    mcfg = dataclasses.replace(get_config("qwen3_moe_235b"), head_dim=128,
+                               n_layers=INT8_MOE_LAYERS)
+    mp = tf.init_params(mcfg, seed=0, dtype=torch.bfloat16, device=dev)
+    mtoks = torch.as_tensor(prompts[:1], dtype=torch.int64, device=dev)
+    logits = {}
+
+    def moe_prefill():
+        with torch.no_grad():
+            return tf.forward_logits(mp, mcfg, mtoks)[0]
+    for mode in ("global", "grouped"):
+        moe.MOE_DISPATCH = mode
+        try:                            # the first call warms, then timed
+            logits[mode] = moe_prefill()
+            res[f"moe_{mode}_ms"] = cuda_time_ms(moe_prefill, iters=3,
+                                                 warmup=0)
+        finally:
+            moe.MOE_DISPATCH = "global"
+    check(torch.equal(logits["global"], logits["grouped"]),
+          f"[18] (c) grouped vs global logits: max "
+          f"{max_abs_err(logits['global'], logits['grouped'])}")
+    check(bool(torch.isfinite(logits["grouped"]).all()),
+          "[18] (c) logits not finite")
+    res["moe"] = {"layers": INT8_MOE_LAYERS, "batch": 1, "prompt": 16,
+                  "max_abs_err": max_abs_err(logits["global"],
+                                             logits["grouped"])}
+    del mp, logits
+    torch.cuda.empty_cache()
+    lap("moe")
+    res["launches"] = totals
+    res["seconds"] = time.perf_counter() - t_phase
+    return res
+
+
+def print_int8(res: dict, smi_line: str) -> None:
+    a, b, c = res["int8"], res["bf16"], res["cache"]
+    print(f"[18] llama3_8b full width ({res['layers']} layers), 9 y, fused "
+          f"route ({smi_line}): int8 tree {res['int8_tree_gb']:.2f} GB "
+          f"(bf16 {res['bf16_tree_gb']:.2f}); serving peak int8 "
+          f"{a['peak_gb']:.2f} GB / bf16 {b['peak_gb']:.2f} GB (cell 1: "
+          f"{CELL1_PEAK_GB} GB); decode {a['decode_ms_per_token']:.1f} / "
+          f"{b['decode_ms_per_token']:.1f} ms/token, prefill "
+          f"{a['prefill_ms']:.1f} / {b['prefill_ms']:.1f} ms; same tokens, "
+          f"bit-equal logits; launches {a['launches']}; the layers' and "
+          f"head's dequantisation {res['dequant_ms_per_forward']:.1f} ms a "
+          f"forward (CUDA events)", flush=True)
+    print(f"    (b) {c['prefill']}-token prefill at 9 y into caches of "
+          f"{c['max_len']}: int8 {c['int8_bytes'] / 1e9:.3f} GB, bf16 "
+          f"{c['bf16_bytes'] / 1e9:.3f} GB; the int8 cache == "
+          f"quantize_cache_entry(bf16 cache) bit for bit; decode "
+          f"{c['int8_decode_ms_per_token']:.1f} / "
+          f"{c['bf16_decode_ms_per_token']:.1f} ms/token (int8 / bf16 "
+          f"cache); decode tokens equal: {c['decode_tokens_equal']}",
+          flush=True)
+    for name in ("int8", "bf16"):
+        p = c[f"{name}_decode_profile"]
+        print(f"    {name} cache, one decode step: device busy "
+              f"{p['device_busy_ms']:.1f} of {p['profiled_wall_ms']:.1f} ms "
+              f"(profiled) over {p['n_kernel_launches']} kernels; top: "
+              + ", ".join(f"{o['name'][:40]} {o['device_ms']:.1f} ms "
+                          f"x{o['calls']}" for o in p["top"][:5]),
+              flush=True)
+    print(f"    (c) qwen3_moe_235b ({res['moe']['layers']} layers, head_dim "
+          f"128), clean prefill B=1: grouped == global bit for bit "
+          f"({res['moe_grouped_ms']:.1f} / {res['moe_global_ms']:.1f} ms a "
+          f"warm prefill, CUDA events)",
+          flush=True)
+    print(f"    [18] done in {res['seconds']:.1f} s ("
+          + ", ".join(f"{k} {v:.1f}" for k, v in res["parts_s"].items())
+          + ")", flush=True)
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--layers", type=int, default=32,
@@ -5568,6 +5906,12 @@ def main(argv=None) -> int:
     rank_counts = report["rank_mesh"]["launches"]
     stamp("17")
 
+    # 18. int8 weight trees and KV caches (cell 18) --------------------------
+    report["int8"] = int8_phase(dev, args.layers)
+    print_int8(report["int8"], smi_line)
+    int8_counts = report["int8"]["launches"]
+    stamp("18")
+
     # 11. summary ---------------------------------------------------------
     # launches summed over the ten paths' runs, each counted from 0; the
     # explicit-randoms bitflip_words is on no path any more: it stays the
@@ -5579,6 +5923,7 @@ def main(argv=None) -> int:
                 + resilience_counts[name] + family_counts[name]
                 + entry_counts[name] + online_counts[name]
                 + mesh_counts[name] + dp_counts[name] + rank_counts[name]
+                + int8_counts[name]
                 for name in kernels.KERNEL_NAMES}
     # the representative shape of each kernel: the decode weight matmul
     # that dominates the fused route (gate/up, M = 2; 4 x 2 in lane mode),

@@ -12,7 +12,9 @@ are unchanged (``wq (d, H, hd)``, ``wo (H, hd, d)``, ``w_gate (d, f)``,
 experts ``(E, d, f)``, ...), so the port's public functions see the
 reference's layouts.  Every leaf takes ``dtype`` except those the
 reference keeps in float32 (:data:`FLOAT32_LEAVES`); a tied-embedding
-tree has no ``lm_head``.
+tree has no ``lm_head``.  An int8 tree (the reference's
+``quantize_params``) keeps its leaves' types: ``int8_q`` int8 and
+``int8_s`` float32, whatever ``dtype`` says.
 """
 from __future__ import annotations
 
@@ -54,8 +56,10 @@ def params_from_reference(np_params: Dict[str, Any], cfg: ModelConfig, *,
     device = resolve_device(device)
 
     def leaf(x, name):
-        return _tensor(x, torch.float32 if name in FLOAT32_LEAVES else dtype,
-                       device)
+        if name == "int8_q":
+            return torch.as_tensor(np.array(x, dtype=np.int8), device=device)
+        return _tensor(x, torch.float32 if name in FLOAT32_LEAVES + (
+            "int8_s",) else dtype, device)
 
     top = ("embed", "final_norm", "lm_head", "prefix_proj", "dec_pos",
            "enc_final")
@@ -82,6 +86,34 @@ def params_from_reference(np_params: Dict[str, Any], cfg: ModelConfig, *,
                          f"{cfg.n_layers}")
     out["layers"] = layers
     return out
+
+
+def cache_from_reference(np_cache: Dict[str, Any], cfg: ModelConfig, *,
+                         device="cuda") -> list:
+    """A reference decoder cache (``tf.init_cache`` or a prefill's, as
+    numpy) -> the port's list of per-layer states, each leaf in its own
+    type: int8 stays int8, float32 float32, and bf16 (read as float32 by
+    numpy's conversion) bf16."""
+    device = resolve_device(device)
+
+    def leaf(x, name):
+        x = np.asarray(x)
+        if x.dtype == np.int8:
+            return torch.as_tensor(np.array(x), device=device)
+        dt = torch.float32 if x.dtype == np.float32 else torch.bfloat16
+        return _tensor(x, dt, device)
+
+    pat = cfg.block_pattern
+    n_groups = cfg.n_layers // len(pat)
+    layers = [None] * (n_groups * len(pat))
+    for i, kind in enumerate(pat):
+        if n_groups:
+            layers[i::len(pat)] = _unstack(
+                np_cache["groups"][f"b{i}_{kind}"], n_groups, leaf)
+    for t in np_cache.get("tail", []):
+        (key,) = t.keys()
+        layers.append(_map(t[key], leaf))
+    return layers
 
 
 def _nested(tree):

@@ -7,6 +7,7 @@ grouped as (B, S, KV, G, hd) with G = H // KV; k/v (B, S, KV, hd).
 (``fi is None``) of S >= 2048 queries runs :func:`chunked_attention`
 (flash-style online softmax over 512 x 512 chunks), anything else
 :func:`full_attention` (the faulted path is full attention in both).
+:data:`FORCE_SINGLE_CHUNK` sends every call to :func:`full_attention`.
 """
 from __future__ import annotations
 
@@ -17,6 +18,11 @@ import torch
 from .layers import FaultConfig, op_batched_matmul
 
 NEG_INF = -1e30
+
+# The reference's cost-probe knob: full attention at any length (its dry
+# run counts every FLOP of a single block, which a scanned chunk loop
+# hides).
+FORCE_SINGLE_CHUNK = False
 
 
 def _mask(q_pos, k_pos, causal: bool, window: Optional[int] = None,
@@ -142,7 +148,8 @@ def attention(q, k, v, *, causal: bool = True,
               chunk_threshold: int = 2048):
     """The reference's dispatch: chunked for a clean call of at least
     ``chunk_threshold`` queries, full (faultable) attention otherwise."""
-    if fi is None and q.shape[1] >= chunk_threshold:
+    if fi is None and q.shape[1] >= chunk_threshold \
+            and not FORCE_SINGLE_CHUNK:
         return chunked_attention(q, k, v, causal=causal, window=window,
                                  prefix_len=prefix_len)
     return full_attention(q, k, v, causal=causal, window=window,

@@ -27,7 +27,7 @@ from ..distributed import sharding as shrules
 from . import attention as attn_lib
 from .layers import (FaultConfig, _normal, init_norm, mlp_apply, mlp_init,
                      norm, op_einsum, sinusoid_positions)
-from .transformer import _attn_init
+from .transformer import _attn_init, refuse_quantized
 
 MAX_DEC_POS = 8192  # learned decoder position table (paper backbone stub)
 
@@ -117,6 +117,8 @@ def encode(params, cfg: ModelConfig, frames, *,
            fi: Optional[FaultConfig] = None, remat: bool = False):
     """frames: (B, S_enc, d) precomputed frame embeddings (stub frontend)
     -> the encoder output (B, S_enc, d) in the params' dtype."""
+    refuse_quantized(params, "the enc-dec family (the reference's encoder "
+                     "reads params['embed'].dtype)")
     x = frames.to(params["embed"].dtype)
     x = x + sinusoid_positions(x.shape[1], cfg.d_model, x.device).to(x.dtype)
     layer = _maybe_remat(_enc_layer, remat)
@@ -161,6 +163,7 @@ def decode(params, cfg: ModelConfig, tokens, enc_out=None, kv=None, *,
     ``cache``.  ``kv`` (:func:`cross_kv`) is computed from ``enc_out``
     when not given.  Returns ``(logits (B, S, vocab) float32, new cache
     or None)``."""
+    refuse_quantized(params, "the enc-dec family")
     if kv is None:
         kv = cross_kv(params, cfg, enc_out, fi=fi)
     x = shrules.lookup_rows(params["embed"], tokens)

@@ -1,6 +1,7 @@
 """Mixture-of-Experts FFN with capacity-bucketed, sort-free dispatch (port
-of ``repro.models.moe``, its ``global`` dispatch — the one the faulted
-path takes).
+of ``repro.models.moe``: its ``global`` dispatch, the one the faulted
+path takes, and under :data:`MOE_DISPATCH` ``= "grouped"`` its per-row
+dispatch for clean calls).
 
 Routing is a top-k softmax over the router's logits; the router matmul is
 the faultable ``router`` operator domain.  Each (token, slot) pair gets a
@@ -49,11 +50,70 @@ def _capacity(n_tokens: int, moe: MoEConfig) -> int:
     return max(8, -(-c // 8) * 8)
 
 
+# The reference's dispatch selector: "global" (one cumsum over all B * S *
+# K (token, slot) pairs, the default) or "grouped" (capacity and queue
+# positions per batch row, :func:`moe_apply_grouped`), which a call takes
+# only without a fault config, as in the reference.
+MOE_DISPATCH = "global"
+
+
+def _route(x2, p, moe, fi, salt):
+    """Router logits of the rows ``x2 (T, d)`` -> ``(probs (T, E) float32,
+    top_p, top_e (T, K))``, the weights renormalised.  ``lax.top_k``'s
+    order: ties (an upset router saturates the softmax to exact 0s and
+    1s) go to the lower expert index, which a stable descending sort gives
+    and ``torch.topk`` does not promise."""
+    logits = op_linear(x2, p["w_router"].to(x2.dtype), "router", fi, salt)
+    probs = torch.softmax(logits.to(torch.float32), dim=-1)
+    top_p, top_e = torch.sort(probs, dim=-1, descending=True, stable=True)
+    top_p, top_e = top_p[:, :moe.top_k], top_e[:, :moe.top_k]
+    top_p = top_p / torch.clamp_min(top_p.sum(-1, keepdim=True), 1e-9)
+    return probs, top_p, top_e
+
+
+def _queues(flat_e: torch.Tensor, E: int, C: int):
+    """Queue position of each (token, slot) pair of each row of ``flat_e
+    (R, P)`` in its expert's queue, from an int32 one-hot cumsum along the
+    row (row-major flattening keeps token order with the slots
+    interleaved) -> ``(keep, safe_pos)``, ``C`` the overflow row."""
+    onehot = F.one_hot(flat_e, E).to(torch.int32)           # (R, P, E)
+    pos_all = torch.cumsum(onehot, dim=1, dtype=torch.int32) - onehot
+    pos = torch.gather(pos_all, 2, flat_e[..., None])[..., 0]
+    keep = pos < C
+    return keep, torch.where(keep, pos, C)
+
+
+def _expert_ffn(buf, p, variant: str):
+    """The experts' clean FFN over ``buf (E, R, d)``; a rank's block of the
+    experts runs its own queues, gathered after."""
+    def experts(buf, w_up):
+        buf = buf[shrules.span(w_up)]
+        up = torch.bmm(buf, shrules.held(w_up))
+        if variant == "gated":
+            h = F.silu(torch.bmm(buf, shrules.held(p["w_gate"]))) * up
+        else:
+            h = F.gelu(up, approximate="tanh")
+        return torch.bmm(h, shrules.held(p["w_down"]))
+
+    return shrules.block_product(buf, p["w_up"], experts, {0: 0})
+
+
+def _combine(out_buf, rows, flat_e, keep, safe_pos, top_p, C: int, dtype):
+    """Gather each pair's expert output back (a dropped pair reads row
+    ``C - 1``, as jax clamps an out-of-range gather, and is zeroed) and
+    weight it by its router probability: ``(R, P, d)``."""
+    out_tok = out_buf[rows, flat_e, torch.clamp_max(safe_pos, C - 1)]
+    out_tok = torch.where(keep[..., None], out_tok, 0.0)
+    return out_tok * top_p.reshape(keep.shape + (1,)).to(dtype)
+
+
 def moe_apply(x: torch.Tensor, p: Dict, moe: MoEConfig, variant: str,
               fi: Optional[FaultConfig] = None, salt=0, *,
               with_aux: bool = True, lanes: Optional[int] = None):
     """x: (B, S, d) -> ``((B, S, d), aux load-balance loss)``; the loss is
     ``None`` when ``with_aux`` is false (decode, which discards it).
+    Under ``MOE_DISPATCH == "grouped"`` a clean call (``fi`` None) is
+    :func:`moe_apply_grouped`.
 
     With ``lanes=N`` (taken from ``fi.lanes`` when not given) ``x`` is
     ``(N * B, S, d)``, N devices' batches folded lane-major, and each lane
@@ -65,6 +125,8 @@ def moe_apply(x: torch.Tensor, p: Dict, moe: MoEConfig, variant: str,
     C, d)``, so the expert weights are read once a forward.  The aux loss
     is then ``(N,)``, each lane's single-device loss.
     """
+    if MOE_DISPATCH == "grouped" and fi is None:
+        return moe_apply_grouped(x, p, moe, variant, with_aux=with_aux)
     if lanes is None and fi is not None:
         lanes = fi.lanes
     N = lanes or 1
@@ -76,28 +138,16 @@ def moe_apply(x: torch.Tensor, p: Dict, moe: MoEConfig, variant: str,
     C = _capacity(T, moe)
     xf = x.reshape(N * T, d)
 
-    logits = op_linear(xf, p["w_router"].to(x.dtype), "router", fi, salt)
-    probs = torch.softmax(logits.to(torch.float32), dim=-1)
-    # lax.top_k's order: ties (an upset router saturates the softmax to
-    # exact 0s and 1s) go to the lower expert index, which a stable
-    # descending sort gives and torch.topk does not promise
-    top_p, top_e = torch.sort(probs, dim=-1, descending=True, stable=True)
-    top_p, top_e = top_p[:, :K], top_e[:, :K]               # (N*T, K)
-    top_p = top_p / torch.clamp_min(top_p.sum(-1, keepdim=True), 1e-9)
+    probs, top_p, top_e = _route(xf, p, moe, fi, salt)      # (N*T, K)
     aux = None
     if with_aux:
         aux = aux_load_balance_loss(probs.reshape(N, T, E),
                                     top_e.reshape(N, T, K), E)
         aux = aux if lanes else aux[0]
 
-    # position of each (token, slot) in its lane's expert queue; row-major
-    # flattening keeps token order with the slots interleaved
+    # position of each (token, slot) in its lane's expert queue
     flat_e = top_e.reshape(N, T * K)
-    onehot = F.one_hot(flat_e, E).to(torch.int32)           # (N, T*K, E)
-    pos_all = torch.cumsum(onehot, dim=1, dtype=torch.int32) - onehot
-    pos = torch.gather(pos_all, 2, flat_e[..., None])[..., 0]
-    keep = pos < C
-    safe_pos = torch.where(keep, pos, C)                    # C = overflow row
+    keep, safe_pos = _queues(flat_e, E, C)
 
     # scatter into the (N, E, C+1, d) buffer.  Kept pairs have distinct
     # (lane, expert, position) slots, so only the overflow rows see
@@ -110,30 +160,49 @@ def moe_apply(x: torch.Tensor, p: Dict, moe: MoEConfig, variant: str,
     # every lane's rows of one expert side by side: (E, N*C, d)
     buf = buf[:, :, :C].transpose(0, 1).reshape(E, N * C, d)
 
-    # expert FFN: (E, N*C, d) @ (E, d, f), clean as in the reference; a
-    # rank's block of the experts runs its own queues, gathered after
-    def experts(buf, w_up):
-        buf = buf[shrules.span(w_up)]
-        up = torch.bmm(buf, shrules.held(w_up))
-        if variant == "gated":
-            h = F.silu(torch.bmm(buf, shrules.held(p["w_gate"]))) * up
-        else:
-            h = F.gelu(up, approximate="tanh")
-        return torch.bmm(h, shrules.held(p["w_down"]))
-
-    out_buf = shrules.block_product(buf, p["w_up"], experts, {0: 0})
+    # expert FFN: (E, N*C, d) @ (E, d, f), clean as in the reference
+    out_buf = _expert_ffn(buf, p, variant)
     out_buf = out_buf.reshape(E, N, C, d).transpose(0, 1)
 
-    # gather back (a dropped pair reads row C - 1, as jax clamps an
-    # out-of-range gather, and is zeroed) and combine with router weights
-    out_tok = out_buf[lane, flat_e, torch.clamp_max(safe_pos, C - 1)]
-    out_tok = torch.where(keep[..., None], out_tok, 0.0)
-    w = top_p.reshape(N, T * K, 1).to(x.dtype)
-    out = (out_tok * w).reshape(N * T, K, d).sum(dim=1)
+    # gather back and combine with router weights
+    out = _combine(out_buf, lane, flat_e, keep, safe_pos, top_p, C,
+                   x.dtype).reshape(N * T, K, d).sum(dim=1)
 
     if moe.dense_residual:
         out = out + mlp_apply(xf, p["dense"], variant, fi, salt)
     return out.reshape(NB, S, d), aux
+
+
+def moe_apply_grouped(x: torch.Tensor, p: Dict, moe: MoEConfig,
+                      variant: str, *, with_aux: bool = True):
+    """The reference's per-row dispatch (GShard style), clean: x (B, S, d)
+    -> ``((B, S, d), aux)``.  Each batch row has its own capacity
+    ``_capacity(S)``, its own queue positions (a cumsum over its S * K
+    pairs) and its own overflow row; the expert FFNs keep the row axis
+    (one ``bmm`` chain over ``(E, B * C, d)``).  At B = 1 it is the global
+    dispatch.  The aux loss is over all rows, a scalar."""
+    if any(isinstance(p[k], shrules.RankBlock) for k in ("w_up", "w_down")):
+        raise NotImplementedError("the grouped MoE dispatch over a rank "
+                                  "mesh: ROADMAP A.10")
+    B, S, d = x.shape
+    E, K = moe.n_experts, moe.top_k
+    C = _capacity(S, moe)                                   # per row
+    probs, top_p, top_e = _route(x.reshape(B * S, d), p, moe, None, 0)
+    aux = aux_load_balance_loss(probs, top_e, E) if with_aux else None
+
+    flat_e = top_e.reshape(B, S * K)
+    keep, safe_pos = _queues(flat_e, E, C)
+    row = torch.arange(B, device=x.device)[:, None].expand(B, S * K)
+    buf = torch.zeros((B, E, C + 1, d), dtype=x.dtype, device=x.device)
+    buf[row, flat_e, safe_pos] = torch.repeat_interleave(x, K, dim=1)
+    buf = buf[:, :, :C].transpose(0, 1).reshape(E, B * C, d)
+    out_buf = _expert_ffn(buf, p, variant).reshape(E, B, C, d) \
+        .transpose(0, 1)
+    out = _combine(out_buf, row, flat_e, keep, safe_pos, top_p, C,
+                   x.dtype).reshape(B, S, K, d).sum(dim=2)
+    if moe.dense_residual:
+        out = out + mlp_apply(x, p["dense"], variant)
+    return out, aux
 
 
 def aux_load_balance_loss(probs: torch.Tensor, top_e: torch.Tensor,

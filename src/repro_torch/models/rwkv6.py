@@ -11,7 +11,8 @@ clamped to a rate of at most 0.25 a step, and a bonus ``u`` for the
 current token.  Prefill pads the sequence with zeros to a multiple of the
 chunk (128) and runs the chunked linear-attention algorithm: the quadratic
 form with decay masks inside a chunk, the state carried across chunks in
-order.  Decode is the single-step update.  Token-shift mixers use the
+order (:data:`FORCE_SINGLE_CHUNK` makes the whole sequence one chunk).
+Decode is the single-step update.  Token-shift mixers use the
 static interpolation form, as in the reference.  The time-mix matmuls are
 the ``q`` (r), ``k``, ``v``, ``g`` and ``o`` operator domains, the channel
 mix ``up`` and ``down``.
@@ -26,6 +27,9 @@ import torch.nn.functional as F
 from .layers import FaultConfig, _normal, op_linear
 
 DECAY_LORA = 64
+
+# The reference's cost-probe knob: the whole prefill as one chunk.
+FORCE_SINGLE_CHUNK = False
 
 
 def rwkv_time_mix_init(d: int, hd: int, dtype, device, gen) -> Dict:
@@ -92,6 +96,8 @@ def rwkv_time_mix(x, p, hd: int, *, state: Optional[Dict] = None,
     """x: (B, S, d).  state: {"shift": (B, d), "wkv": (B, H, N, N)}."""
     B, S, d = x.shape
     H = d // hd
+    if FORCE_SINGLE_CHUNK:
+        chunk = S
     xp = _token_shift(x, state["shift"] if state is not None
                       else torch.zeros((B, d), dtype=x.dtype,
                                        device=x.device))

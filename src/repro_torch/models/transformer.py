@@ -23,6 +23,13 @@ states come back new.  Under a lane config (N devices'
 BERs, in one pass over the weights (the MoE dispatch keeps each lane's
 capacity and queue positions its own, :mod:`repro_torch.models.moe`).
 The enc-dec family is :mod:`repro_torch.models.encdec`.
+
+An int8 weight tree (:func:`quantize_params`) holds its matrices as
+``{"int8_q", "int8_s"}`` leaves, int8 values with per-output-channel
+float32 scales; each layer is dequantised at the top of the layer loop,
+so a bf16 copy exists only for the layer being computed.  An int8 KV
+cache (``init_cache(quantized=True)``) holds K/V the same way, one scale
+per (token, head).
 """
 from __future__ import annotations
 
@@ -131,6 +138,108 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.bfloat16,
 
 
 # --------------------------------------------------------------------------- #
+# int8 weight trees and KV caches
+# --------------------------------------------------------------------------- #
+def _quantize(x: torch.Tensor, compiled: bool = False) -> Dict:
+    """``x`` -> int8 values and float32 scales over its last axis:
+    ``s = max(amax, 1e-8) / 127``, ``q = clip(round(x / s), -127, 127)``
+    (rounded half to even, as ``jnp.round``).  ``compiled`` takes ``s``
+    as the reference's compiled steps do, where XLA turns the division by
+    the constant 127 into a product with its float32 reciprocal (an ulp
+    apart now and then); its ``quantize_params`` runs op by op and
+    divides."""
+    xf = x.to(torch.float32)
+    amax = torch.clamp_min(xf.abs().amax(dim=-1, keepdim=True), 1e-8)
+    if compiled:
+        s = amax * (torch.ones((), dtype=torch.float32, device=x.device)
+                    / 127.0)
+    else:
+        s = amax / 127.0
+    q = torch.clamp(torch.round(xf / s), -127, 127).to(torch.int8)
+    return {"int8_q": q, "int8_s": s}
+
+
+def is_qleaf(x) -> bool:
+    """An int8 leaf: ``{"int8_q": int8, "int8_s": float32}``."""
+    return isinstance(x, dict) and "int8_q" in x
+
+
+def is_quantized(params) -> bool:
+    """True for a tree from :func:`quantize_params` (its embedding table
+    is always an int8 leaf)."""
+    return is_qleaf(params.get("embed"))
+
+
+def compute_dtype(params):
+    """The dtype a tree serves in: its embedding table's, and bf16 for an
+    int8 tree (whose embedding rows dequantise to bf16)."""
+    emb = params["embed"]
+    return torch.bfloat16 if is_qleaf(emb) else emb.dtype
+
+
+def params_device(params) -> torch.device:
+    """The device a param tree (int8 or not) lives on."""
+    emb = params["embed"]
+    return (emb["int8_q"] if is_qleaf(emb) else emb).device
+
+
+def refuse_quantized(params, what: str) -> None:
+    """Training, the enc-dec family and the mesh engines take no int8
+    tree: the reference fails on them or never gives them one."""
+    if is_quantized(params):
+        raise NotImplementedError(f"{what} takes no int8 weight tree "
+                                  "(quantize_params): ROADMAP A.10")
+
+
+def quantize_params(params: Dict, cfg: ModelConfig) -> Dict:
+    """A param tree -> its int8 tree, leaf for leaf as the reference's
+    ``quantize_params`` quantises its stacked tree: every leaf of two
+    dims or more there.  The reference stacks each layer of a whole
+    period of ``cfg.block_pattern`` under a leading group axis, so a
+    layer leaf that is 1-D on its own (a norm's scale, RG-LRU's ``lam``,
+    RWKV's ``mix`` / ``decay_base``) is quantised there, one scale a
+    layer, while the same leaf of a tail layer (past the last whole
+    period) and the top-level ``final_norm`` are not.  An enc-dec tree's
+    layers are all stacked."""
+    def tree(t, min_ndim):
+        if isinstance(t, dict):
+            return {k: tree(v, min_ndim) for k, v in t.items()}
+        return _quantize(t) if t.dim() >= min_ndim else t
+
+    out = {k: tree(v, 2) for k, v in params.items()
+           if k not in ("layers", "enc_layers", "dec_layers")}
+    if "enc_layers" in params:
+        out["enc_layers"] = [tree(lp, 1) for lp in params["enc_layers"]]
+        out["dec_layers"] = [tree(lp, 1) for lp in params["dec_layers"]]
+        return out
+    n_stacked = cfg.n_layers // len(cfg.block_pattern) \
+        * len(cfg.block_pattern)
+    out["layers"] = [tree(lp, 1 if i < n_stacked else 2)
+                     for i, lp in enumerate(params["layers"])]
+    return out
+
+
+def dequant_tree(tree, dtype=torch.bfloat16):
+    """Every int8 leaf of ``tree`` as ``int8_q.to(dtype) *
+    int8_s.to(dtype)`` (a product in ``dtype``, as the reference's); other
+    leaves pass through."""
+    if is_qleaf(tree):
+        return tree["int8_q"].to(dtype) * tree["int8_s"].to(dtype)
+    if isinstance(tree, dict):
+        return {k: dequant_tree(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [dequant_tree(v, dtype) for v in tree]
+    return tree
+
+
+def quantize_cache_entry(x: torch.Tensor) -> Dict:
+    """K or V ``(B, S, KV, hd)`` -> int8 values and one float32 scale per
+    (token, head), over ``hd``, as the reference's compiled prefill and
+    decode steps quantise them."""
+    return _quantize(x, compiled=True)
+
+
+# --------------------------------------------------------------------------- #
 def _attn_block(x, bp, cfg: ModelConfig, *, positions, prefix_len: int = 0,
                 cache=None, cache_len=None, fi=None, salt=0,
                 with_aux: bool = False):
@@ -152,25 +261,40 @@ def _attn_block(x, bp, cfg: ModelConfig, *, positions, prefix_len: int = 0,
         k = apply_rope(k, positions, cfg.rope_theta)
 
     new_cache = None
+    qcache = cache is not None and is_qleaf(cache["k"])
     if cache is not None and q.shape[1] == 1:
-        # decode: ring-write token cache_len - 1 at its slot, attend
-        kv_len = cache["k"].shape[1]
+        # decode: ring-write token cache_len - 1 at its slot, attend; an
+        # int8 cache takes the quantised entry and is attended dequantised
+        kv_len = (cache["k"]["int8_q"] if qcache else cache["k"]).shape[1]
         idx = (cache_len - 1) % kv_len
         if isinstance(cache_len, torch.Tensor):
             rows = torch.arange(k.shape[0], device=k.device)
-            cache["k"][rows, idx] = k[:, 0]
-            cache["v"][rows, idx] = v[:, 0]
+
+            def write(buf, new):
+                buf[rows, idx] = new[:, 0]
         else:
-            cache["k"][:, idx] = k[:, 0]
-            cache["v"][:, idx] = v[:, 0]
-        out = attn_lib.decode_attention(q, cache["k"], cache["v"],
-                                        cache_len, fi=fi, salt=salt)
+            def write(buf, new):
+                buf[:, idx] = new[:, 0]
+        if qcache:
+            for name, new in (("k", k), ("v", v)):
+                entry = quantize_cache_entry(new)
+                for f in entry:
+                    write(cache[name][f], entry[f])
+            k_at, v_at = (dequant_tree(cache[n], q.dtype) for n in "kv")
+        else:
+            write(cache["k"], k)
+            write(cache["v"], v)
+            k_at, v_at = cache["k"], cache["v"]
+        out = attn_lib.decode_attention(q, k_at, v_at, cache_len, fi=fi,
+                                        salt=salt)
         new_cache = cache
     else:
         out = attn_lib.attention(q, k, v, causal=True, window=cfg.window,
                                  prefix_len=prefix_len, fi=fi, salt=salt)
         if cache is not None:    # prefill: stash K/V
-            kv_len, S = cache["k"].shape[1], k.shape[1]
+            kv_len = (cache["k"]["int8_q"] if qcache
+                      else cache["k"]).shape[1]
+            S = k.shape[1]
             if S >= kv_len:      # keep the last kv_len tokens at t % kv_len
                 kc = torch.roll(k[:, -kv_len:], S % kv_len, dims=1)
                 vc = torch.roll(v[:, -kv_len:], S % kv_len, dims=1)
@@ -178,7 +302,11 @@ def _attn_block(x, bp, cfg: ModelConfig, *, positions, prefix_len: int = 0,
                 pad = (0, 0, 0, 0, 0, kv_len - S)
                 kc = torch.nn.functional.pad(k, pad)
                 vc = torch.nn.functional.pad(v, pad)
-            new_cache = {"k": kc.contiguous(), "v": vc.contiguous()}
+            if qcache:
+                new_cache = {"k": quantize_cache_entry(kc),
+                             "v": quantize_cache_entry(vc)}
+            else:
+                new_cache = {"k": kc.contiguous(), "v": vc.contiguous()}
     x = x + op_einsum("bshk,hkd->bsd", out, ap["wo"], "o", fi, salt)
     h2 = norm(x, bp["norm2"], cfg.norm)
     if cfg.moe:
@@ -237,7 +365,10 @@ def _run_blocks(x, params, cfg: ModelConfig, *, positions, prefix_len=0,
     new_states: Optional[List] = [] if states is not None else None
     aux_total = (torch.zeros((), dtype=torch.float32, device=x.device)
                  if with_aux else None)
+    int8 = is_quantized(params)
     for i, (kind, bp) in enumerate(zip(layer_kinds(cfg), params["layers"])):
+        if int8:         # this layer alone, in the activations' dtype
+            bp = dequant_tree(bp, x.dtype)
         block = _BLOCKS[kind]
         if remat and torch.is_grad_enabled():
             block = functools.partial(checkpoint, block, use_reentrant=False)
@@ -260,8 +391,13 @@ def embed_tokens(params, cfg: ModelConfig, tokens, prefix_embeds=None,
     ``prefix_proj`` (the reference's ``op_linear(..., "embed")`` with no
     fault config).  A rank's block of the table gives whole rows
     (:func:`repro_torch.distributed.sharding.lookup_rows`)."""
-    # a gather; its backward sums rows by sorted index, not by atomics
-    x = shrules.lookup_rows(params["embed"], tokens)
+    emb = params["embed"]
+    if is_qleaf(emb):    # gather int8 rows, dequantise those rows, in bf16
+        x = emb["int8_q"][tokens].to(torch.bfloat16) \
+            * emb["int8_s"][tokens].to(torch.bfloat16)
+    else:
+        # a gather; its backward sums rows by sorted index, not by atomics
+        x = shrules.lookup_rows(emb, tokens)
     if cfg.scale_embeds:
         x = x * torch.full((), cfg.d_model ** 0.5, dtype=x.dtype,
                            device=x.device)
@@ -269,8 +405,8 @@ def embed_tokens(params, cfg: ModelConfig, tokens, prefix_embeds=None,
         if prefix_embeds is None:
             raise ValueError(f"{cfg.name} needs prefix_embeds (B, "
                              f"{cfg.prefix_tokens}, {cfg.d_model})")
-        pe = op_linear(prefix_embeds.to(x.dtype), params["prefix_proj"],
-                       "embed")
+        pe = op_linear(prefix_embeds.to(x.dtype),
+                       dequant_tree(params["prefix_proj"], x.dtype), "embed")
         x = torch.cat([pe, x], dim=1)
     return x
 
@@ -281,10 +417,12 @@ def unembed(params, cfg: ModelConfig, x):
     block_product`)."""
     if cfg.tie_embeddings:
         logits = shrules.block_product(
-            x, params["embed"], lambda x, w: x @ shrules.held(w).T, {0: -1})
+            x, dequant_tree(params["embed"], x.dtype),
+            lambda x, w: x @ shrules.held(w).T, {0: -1})
     else:
         logits = shrules.block_product(
-            x, params["lm_head"], lambda x, w: x @ shrules.held(w), {1: -1})
+            x, dequant_tree(params["lm_head"], x.dtype),
+            lambda x, w: x @ shrules.held(w), {1: -1})
     return logits.to(torch.float32)
 
 
@@ -309,17 +447,28 @@ def forward_logits(params, cfg: ModelConfig, tokens, *, prefix_embeds=None,
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
-               dtype=torch.bfloat16, device="cuda") -> List[Dict]:
+               dtype=torch.bfloat16, device="cuda",
+               quantized: bool = False) -> List[Dict]:
     """Per-layer decode state: ``{"k", "v"}`` of (B, kv_len, KV, hd) for
     attention (``kv_len = min(max_len, window)`` with a window: a ring),
     the RG-LRU's conv tail (``dtype``) and float32 ``h``, RWKV's bf16
-    shifts and float32 WKV state."""
+    shifts and float32 WKV state.  ``quantized=True`` holds each of K and
+    V as an int8 leaf: int8 values and a float32 scale (B, kv_len, KV, 1)
+    per (token, head)."""
     _decoder_only(cfg)
 
     def one(kind):
         if kind == "attn":
             kv_len = min(max_len, cfg.window) if cfg.window else max_len
             shp = (batch, kv_len, cfg.n_kv_heads, cfg.hd)
+            if quantized:
+                z = lambda: {
+                    "int8_q": torch.zeros(shp, dtype=torch.int8,
+                                          device=device),
+                    "int8_s": torch.zeros(shp[:-1] + (1,),
+                                          dtype=torch.float32,
+                                          device=device)}
+                return {"k": z(), "v": z()}
             return {"k": torch.zeros(shp, dtype=dtype, device=device),
                     "v": torch.zeros(shp, dtype=dtype, device=device)}
         if kind == "rec":

@@ -2,10 +2,10 @@
 
 Bit-exact with ``jax.random`` under ``jax_threefry_partitionable=True``
 (the default of the jax the reference runs on): ``PRNGKey``, ``split``,
-``fold_in``, ``bits`` (uint32), ``uniform`` (float32), ``randint``, and
-``gumbel``/``categorical`` up to ``log``'s last bit, and the workload
-samplers ``bernoulli`` and ``poisson`` (bit for bit: their ``log`` and
-``lgamma`` are the reference backend's, :mod:`repro_torch.fmath`).
+``fold_in``, ``bits`` (uint32), ``uniform`` (float32), ``randint``,
+``gumbel``/``categorical`` and the workload samplers ``bernoulli`` and
+``poisson`` (their ``log`` and ``lgamma`` are the reference backend's,
+:mod:`repro_torch.fmath`).
 ``tests/test_torch_random.py`` and ``tests/test_torch_sampling.py`` hold
 every function against jax.
 
@@ -144,9 +144,12 @@ def uniform(key: torch.Tensor, shape=(), minval: float = 0.0,
 
 def gumbel(key: torch.Tensor, shape=(), device="cpu") -> torch.Tensor:
     """``jax.random.gumbel(key, shape, float32)`` in its default ``low``
-    mode: ``-log(-log(u))`` of a uniform on ``[tiny, 1)``.  ``log`` may
-    differ from XLA's by an ulp."""
-    return -torch.log(-torch.log(uniform(key, shape, _TINY, 1.0, device)))
+    mode: ``-log(-log(u))`` of a uniform on ``[tiny, 1)``, bit for bit:
+    both logs are the reference backend's (:func:`repro_torch.fmath.log`,
+    plain float arithmetic), where a library ``log`` differs by an ulp and
+    its result depends on the vector code path it takes."""
+    u = uniform(key, shape, _TINY, 1.0, device)
+    return -fmath.log(-fmath.log(u))
 
 
 def categorical(key: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:

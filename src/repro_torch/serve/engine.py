@@ -114,10 +114,7 @@ class ServeEngine:
         must already live on ``device`` (``init_params(device=...)`` or
         :func:`repro_torch.convert.params_from_reference`)."""
         tf.check_supported(cfg)
-        self.device = resolve_device(device)
-        if params["embed"].device.type != self.device.type:
-            raise ValueError(f"params live on {params['embed'].device}, the "
-                             f"engine on {self.device}")
+        self.device = _check_params(cfg, params, device)
         self.cfg = cfg
         self.params = params
         if isinstance(runtime, FleetRuntime):
@@ -216,6 +213,19 @@ class ServeEngine:
         return float(softmax_xent(logits, tokens[:, 1:]))
 
 
+def _check_params(cfg: ModelConfig, params, device) -> torch.device:
+    """The engine's device, which the params must live on; an int8 tree
+    (:func:`repro_torch.models.transformer.quantize_params`) serves every
+    decoder family, and the enc-dec family refuses it."""
+    device = resolve_device(device)
+    if cfg.n_encoder_layers:
+        tf.refuse_quantized(params, "the enc-dec family")
+    on = tf.params_device(params)
+    if on.type != device.type:
+        raise ValueError(f"params live on {on}, the engine on {device}")
+    return device
+
+
 def _extras(cfg: ModelConfig, prefix_embeds, frames, device) -> Dict:
     """``{"frames": ...}`` for an enc-dec model, ``{"prefix_embeds":
     ...}`` for a prefix model (float32 tensors on ``device``), ``{}``
@@ -281,10 +291,7 @@ class FleetServeEngine:
         must already live on ``device``."""
         refuse_sharded_fleet(fleet, "FleetServeEngine")
         tf.check_supported(cfg)
-        self.device = resolve_device(device)
-        if params["embed"].device.type != self.device.type:
-            raise ValueError(f"params live on {params['embed'].device}, the "
-                             f"engine on {self.device}")
+        self.device = _check_params(cfg, params, device)
         self.cfg = cfg
         self.params = params
         self.fleet = fleet

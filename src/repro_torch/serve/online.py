@@ -48,13 +48,13 @@ import torch
 from .. import random as prandom
 from ..configs import ModelConfig
 from ..core.fleet import FleetRuntime
-from ..device import resolve_device
 from ..models import transformer as tf
 from ..models.layers import FaultConfig
 from ..obs import metrics as obs_metrics
 from ..obs.taps import taps_enabled, telemetry_to_host
 from . import slots as slots_mod
-from .engine import ServeEngine, _ServedShapes, refuse_sharded_fleet
+from .engine import (ServeEngine, _check_params, _ServedShapes,
+                     refuse_sharded_fleet)
 from .slots import EMPTY, SlotState, init_slots
 
 
@@ -440,11 +440,7 @@ class _Loop:
 def _check_engine(cfg: ModelConfig, params, device):
     tf.check_supported(cfg)
     slots_mod.check_family(cfg)
-    device = resolve_device(device)
-    if params["embed"].device.type != device.type:
-        raise ValueError(f"params live on {params['embed'].device}, the "
-                         f"engine on {device}")
-    return device
+    return _check_params(cfg, params, device)
 
 
 # --------------------------------------------------------------------------- #
@@ -514,7 +510,7 @@ class OnlineServeEngine:
         ONLINE_PREFILL(self.cfg, self.max_len, top_k)
         ONLINE_CHUNK(self.cfg, self.chunk_steps, top_k)
         loop.slots = init_slots(self.cfg, K, self.max_len, self.max_new_cap,
-                                call_key, dtype=self.params["embed"].dtype,
+                                call_key, dtype=tf.compute_dtype(self.params),
                                 device=self.device)
         wall0 = time.perf_counter()
         while loop.pending or len(loop.queue) or loop.live:
@@ -648,7 +644,7 @@ class OnlineFleetEngine:
         ONLINE_FLEET_CHUNK(self.cfg, self.chunk_steps, top_k)
         loop.slots = init_slots(self.cfg, N * K, self.max_len,
                                 self.max_new_cap, prandom.split(call_key, N),
-                                dtype=self.params["embed"].dtype,
+                                dtype=tf.compute_dtype(self.params),
                                 device=self.device)
         util_prev = np.zeros((N,), np.float64)        # measured, fed back
         wear = self._wear()

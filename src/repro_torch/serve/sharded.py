@@ -138,6 +138,7 @@ class MeshServeEngine:
         replicas of a one-process mesh serve the same prompts on the one
         device, so one computation gives them all."""
         tf.check_supported(cfg)
+        tf.refuse_quantized(params, "mesh serving")
         self.device = resolve_device(device)
         self.cfg = cfg
         if mesh is None:

@@ -36,9 +36,9 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor,
     and for an enc-dec model also the cross-attention K/V
     (:func:`repro_torch.models.encdec.cross_kv`) the decode steps reuse.
     The cache is in the params' dtype (the enc-dec cache is written slot
-    by slot)."""
+    by slot), bf16 for an int8 tree."""
     B, S = tokens.shape
-    dtype = params["embed"].dtype
+    dtype = tf.compute_dtype(params)
     if cfg.n_encoder_layers:
         if frames is None:
             raise ValueError(f"{cfg.name} needs frames (B, "

@@ -75,6 +75,7 @@ def make_loss_fn(cfg: ModelConfig, *, remat: bool = False,
     tf.check_supported(cfg)
 
     def loss_fn(params, batch):
+        tf.refuse_quantized(params, "training")
         name = family.extra_name(cfg)
         extra = {name: batch[name]} if name else {}
         logits, aux = family.text_logits(params, cfg, batch["tokens"],
@@ -102,6 +103,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, *,
 
     def train_step(state: TrainState, batch):
         params = state.params
+        tf.refuse_quantized(params, "training")
         ps = leaves(params)
         batch = _to_device(batch, ps[0].device)
         B = batch["tokens"].shape[0]
@@ -201,6 +203,7 @@ def make_dp_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, mesh, *,
             raise ValueError("a compressed step needs residuals "
                              "(dp_residuals_init)")
         params = state.params
+        tf.refuse_quantized(params, "training")
         ps = leaves(params)
         batch = _to_device(batch, ps[0].device)
         B = batch["tokens"].shape[0]

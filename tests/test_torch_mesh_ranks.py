@@ -1,18 +1,20 @@
 """``MeshServeEngine`` over the ranks of a gloo group on the CPU: reduced
 llama3_8b and deepseek_7b at tp = 4 over 4 ranks (every weight the serve
-layout shards cut into 4 column blocks, one a rank), greedy and sampled,
-the fused and the plain route, each rank's tokens equal to the
-reference's one-device mesh oracle (tests/test_torch_mesh_common.py) and
-to the port's one-device engine; a ``(2, 2)`` mesh whose two replicas
-agree; the clean and ``runtime=`` routes; the bytes each rank holds, its
-all-gathers, ``init_mesh_params``' blocks; and the serving helpers of
-``repro_torch.distributed.sharding`` in one process.  tp = 3 over 3 ranks
-is tests/test_torch_mesh_ranks_tp3.py, qwen3_moe_235b and whisper
+layout shards cut into 4 column blocks, one a rank) and at tp = 3 over 3
+ranks (3 divides none of the reduced widths, so every leaf replicates and
+every product runs whole on every rank with all three shards' streams),
+greedy and sampled, the fused and the plain route, each rank's tokens
+equal to the reference's one-device mesh oracle
+(tests/test_torch_mesh_common.py) and to the port's one-device engine; a
+``(2, 2)`` mesh whose two replicas agree; the clean and ``runtime=``
+routes; the bytes each rank holds, its all-gathers, ``init_mesh_params``'
+blocks; and the serving helpers of ``repro_torch.distributed.sharding``
+in one process.  qwen3_moe_235b and whisper are
 tests/test_torch_mesh_ranks_families.py.
 
-The ranks are spawned once (beside the reference's oracle, which runs
-here); their function is ``tests/torch_dist_ranks.py::mesh_serve_rank``,
-which imports no jax.
+The 4 and the 3 ranks are spawned once each, side by side, beside the
+reference's oracles of both worlds, which run here; their function is
+``tests/torch_dist_ranks.py::mesh_serve_rank``, which imports no jax.
 """
 import numpy as np
 import pytest
@@ -73,20 +75,23 @@ def one_device(cfg, params, run) -> np.ndarray:
     return eng.generate(run["prompts"], run["n"], **run.get("kw", {})).tokens
 
 
-def serve_world(world: int):
-    """The ranks' results of ``world`` ranks on both archs (with
+def serve_worlds(worlds=(4, 3)):
+    """The ranks' results of each world's ranks on both archs (with
     ``init_mesh_params`` at tp = world), beside the oracle's tokens and
-    the one-device engine's, by arch."""
+    the one-device engine's, by arch: ``{world: (models, jobs, out,
+    want)}``.  Every world's ranks run at once, while the oracles run
+    here."""
     models = {arch: model(arch) for arch in ARCHS}
-    jobs = {arch: {"params": {k: v.numpy() for k, v in flatten(
-        m[3]).items()}, "runs": runs_of(m[1].vocab, world),
+    jobs = {w: {arch: {"params": {k: v.numpy() for k, v in flatten(
+        m[3]).items()}, "runs": runs_of(m[1].vocab, w),
         "build_seed": BUILD_SEED} for arch, m in models.items()}
+        for w in worlds}
 
-    def oracle():
+    def oracle(world):
         want = {}
         for arch, (jcfg, cfg, jp, params) in models.items():
             jf, _ = shard_fleets(world)
-            runs = jobs[arch]["runs"]
+            runs = jobs[world][arch]["runs"]
             want[arch, "greedy"] = oracle_tokens(
                 jcfg, jp, jf, runs[0]["prompts"], 4, **GREEDY)
             want[arch, "sampled"] = oracle_tokens(
@@ -95,14 +100,28 @@ def serve_world(world: int):
                                         for r in runs]
         return want
 
-    out, want = ranks_beside(ranks.mesh_serve_rank, world, jobs,
-                             beside=oracle)
-    return models, jobs, out, want
+    def spawned(rest):
+        """The ranks of ``rest[0]`` in a thread beside the rest's, and
+        the oracles once every world is spawned."""
+        if not rest:
+            return {}, {w: oracle(w) for w in worlds}
+        out, (outs, wants) = ranks_beside(
+            ranks.mesh_serve_rank, rest[0], jobs[rest[0]],
+            beside=lambda: spawned(rest[1:]))
+        return {rest[0]: out, **outs}, wants
+
+    outs, wants = spawned(list(worlds))
+    return {w: (models, jobs[w], outs[w], wants[w]) for w in worlds}
 
 
 @pytest.fixture(scope="module")
-def served():
-    return serve_world(WORLD)
+def worlds():
+    return serve_worlds()
+
+
+@pytest.fixture
+def served(worlds):
+    return worlds[WORLD]
 
 
 def check_tokens(served, arch, mode):
@@ -178,10 +197,20 @@ def check_built_blocks(served):
             np.testing.assert_array_equal(got, t.numpy(), err_msg=path)
 
 
+@pytest.mark.parametrize("world", [4, 3])
 @pytest.mark.parametrize("mode", ["greedy", "sampled"])
 @pytest.mark.parametrize("arch", ARCHS)
-def test_rank_tokens_match_reference(served, arch, mode):
-    check_tokens(served, arch, mode)
+def test_rank_tokens_match_reference(worlds, arch, mode, world):
+    check_tokens(worlds[world], arch, mode)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_each_rank_holds_the_whole_tree_at_tp3(worlds, arch):
+    served = worlds[3]
+    one, whole = check_held_bytes(served, arch)
+    assert all(sp == () for sp in one.values())
+    assert served[2][0][arch]["runs"][0]["held_bytes"] == whole
+    assert served[2][0][arch]["runs"][0]["gathers"]["calls"] == 0
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -241,8 +270,9 @@ def test_gathers_a_forward(served, arch):
         assert g["bytes"] > 0 and g["staged_bytes"] == 0
 
 
-def test_init_mesh_params_blocks_concatenate(served):
-    check_built_blocks(served)
+@pytest.mark.parametrize("world", [4, 3])
+def test_init_mesh_params_blocks_concatenate(worlds, world):
+    check_built_blocks(worlds[world])
 
 
 class _FakeMesh:
