@@ -102,8 +102,8 @@ Phases (any failure exits non-zero):
    params and AdamW moments, ``make_train_step(microbatches=2,
    remat=True)`` under ``TrainLoop`` for 6 steps of B=4, S=256
    ``SyntheticLM`` batches (the loss must fall, the peak stay under
-   76 GB), ms a step, tokens/s and the device busy share of one profiled
-   step; the trained params scored by ``ServeEngine.score`` on a fresh
+   76 GB; the first 2 steps' metrics and params kept for [19]), ms a
+   step, tokens/s and the device busy share of one profiled step; the trained params scored by ``ServeEngine.score`` on a fresh
    device and one aged 9 years on the fused GEMM and the draw bitflip
    (launches counted), the first layer's 7 GEMM and 2 draw launches of
    each score held bit for bit against their plain versions on the same
@@ -257,9 +257,23 @@ Phases (any failure exits non-zero):
    ``INT8_MOE_LAYERS`` deep, under ``MOE_DISPATCH = "grouped"`` and
    ``"global"``: bit-equal logits (at B = 1 the per-row capacity is the
    global one);
+19. tensor-parallel training over ranks (cell 19): [10]'s cell
+   (llama3_8b at its published widths, 8 of 32 layers, float32 AdamW,
+   B=4, S=256, 2 microbatches, remat) over 4 gloo ranks sharing the card
+   at tp = 4, each rank drawing only its blocks of the train layout
+   (``init_train_state(mesh=)``), 2 steps of ``make_train_step(mesh=)``
+   from [10]'s seed and batches, held against [10]'s own first 2 steps on
+   one device (kept by [10], never run at once): losses and clip norms
+   within the CPU tests' tolerances and the same on every rank, the
+   leaves held whole bit-equal across ranks, the params gathered back to
+   whole (``gather_tree``) through
+   ``tests/torch_dist_ranks.py::hold``; each rank's held and peak GB, ms
+   a step, the collectives a step by kind (calls, bytes, bytes staged
+   through host memory: gloo moves no CUDA tensor); the path runs no TPU
+   kernel (training is clean) and its launches, 0, are counted;
 11. a ``{"kernels": [...]}`` line (launches summed over the runs of [4],
    [5], [6], [6b], [7], [8], [10], [10b], [12], [13], [14], [15], [16],
-   [17] and [18]), the
+   [17], [18] and [19]), the
    ``nvidia-smi`` line, and as the last line ``{"ok": true, "device":
    {...}}``.
 
@@ -1977,6 +1991,7 @@ def paper_tables_phase(dev) -> dict:
 
 # [10]'s training cell: llama3_8b at its published widths, 8 of 32 layers
 TRAIN_LAYERS = 8
+TRAIN_LR = 1e-3                  # [10]'s AdamW lr
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 256, 6
 TRAIN_PEAK_LIMIT = 76e9        # bytes: params, grads and moments ~45 GB
 # card against CPU on reduced llama3_8b: the CPU parity tests' tolerances
@@ -2000,10 +2015,31 @@ def _state_diff(a, b) -> float:
                      .max()) for k in fa)
 
 
+class _FirstSteps:
+    """Stands in for a train step: calls it, keeps the metrics of its
+    first ``n`` calls and, after the ``n``-th, a host copy of the params
+    by path ([19]'s yardstick: the single-device run it is held to)."""
+
+    def __init__(self, step, n: int):
+        self.step, self.n, self.metrics, self.params = step, n, [], None
+
+    def __call__(self, state, batch):
+        from repro_torch.tree import flatten
+        state, m = self.step(state, batch)
+        if len(self.metrics) < self.n:
+            self.metrics.append({k: float(v) for k, v in m.items()})
+            if len(self.metrics) == self.n:
+                self.params = {k: v.detach().to("cpu", copy=True) for k, v in
+                               flatten(state.params).items()}
+        return state, m
+
+
 def train_full_width(dev, cfg) -> tuple:
     """``TrainLoop`` over ``make_train_step(microbatches=2, remat=True)`` on
     llama3_8b at full width, ``TRAIN_LAYERS`` layers, float32 AdamW; one
-    more step under ``torch.profiler`` for the device busy share."""
+    more step under ``torch.profiler`` for the device busy share.  The
+    metrics of the first ``TP_TRAIN_STEPS`` steps and the params after
+    them are kept for [19] (``KEPT["train_first_steps"]``)."""
     import numpy as np
     import torch
     from torch.autograd import DeviceType
@@ -2016,7 +2052,8 @@ def train_full_width(dev, cfg) -> tuple:
     cfg8 = dataclasses.replace(cfg, n_layers=TRAIN_LAYERS)
     data = SyntheticLM(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
                        global_batch=TRAIN_BATCH)
-    opt = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=TRAIN_STEPS + 1)
+    opt = AdamWConfig(lr=TRAIN_LR, warmup_steps=2,
+                      total_steps=TRAIN_STEPS + 1)
     step = make_train_step(cfg8, opt, microbatches=2, remat=True)
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
@@ -2025,9 +2062,11 @@ def train_full_width(dev, cfg) -> tuple:
     init_s = time.perf_counter() - t0
     n_params = sum(t.numel() for t in leaves(state.params))
     logs = []
-    loop = TrainLoop(step, data, log_fn=logs.append,
+    first = _FirstSteps(step, TP_TRAIN_STEPS)
+    loop = TrainLoop(first, data, log_fn=logs.append,
                      cfg=LoopConfig(total_steps=TRAIN_STEPS, log_every=1))
     state = loop.run(lambda: state)
+    KEPT["train_first_steps"] = first
     peak = torch.cuda.max_memory_allocated(dev)
     losses = [h["loss"] for h in loop.history]
     times = [h["time"] for h in loop.history]
@@ -5540,6 +5579,205 @@ def print_int8(res: dict, smi_line: str) -> None:
           + ")", flush=True)
 
 
+# [19] tensor-parallel training over ranks at llama3_8b's full width
+# --------------------------------------------------------------------------- #
+TP_TRAIN_TP = 4                  # cell 19: gloo ranks sharing cuda:0
+TP_TRAIN_STEPS = 2               # steps from [10]'s seed and batches
+TP_TRAIN_TIMEOUT = 300           # seconds the spawned ranks may take
+TP_TRAIN_PEAK_LIMIT = 19e9       # bytes a rank: 4 ranks within 76 GB
+# the CPU tests' tolerances (tests/test_torch_tp_train.py): the loss and
+# the clip norm of each step, relative; the params after the steps within
+# TP_PARAM_ATOL but for FLIP_SHARE of them, each of those within two steps
+# of [10]'s lr (a near-zero gradient whose sign the reordered sums flip)
+TP_LOSS_RTOL, TP_NORM_RTOL = 2e-6, 1e-5
+TP_PARAM_ATOL = 2e-4
+TP_FLIP_ATOL = TP_TRAIN_STEPS * TRAIN_LR
+
+
+def _tp_train_rank(mesh, layers: int) -> dict:
+    """One gloo rank of [19]: llama3_8b at its published widths and
+    ``layers`` on the ``(1, TP_TRAIN_TP)`` mesh of the group
+    (``make_local_mesh``), this rank's blocks of [10]'s float32 state
+    drawn leaf by leaf (``init_train_state(mesh=)``, [10]'s seed 0), and
+    ``TP_TRAIN_STEPS`` steps of ``make_train_step(mesh=, microbatches=2,
+    remat=True)`` on [10]'s batches.  Per step the metrics, the host-clock
+    seconds and the collectives by kind; the bytes held, the peak, the
+    kernel launches (none: training is clean), the leaves held whole, and
+    on shard 0 the params gathered back to whole on the host
+    (``gather_tree``)."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.distributed import collectives as col
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.serve.sharded import held_bytes
+    from repro_torch.train import steps as st
+    from repro_torch.tree import flatten
+    t_enter = time.time()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.init()            # the memory statistics need the allocator
+    dev = mesh.device
+    cfg8 = dataclasses.replace(get_config("llama3_8b"), n_layers=layers)
+    m = make_local_mesh(TP_TRAIN_TP, device=dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    state = st.init_train_state(cfg8, 0, device=dev, mesh=m)
+    torch.cuda.synchronize(dev)
+    rec = {"rank": mesh.rank, "shard": m.shard, "shape": m.shape,
+           "t_enter": t_enter, "build_s": time.perf_counter() - t0,
+           "held_gb": sum(held_bytes(t) for t in (
+               state.params, state.opt.mu, state.opt.nu)) / 1e9,
+           "metrics": [], "step_s": [], "collectives": []}
+    data = SyntheticLM(vocab=cfg8.vocab, seq_len=TRAIN_SEQ,
+                       global_batch=TRAIN_BATCH)
+    step = st.make_train_step(cfg8, AdamWConfig(
+        lr=TRAIN_LR, warmup_steps=2, total_steps=TRAIN_STEPS + 1), mesh=m,
+        microbatches=2, remat=True)
+    kernels.reset_launch_counts()
+    for i in range(TP_TRAIN_STEPS):
+        tb = data.batch_at(i)
+        col.reset_collective_counts()
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        state, mets = step(state, {"tokens": tb.tokens, "labels": tb.labels})
+        rec["metrics"].append({k: float(v) for k, v in mets.items()})
+        rec["step_s"].append(time.perf_counter() - t0)
+        rec["collectives"].append(col.collective_counts())
+    rec["launches"] = kernels.launch_counts()
+    rec["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    rec["replicated"] = {k: v.cpu() for k, v in flatten(state.params).items()
+                         if isinstance(v, torch.Tensor)}
+    params = state.params
+    del state, mets
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    whole = st.gather_tree(params, m)
+    rec["gather_s"] = time.perf_counter() - t0
+    rec["params"] = flatten(whole) if m.shard == 0 else None
+    rec["t_exit"] = time.time()
+    return rec
+
+
+def tp_train_phase(dev, train_res: dict) -> dict:
+    """[19] cell 19: [10]'s cell (llama3_8b at its published widths,
+    ``TRAIN_LAYERS`` layers, float32 AdamW, B = 4, S = 256, 2 microbatches,
+    remat) over ``TP_TRAIN_TP`` gloo ranks sharing the card at tp =
+    ``TP_TRAIN_TP``, ``TP_TRAIN_STEPS`` steps from [10]'s seed and
+    batches, held against [10]'s own single-device run of those steps
+    (kept by ``_FirstSteps``; the two never run at once): the losses and
+    clip norms within the CPU tests' tolerances, the same on every rank,
+    the leaves held whole bit-equal across ranks, and the params gathered
+    back to whole passing ``tests/torch_dist_ranks.py::hold``."""
+    import torch
+    sys.path.insert(0, str(ROOT / "tests"))
+    from torch_dist_ranks import FLIP_SHARE, hold
+    from repro_torch import kernels
+    from repro_torch.launch.mesh import run_local_ranks
+    t_phase = time.perf_counter()
+    want = KEPT.pop("train_first_steps")
+    torch.cuda.empty_cache()
+    spawned = time.time()
+    recs = run_local_ranks(_tp_train_rank, TP_TRAIN_TP, TRAIN_LAYERS,
+                           backend="gloo", device=str(dev),
+                           timeout=TP_TRAIN_TIMEOUT)
+    ranks_s = time.perf_counter() - t_phase
+    res = {"layers": TRAIN_LAYERS, "tp": TP_TRAIN_TP,
+           "steps": TP_TRAIN_STEPS, "train_peak_gb": train_res["peak_gb"],
+           "train_step_ms": train_res["step_ms_median_last4"],
+           "want_metrics": want.metrics, "ranks_s": ranks_s,
+           "spawn_s": {"to_enter": max(r["t_enter"] for r in recs)
+                       - spawned,
+                       "run": max(r["t_exit"] - r["t_enter"] for r in recs)}}
+    res["launches"] = dict.fromkeys(kernels.KERNEL_NAMES, 0)
+    for r, rec in enumerate(recs):
+        check(rec["shard"] == r and rec["shape"] == {
+            "data": 1, "model": TP_TRAIN_TP},
+            f"[19] rank {r}: shard {rec['shard']} of {rec['shape']}")
+        check(rec["peak_gb"] * 1e9 < TP_TRAIN_PEAK_LIMIT,
+              f"[19] rank {r}: peak {rec['peak_gb']:.2f} GB")
+        check(rec["metrics"] == recs[0]["metrics"],
+              f"[19] rank {r}'s metrics {rec['metrics']} differ from rank "
+              f"0's {recs[0]['metrics']}")
+        for k, v in rec["launches"].items():
+            res["launches"][k] += v
+        first = recs[0]["replicated"]
+        check(sorted(rec["replicated"]) == sorted(first) and all(
+            torch.equal(v, first[k]) for k, v in rec["replicated"].items()),
+            f"[19] rank {r}: a leaf held whole differs from rank 0's")
+    for i, (g, w) in enumerate(zip(recs[0]["metrics"], want.metrics)):
+        for k, tol in (("loss", TP_LOSS_RTOL), ("xent", TP_LOSS_RTOL),
+                       ("grad_norm", TP_NORM_RTOL)):
+            rel = abs(g[k] - w[k]) / abs(w[k])
+            res.setdefault("metric_rel", {}).setdefault(k, []).append(rel)
+            check(rel <= tol, f"[19] step {i + 1} {k}: {g[k]!r} over ranks "
+                  f"against [10]'s {w[k]!r} ({rel:.3g} relative)")
+    t0 = time.perf_counter()
+    stats = {}
+    # both on the card, where hold takes its float64 differences (the
+    # ranks have ended: the card is free)
+    on_card = lambda tree: {k: v.to(dev) for k, v in tree.items()}
+    try:
+        past = hold(on_card(recs[0]["params"]), on_card(want.params),
+                    TP_PARAM_ATOL, TP_FLIP_ATOL, "[19] params", stats)
+    except AssertionError as e:
+        raise PhaseError(f"[19] the params gathered back miss [10]'s: {e}")
+    res["hold"] = dict(stats, past_atol=past,
+                       share_past_atol=past / stats["elements"],
+                       flip_share=FLIP_SHARE, atol=TP_PARAM_ATOL,
+                       flip_atol=TP_FLIP_ATOL,
+                       seconds=time.perf_counter() - t0)
+    del want
+    torch.cuda.empty_cache()
+    res["per_rank"] = [{k: rec[k] for k in (
+        "rank", "held_gb", "peak_gb", "build_s", "step_s", "gather_s",
+        "collectives")} for rec in recs]
+    res["metrics"] = recs[0]["metrics"]
+    res["seconds"] = time.perf_counter() - t_phase
+    return res
+
+
+def print_tp_train(res: dict, smi_line: str) -> None:
+    h = res["hold"]
+    print(f"[19] llama3_8b full width ({res['layers']} of 32 layers), float32"
+          f" AdamW, B={TRAIN_BATCH} S={TRAIN_SEQ}, 2 microbatches, remat, "
+          f"over {res['tp']} gloo ranks sharing the card at tp = "
+          f"{res['tp']} ({smi_line}): {res['steps']} steps == [10]'s on "
+          f"one device: losses "
+          + ", ".join(f"{m['loss']:.6f}" for m in res["metrics"])
+          + " ([10]: " + ", ".join(f"{m['loss']:.6f}"
+                                  for m in res["want_metrics"])
+          + "), clip norms " + ", ".join(f"{m['grad_norm']:.6f}"
+                                         for m in res["metrics"])
+          + " ([10]: " + ", ".join(f"{m['grad_norm']:.6f}"
+                                  for m in res["want_metrics"])
+          + f"); params after step {res['steps']}: largest |diff| "
+          f"{h['max_abs_diff']:.3g}, {h['past_atol']} of {h['elements']} "
+          f"elements ({h['share_past_atol']:.3g}, FLIP_SHARE "
+          f"{h['flip_share']:g}) past {h['atol']:g}; leaves held whole "
+          f"bit-equal across ranks", flush=True)
+    for x in res["per_rank"]:
+        print(f"    rank {x['rank']}: holds {x['held_gb']:.2f} GB (params + "
+              f"moments), peak {x['peak_gb']:.2f} GB against [10]'s "
+              f"{res['train_peak_gb']:.2f} GB on one device; steps "
+              + ", ".join(f"{t * 1e3:.0f}" for t in x["step_s"])
+              + f" ms ([10]: {res['train_step_ms']:.1f} ms); drawn in "
+              f"{x['build_s']:.1f} s, gathered back in {x['gather_s']:.1f} s",
+              flush=True)
+    for i, counts in enumerate(res["per_rank"][0]["collectives"]):
+        print(f"    rank 0 step {i + 1} collectives (calls, MB moved, MB "
+              f"staged through host memory): " + "; ".join(
+                  f"{k} {v['calls']}, {v['bytes'] / 1e6:.1f}, "
+                  f"{v['staged_bytes'] / 1e6:.1f}"
+                  for k, v in counts.items()), flush=True)
+    print(f"    [19] done in {res['seconds']:.1f} s (the ranks "
+          f"{res['ranks_s']:.1f} s: the gloo spawn's start "
+          f"{res['spawn_s']['to_enter']:.1f} s, rank function "
+          f"{res['spawn_s']['run']:.1f} s; hold {h['seconds']:.1f} s)",
+          flush=True)
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--layers", type=int, default=32,
@@ -5912,6 +6150,12 @@ def main(argv=None) -> int:
     int8_counts = report["int8"]["launches"]
     stamp("18")
 
+    # 19. tensor-parallel training over ranks (cell 19) ---------------------
+    report["tp_train"] = tp_train_phase(dev, report["train"])
+    print_tp_train(report["tp_train"], smi_line)
+    tp_train_counts = report["tp_train"]["launches"]
+    stamp("19")
+
     # 11. summary ---------------------------------------------------------
     # launches summed over the ten paths' runs, each counted from 0; the
     # explicit-randoms bitflip_words is on no path any more: it stays the
@@ -5923,7 +6167,7 @@ def main(argv=None) -> int:
                 + resilience_counts[name] + family_counts[name]
                 + entry_counts[name] + online_counts[name]
                 + mesh_counts[name] + dp_counts[name] + rank_counts[name]
-                + int8_counts[name]
+                + int8_counts[name] + tp_train_counts[name]
                 for name in kernels.KERNEL_NAMES}
     # the representative shape of each kernel: the decode weight matmul
     # that dominates the fused route (gate/up, M = 2; 4 x 2 in lane mode),

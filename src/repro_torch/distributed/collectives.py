@@ -31,6 +31,19 @@ through it, a group of one rank included.
 Mesh serving over ranks (the serve layout's all-gathers, where the
 reference lets GSPMD gather the output blocks it pins replicated) uses
 :func:`all_gather_cat`: pure data movement, counted per call.
+
+Tensor-parallel training over ranks (the train layout's blocks, where
+the reference lets GSPMD insert the collectives and differentiate
+through them) uses three collectives that autograd differentiates
+through, each over the model group of a rank's data replica:
+:func:`copy_to_model` (the identity forward, the all-reduce of the
+gradient backward: the input of every product with a block),
+:func:`reduce_from_model` (the all-reduce of partial sums forward, the
+identity backward: the output of a product that contracts a block) and
+:func:`gather_from_model` (:func:`all_gather_cat` forward, this rank's
+slice of the gradient backward: the output of a column block).  Every
+all-gather and all-reduce of these and of the train step is counted by
+kind (:func:`collective_counts`).
 """
 from __future__ import annotations
 
@@ -217,16 +230,24 @@ def tree_psum_compressed(grads, residuals, group, *, period: int = 1,
 
 @torch.no_grad()
 def tree_psum(grads, group):
-    """The uncompressed mean over ``group`` (one ``all_reduce`` a leaf, in
-    the leaf's dtype): the baseline the compressed mean is held to."""
+    """The uncompressed mean over ``group``: one :func:`all_reduce_sum` a
+    leaf ("grad_mean"), in the leaf's dtype; a rank block's mean is a
+    block of the same part (the ranks of ``group`` hold the same block).
+    The baseline the compressed mean is held to, and the data-group mean
+    of :func:`repro_torch.train.steps.make_train_step`."""
     n = float(dist.get_world_size(group))
 
     def mean(g):
-        s = g.clone()
-        dist.all_reduce(s, op=dist.ReduceOp.SUM, group=group)
-        return true_div(s, n)
+        return true_div(all_reduce_sum(g, group, "grad_mean"), n)
 
-    return tree_map(mean, grads)
+    return tree_map(lambda g: mean(g) if isinstance(g, torch.Tensor)
+                    else g.map(mean), grads)
+
+
+def _staged(x: torch.Tensor, group) -> bool:
+    """Gloo moves no CUDA tensor here: such a tensor goes through host
+    memory (NCCL works on the card)."""
+    return x.device.type != "cpu" and dist.get_backend(group) == "gloo"
 
 
 def all_gather_cat(x: torch.Tensor, dim: int, group) -> torch.Tensor:
@@ -237,12 +258,12 @@ def all_gather_cat(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     Gloo gathers no CUDA tensor, so under gloo a CUDA ``x`` is staged
     through host memory: copied to the host, gathered there, and the
     whole copied back to ``x``'s device.  NCCL gathers on the card.  Each
-    call adds one to ``all_gather_cat.calls``, the gathered tensor's bytes
-    to ``.bytes`` and, when staged, the bytes of both host copies to
-    ``.staged_bytes`` (:func:`gather_counts`)."""
+    call adds one call, the gathered tensor's bytes and, when staged, the
+    bytes of both host copies to the "gather" counts
+    (:func:`collective_counts`)."""
     n = dist.get_world_size(group)
     src = x.contiguous()
-    staged = src.device.type != "cpu" and dist.get_backend(group) == "gloo"
+    staged = _staged(src, group)
     if staged:
         src = src.cpu()
     parts = [torch.empty_like(src) for _ in range(n)]
@@ -251,22 +272,131 @@ def all_gather_cat(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     nbytes = out.numel() * out.element_size()
     if staged:
         out = out.to(x.device)
-        all_gather_cat.staged_bytes += nbytes + nbytes // n
-    all_gather_cat.calls += 1
-    all_gather_cat.bytes += nbytes
+    _count("gather", nbytes, nbytes + nbytes // n if staged else 0)
     return out
 
 
-def gather_counts() -> dict:
-    """:func:`all_gather_cat`'s calls, bytes gathered and bytes staged
-    through host memory since :func:`reset_gather_counts`."""
-    return {"calls": all_gather_cat.calls, "bytes": all_gather_cat.bytes,
-            "staged_bytes": all_gather_cat.staged_bytes}
+def gather_cat(x: torch.Tensor, dim: int, group) -> Optional[torch.Tensor]:
+    """Every rank's ``x`` of ``group`` concatenated along ``dim`` in rank
+    order, on the host of the group's rank 0 only (a gather, not an
+    all-gather); ``None`` on the others.  Staged and counted as
+    :func:`all_gather_cat` ("gather")."""
+    n, mine = dist.get_world_size(group), dist.get_rank(group) == 0
+    src = x.detach().contiguous()
+    staged = _staged(src, group)
+    if staged:
+        src = src.cpu()
+    parts = [torch.empty_like(src) for _ in range(n)] if mine else None
+    dist.gather(src, parts, dst=dist.get_global_rank(group, 0), group=group)
+    nbytes = src.numel() * src.element_size()
+    _count("gather", n * nbytes if mine else nbytes,
+           nbytes if staged else 0)
+    return torch.cat(parts, dim=dim).cpu() if mine else None
 
 
-def reset_gather_counts() -> None:
-    all_gather_cat.calls = all_gather_cat.bytes = 0
-    all_gather_cat.staged_bytes = 0
+def all_reduce_sum(x: torch.Tensor, group, kind: str) -> torch.Tensor:
+    """The sum of every rank's ``x`` over ``group``, a new tensor on
+    ``x``'s device, the same on every rank (a ring reduces each element
+    once and then hands it round).  A CUDA ``x`` under gloo is staged
+    through host memory as :func:`all_gather_cat` stages it.  Counted
+    under ``kind``: one call, ``x``'s bytes, and both host copies when
+    staged."""
+    src = x.contiguous()
+    staged = _staged(src, group)
+    buf = src.cpu() if staged else src.clone()
+    dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group)
+    nbytes = buf.numel() * buf.element_size()
+    if staged:
+        buf = buf.to(x.device)
+    _count(kind, nbytes, 2 * nbytes if staged else 0)
+    return buf
 
 
-reset_gather_counts()
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_sum(g, ctx.group, "grad_reduce"), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce_sum(x, group, "reduce")
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim = dim % x.dim()
+        ctx.span = (dist.get_rank(group) * x.shape[ctx.dim],
+                    x.shape[ctx.dim])
+        return all_gather_cat(x, ctx.dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, *ctx.span), None, None
+
+
+def copy_to_model(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` (whole on every rank of the model group ``group``) as the
+    input of a product with this rank's block: the identity forward; the
+    backward all-reduces the gradient, since each rank's block gives only
+    its part of ``x``'s gradient."""
+    return _CopyToModel.apply(x, group)
+
+
+def reduce_from_model(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum over ``group`` of each rank's partial product ``x`` (a
+    product that contracts this rank's block): an all-reduce forward; the
+    gradient of the sum is each partial's, so the backward is the
+    identity."""
+    return _ReduceFromModel.apply(x, group)
+
+
+def gather_from_model(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """Each rank's block ``x`` of a column-block product concatenated
+    along ``dim`` in rank order (:func:`all_gather_cat`); the backward
+    takes this rank's slice of the gradient, which is whole on every
+    rank."""
+    return _GatherFromModel.apply(x, dim, group)
+
+
+COLLECTIVE_KINDS = (
+    "gather",           # the all-gathers of column blocks, and gathers
+    "reduce",           # the forward all-reduces of partial sums
+    "grad_reduce",      # the backward all-reduces of copy_to_model
+    "grad_mean",        # a step's mean over the data group, its metrics'
+    "norm",             # the clip norm's sums of block partials
+)
+_COUNTS: dict = {}
+
+
+def _count(kind: str, nbytes: int, staged_bytes: int) -> None:
+    c = _COUNTS[kind]
+    c["calls"] += 1
+    c["bytes"] += nbytes
+    c["staged_bytes"] += staged_bytes
+
+
+def collective_counts() -> dict:
+    """Per kind of :data:`COLLECTIVE_KINDS`, the calls, the bytes moved
+    (an all-gather's whole result, an all-reduce's tensor) and the bytes
+    staged through host memory since :func:`reset_collective_counts`."""
+    return {k: dict(v) for k, v in _COUNTS.items()}
+
+
+def reset_collective_counts() -> None:
+    for k in COLLECTIVE_KINDS:
+        _COUNTS[k] = {"calls": 0, "bytes": 0, "staged_bytes": 0}
+
+
+reset_collective_counts()

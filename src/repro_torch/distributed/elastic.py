@@ -10,8 +10,8 @@ shape alone, :func:`plan_remesh` from a live mesh;
 :func:`reshard_state` carries the replicated state onto it, and each new
 rank's error-feedback residuals from the old rank whose row the
 reference's step would give it.  A model axis
-above 1 over ranks is tensor-parallel training (ROADMAP A.8c's training
-half).
+above 1 over ranks (tensor-parallel training, whose step is ported) is
+not re-meshed: that is ROADMAP A.8c(b).
 """
 from __future__ import annotations
 
@@ -23,7 +23,7 @@ import torch
 import torch.distributed as dist
 
 from ..configs import ModelConfig
-from ..launch.mesh import A8C, LogicalMesh
+from ..launch.mesh import A8C_B, LogicalMesh
 from ..tree import flatten, map_with_path, unflatten
 from .sharding import state_specs
 
@@ -91,7 +91,7 @@ def make_mesh_from_plan(plan: RemeshPlan, device="cuda"
     sizes = dict(zip(plan.axis_names, plan.new_shape))
     if sizes.get("model", 1) != 1:
         raise NotImplementedError(f"a model axis of {sizes['model']} ranks "
-                                  f"is {A8C}")
+                                  f"is {A8C_B}")
     n = int(np.prod(plan.new_shape))
     if n > dist.get_world_size():
         raise ValueError(f"the plan needs {n} ranks, the group has "
@@ -146,7 +146,7 @@ def reshard_state(state, cfg: ModelConfig, new_mesh: Optional[LogicalMesh],
         if sharded:
             raise NotImplementedError(f"{sharded[0]} is sharded "
                                       f"{specs[sharded[0]]} on the new mesh:"
-                                      f" {A8C}")
+                                      f" {A8C_B}")
     carried = None if residuals is None else _carry_residuals(
         residuals, plan, new_mesh)
     if new_mesh is None:

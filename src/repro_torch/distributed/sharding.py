@@ -41,9 +41,23 @@ reference pins them replicated and GSPMD gathers.
 Every such combine is pure data movement, so the tokens equal one
 device's.  In one process (a mesh without ``model_group``) every shard
 runs on the one device: :func:`shard_tree` keeps the whole tree and the
-hooks are the identity.  The activation constraint of training
-(``constrain_activation``) belongs to tensor-parallel training, ROADMAP
-A.8c's training half.
+hooks are the identity.
+
+Training over ranks (the train layout placed over a
+:func:`repro_torch.launch.mesh.make_local_mesh` mesh whose model axis
+spans ranks): :func:`shard_tree` cuts the train layout's specs the same
+way, a block along a contracted dimension included, and
+:func:`train_mesh_scope` puts the mesh in scope around the step's
+forward.  There :func:`block_product` gives a column block's output
+through :func:`~repro_torch.distributed.collectives.gather_from_model`
+and a contracted block's through the product of the matching slice of
+the input and an all-reduce of the partial sums
+(:func:`~repro_torch.distributed.collectives.reduce_from_model`), each
+input through :func:`~repro_torch.distributed.collectives.copy_to_model`,
+so autograd differentiates through every collective.  Activations stay
+whole at every op boundary, as on the serve path: the attention runs
+all heads on every rank.  The all-reduces reorder float sums, as the
+reference says of its own train layout.
 """
 from __future__ import annotations
 
@@ -57,7 +71,7 @@ import torch.nn.functional as F
 
 from ..configs import ModelConfig
 from ..tree import map_with_path
-from .collectives import all_gather_cat
+from .collectives import copy_to_model, gather_from_model, reduce_from_model
 
 MODEL_AXIS = "model"
 
@@ -386,8 +400,10 @@ def fold(w, nc: int):
 
 
 def shard_tree(tree, specs, mesh):
-    """``tree`` as this rank holds it under ``mesh`` by ``specs`` (the
-    serve layout's :func:`param_specs`): a leaf split over ``"model"`` is
+    """``tree`` as this rank holds it under ``mesh`` by ``specs`` (a
+    layout's :func:`param_specs` without ``fsdp``: the serve layout's for
+    serving, the train layout's, whose blocks may lie along a contracted
+    dim, for training): a leaf split over ``"model"`` is
     cut into ``tp`` equal blocks along that dim, and this rank keeps block
     ``mesh.shard`` as a :class:`RankBlock` of a copy of its own (so the
     whole leaf can be freed); every other leaf stays whole.  The blocks
@@ -403,7 +419,7 @@ def shard_tree(tree, specs, mesh):
         spec = _spec_at(specs, path)
         dims = [i for i, ax in enumerate(spec) if ax == MODEL_AXIS]
         if any(ax not in (None, MODEL_AXIS) for ax in spec) or len(dims) > 1:
-            raise ValueError(f"{path}: spec {spec} is not a serve-layout "
+            raise ValueError(f"{path}: spec {spec} is not a rank-block "
                              "spec (one model-axis dim, no data axes)")
         if isinstance(x, RankBlock):
             if dims != [x.dim] or (x.shard, x.tp) != (s, tp):
@@ -419,75 +435,89 @@ def shard_tree(tree, specs, mesh):
     return map_with_path(one, tree)
 
 
-_SERVE_MESH = None
+_MESH = None
+_LAYOUT = "serve"
 
 
 def serve_mesh_active():
     """The mesh of the enclosing :func:`serve_mesh_scope`, if any."""
-    return _SERVE_MESH
+    return _MESH if _LAYOUT == "serve" else None
 
 
 @contextlib.contextmanager
-def serve_mesh_scope(mesh):
-    """Put ``mesh`` in scope for the serve layout's op-boundary hooks (the
-    mesh engine enters it around a generation)."""
-    global _SERVE_MESH
-    prev = _SERVE_MESH
-    _SERVE_MESH = mesh
+def _mesh_scope(mesh, layout: str):
+    global _MESH, _LAYOUT
+    prev = _MESH, _LAYOUT
+    _MESH, _LAYOUT = mesh, layout
     try:
         yield
     finally:
-        _SERVE_MESH = prev
+        _MESH, _LAYOUT = prev
+
+
+def serve_mesh_scope(mesh):
+    """Put ``mesh`` in scope for the serve layout's op-boundary hooks (the
+    mesh engine enters it around a generation)."""
+    return _mesh_scope(mesh, "serve")
+
+
+def train_mesh_scope(mesh):
+    """Put ``mesh`` in scope for the train layout's op-boundary hooks (the
+    train step enters it around its forward and backward): there a
+    block along a contracted dimension is computed, its partial sums
+    all-reduced."""
+    return _mesh_scope(mesh, "train")
 
 
 def _rank_mesh():
     """The mesh in scope when its model axis spans ranks, else ``None``."""
-    mesh = _SERVE_MESH
+    mesh = _MESH
     return mesh if getattr(mesh, "model_group", None) is not None else None
 
 
-def _block_mesh(w: RankBlock) -> None:
-    """Raise unless the rank mesh in scope is the one ``w`` is a block
-    of."""
+def _block_mesh(w: RankBlock):
+    """The rank mesh in scope; raise unless ``w`` is a block of it."""
     mesh = _rank_mesh()
     if mesh is None or (mesh.shard, _tp(mesh)) != (w.shard, w.tp):
         where = "no rank mesh" if mesh is None else \
             f"shard {mesh.shard} of {_tp(mesh)}"
         raise RuntimeError(f"block {w.shard} of {w.tp} computed under "
                            f"{where}: it is not the whole weight")
+    return mesh
 
 
-def constrain_replicated(x: torch.Tensor, dim: Optional[int] = None):
-    """This rank's block of ``x`` (its part of ``dim``) as the whole
-    tensor: an all-gather over the model group of the rank mesh in scope,
-    the blocks in shard order.  The identity for ``dim=None`` (``x`` is
-    whole already: a replicated weight's product) and outside a rank
-    mesh, as the reference's hook is outside its scope."""
-    mesh = _rank_mesh()
-    if mesh is None or dim is None:
-        return x
-    return all_gather_cat(x, dim, mesh.model_group)
-
-
-def block_product(x, w, product, out_dims: Dict[int, int]) -> torch.Tensor:
+def block_product(x, w, product, out_dims: Dict[int, int],
+                  in_dims: Optional[Dict[int, int]] = None) -> torch.Tensor:
     """``product(x, w)`` as the whole output, for a weight leaf ``w``.
 
     The one place where a rank's block meets the model: for a
     :class:`RankBlock` ``w`` (under the rank mesh it is a block of),
     ``product(x, w)`` is this rank's block of the output along
     ``out_dims[w.dim]`` (the output dim that ``w``'s block dim becomes),
-    gathered over the mesh's model group in shard order.  A block along a
-    dim ``out_dims`` does not map (a contracted dim) is refused.
-    ``product`` reads the block's tensor through :func:`held`, or hands
-    the block to :func:`repro_torch.kernels.ops.aged_linear`, which
-    computes the block's columns at its own shard's BER and stream."""
+    gathered over the mesh's model group in shard order.  Under the
+    train layout's scope (:func:`train_mesh_scope`) a block along a
+    contracted dim (``in_dims[w.dim]``: the dim of ``x`` it contracts
+    with) takes the matching slice of ``x``, and the ranks' partial
+    products are all-reduced.  ``x`` enters through
+    :func:`~repro_torch.distributed.collectives.copy_to_model`, so the
+    backward sums the ranks' parts of its gradient.  Under the serve
+    layout a contracted block is refused: its output is not a block of
+    the whole.  ``product`` reads the block's tensor through
+    :func:`held`, or hands the block to
+    :func:`repro_torch.kernels.ops.aged_linear`, which computes the
+    block's columns at its own shard's BER and stream."""
     if not isinstance(w, RankBlock):
         return product(x, w)
-    _block_mesh(w)
-    if w.dim not in out_dims:
+    group = _block_mesh(w).model_group
+    if w.dim in out_dims:
+        return gather_from_model(product(copy_to_model(x, group), w),
+                                 out_dims[w.dim], group)
+    if _LAYOUT != "train" or w.dim not in (in_dims or {}):
         raise ValueError(f"a block along dim {w.dim} is contracted by this "
                          "product: its output is not a block of the whole")
-    return constrain_replicated(product(x, w), out_dims[w.dim])
+    part = copy_to_model(x, group).narrow(
+        in_dims[w.dim], w.span.start, w.span.stop - w.span.start)
+    return reduce_from_model(product(part, w), group)
 
 
 def lookup_rows(table, ids: torch.Tensor) -> torch.Tensor:
@@ -495,19 +525,50 @@ def lookup_rows(table, ids: torch.Tensor) -> torch.Tensor:
     table gives the rows' columns, gathered along the last dim; a row
     (vocab) block looks up the ids it owns, the ranks' lookups are
     gathered, and each id takes its owner's row — pure data movement,
-    where the reference adds the non-owners' zeros."""
+    where the reference adds the non-owners' zeros.  Both gathers pass
+    the gradient of the rank's part back to its block."""
     if not isinstance(table, RankBlock):
         return F.embedding(ids, table)
-    _block_mesh(table)
+    group = _block_mesh(table).model_group
     if table.dim == 1:
-        return constrain_replicated(F.embedding(ids, table.data), -1)
+        return gather_from_model(F.embedding(ids, table.data), -1, group)
     n = table.data.shape[0]
     local = ids - table.span.start
     own = (local >= 0) & (local < n)
     rows = F.embedding(torch.where(own, local, 0), table.data)
-    every = constrain_replicated(rows[None], 0)          # (tp, ..., d)
+    every = gather_from_model(rows[None], 0, group)      # (tp, ..., d)
     owner = torch.div(ids, n, rounding_mode="floor").to(torch.int64)
     return torch.take_along_dim(every, owner[None, ..., None], dim=0)[0]
+
+
+# the reference's activation constraint (its ``set_activation_sharding``):
+# a spec of (B, S, d) activations, or None
+_ACTIVATION_SHARDING = None
+
+
+def set_activation_sharding(spec) -> None:
+    """Set the constraint :func:`constrain_activation` applies at each
+    layer group's start: ``None``, or a spec of ``(B, S, d)`` activations
+    whose batch entry names the data axes (the reference's
+    ``NamedSharding(mesh, P(batch, None, None))``).  Its reader is the
+    hill-climb tool (ROADMAP A.10 item 3)."""
+    global _ACTIVATION_SHARDING
+    if spec is not None and (len(spec) != 3 or any(
+            e is not None for e in spec[1:]) or MODEL_AXIS in (
+            spec[0] if isinstance(spec[0], tuple) else (spec[0],))):
+        raise ValueError(f"activation spec {spec}: (B, S, d) with only the "
+                         "batch over the data axes")
+    _ACTIVATION_SHARDING = spec
+
+
+def constrain_activation(x: torch.Tensor) -> torch.Tensor:
+    """``x`` pinned to the set activation spec, called where the
+    reference calls it (each layer group's start).  The reference pins the
+    batch axis of a carry GSPMD may have replicated; over ranks each data
+    replica already holds only its own rows of the batch, and on one
+    device there is nothing to place, so the constraint is the identity on
+    values: ``x`` comes back as it is."""
+    return x
 
 
 def serve_shard_map_info(n_out: int) -> Optional[Tuple[Any, str, int]]:
@@ -516,7 +577,7 @@ def serve_shard_map_info(n_out: int) -> Optional[Tuple[Any, str, int]]:
     shard's column block is then the block
     :func:`repro_torch.kernels.ops.shard_slices` assigns), else ``None`` —
     the reference's rule for its ``shard_map`` kernel route."""
-    mesh = _SERVE_MESH
+    mesh = serve_mesh_active()
     if mesh is None or MODEL_AXIS not in mesh.axis_names:
         return None
     tp = _tp(mesh)

@@ -10,13 +10,14 @@ device (the fleet lanes run several devices on one card the same way), so
 A mesh may also span the ranks of a ``torch.distributed`` group (``group``,
 and this process's ``rank`` in it).  :func:`init_data_group` starts such a
 group from a ``file://`` store (no network) and :func:`run_local_ranks`
-runs a function on each rank of one host.  Training meshes over ranks are
-data-parallel, ``(world, 1)``: a model axis above 1 in training is
-tensor-parallel training, ROADMAP A.8c's training half.  A serving mesh
-(:func:`make_serve_mesh`) under a started group places its model axis over
-the ranks, ``(world // tp, tp)``: rank ``r`` is shard ``r % tp`` of data
-replica ``r // tp``, and ``model_group`` holds the ``tp`` ranks of its
-replica (the group the shards' all-gathers run in).
+runs a function on each rank of one host.  Under a started group,
+:func:`make_local_mesh` (training) and :func:`make_serve_mesh` (serving)
+place a model axis of ``k`` over the ranks, ``(world // k, k)``: rank
+``r`` is shard ``r % k`` of data replica ``r // k``, ``model_group``
+holds the ``k`` ranks of its replica (the group its blocks' collectives
+run in) and ``data_group`` the ranks that hold the same shard (the group
+a tensor-parallel step averages its gradients over).  Re-meshing a model
+axis over ranks is ROADMAP A.8c(b).
 """
 from __future__ import annotations
 
@@ -33,7 +34,7 @@ import torch.distributed as dist
 
 from ..device import resolve_device
 
-A8C = "tensor-parallel training over ranks: ROADMAP A.8c"
+A8C_B = "the re-mesh of a model axis over ranks: ROADMAP A.8c(b)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,14 +43,17 @@ class LogicalMesh:
     name to its size, in ``axis_names`` order.  ``group`` is the
     ``torch.distributed`` group whose ranks make up the mesh (``None``: one
     process) and ``rank`` this process's rank in it.  ``model_group`` is
-    set on a serving mesh whose model axis spans ranks: the ranks of this
-    rank's data replica, shard ``s`` at rank ``s`` of it."""
+    set on a mesh whose model axis spans ranks: the ranks of this rank's
+    data replica, shard ``s`` at rank ``s`` of it; ``data_group``, set
+    with it, the ranks of this rank's shard, replica ``d`` at rank ``d``
+    of it."""
     axis_names: Tuple[str, ...]
     sizes: Tuple[int, ...]
     device: torch.device
     group: Any = None
     rank: int = 0
     model_group: Any = None
+    data_group: Any = None
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -91,8 +95,12 @@ def make_production_mesh(*, multi_pod: bool = False, device="cuda"):
 
 
 def make_local_mesh(model: int = 1, device="cuda"):
-    """The visible devices, data-major: ``(n // model, model)``; under a
-    started process group, its ranks: ``(world, 1)``."""
+    """The visible devices, data-major: ``(n // model, model)``.  Under a
+    started process group, its ranks: ``(world // model, model)``, rank
+    ``r`` shard ``r % model`` of replica ``r // model``; with ``model >
+    1`` the mesh also holds its replica's ``model_group`` and its shard's
+    ``data_group``.  Every rank of the group calls this (it makes the
+    groups with ``dist.new_group``, the same on every rank)."""
     grouped = dist.is_available() and dist.is_initialized()
     n = dist.get_world_size() if grouped else visible_devices(device)
     if model < 1 or n % model:
@@ -100,10 +108,26 @@ def make_local_mesh(model: int = 1, device="cuda"):
     if not grouped:
         return LogicalMesh(("data", "model"), (n // model, model),
                            resolve_device(device))
-    if model != 1:
-        raise NotImplementedError(f"a model axis of {model} ranks is {A8C}")
-    return LogicalMesh(("data", "model"), (n, 1), resolve_device(device),
-                       group=dist.group.WORLD, rank=dist.get_rank())
+    if model == 1:
+        return LogicalMesh(("data", "model"), (n, 1), resolve_device(device),
+                           group=dist.group.WORLD, rank=dist.get_rank())
+    return _ranks_mesh(model, device)
+
+
+def _ranks_mesh(k: int, device) -> LogicalMesh:
+    """The started group's ranks as ``(world // k, k)``: rank ``r`` is
+    shard ``r % k`` of replica ``r // k``, with its replica's
+    ``model_group`` and its shard's ``data_group``.  Every rank calls
+    this: it makes the groups with ``dist.new_group``, one a replica and
+    one a shard, in the same order on every rank."""
+    n, rank = dist.get_world_size(), dist.get_rank()
+    replicas = [dist.new_group(list(range(d * k, (d + 1) * k)))
+                for d in range(n // k)]
+    shards = [dist.new_group(list(range(s, n, k))) for s in range(k)]
+    return LogicalMesh(("data", "model"), (n // k, k),
+                       resolve_device(device), group=dist.group.WORLD,
+                       rank=rank, model_group=replicas[rank // k],
+                       data_group=shards[rank % k])
 
 
 def init_data_group(init_file: str, rank: int, world_size: int, *,
@@ -216,8 +240,8 @@ def make_serve_mesh(tp: Optional[int] = None, device="cuda"):
     tp)`` (``tp`` defaults to the world), as the reference spans its
     devices; rank ``r`` is shard ``r % tp`` of replica ``r // tp``, and the
     mesh's ``model_group`` is its replica's ranks.  Every rank of the group
-    calls this (it makes one ``dist.new_group`` a replica); ``device`` is
-    this rank's."""
+    calls this (it makes the groups with ``dist.new_group``); ``device``
+    is this rank's."""
     grouped = dist.is_available() and dist.is_initialized()
     n = dist.get_world_size() if grouped else None
     if tp is None:
@@ -229,9 +253,4 @@ def make_serve_mesh(tp: Optional[int] = None, device="cuda"):
         return LogicalMesh(("data", "model"), (1, tp), resolve_device(device))
     if n % tp:
         raise ValueError(f"{n} ranks do not split into tp={tp}")
-    rank = dist.get_rank()
-    replicas = [dist.new_group(list(range(d * tp, (d + 1) * tp)))
-                for d in range(n // tp)]
-    return LogicalMesh(("data", "model"), (n // tp, tp),
-                       resolve_device(device), group=dist.group.WORLD,
-                       rank=rank, model_group=replicas[rank // tp])
+    return _ranks_mesh(tp, device)

@@ -19,7 +19,10 @@ is this rank's block gives this rank's output block, which
 :func:`~repro_torch.distributed.sharding.block_product` gathers into the
 whole output (the reference's pin at the same op boundaries); a
 replicated weight's product, and the qkt/sv products of the gathered
-activations, are computed whole on every rank, as on one device.
+activations, are computed whole on every rank, as on one device.  Under a
+train mesh over ranks a block may also lie along a contracted dimension
+(the train layout's row-parallel ``wo`` / ``w_down`` and its fallbacks):
+its partial products are all-reduced.
 """
 from __future__ import annotations
 
@@ -151,7 +154,7 @@ def op_linear(x: torch.Tensor, w: torch.Tensor, op: str,
     mesh over ranks) computes its columns, gathered
     (:func:`repro_torch.distributed.sharding.block_product`)."""
     return shrules.block_product(
-        x, w, lambda x, w: _linear(x, w, op, fi, salt), {1: -1})
+        x, w, lambda x, w: _linear(x, w, op, fi, salt), {1: -1}, {0: -1})
 
 
 def _linear(x, w, op, fi, salt):
@@ -183,7 +186,9 @@ def op_einsum(spec: str, x: torch.Tensor, w: torch.Tensor, op: str,
         return shrules.block_product(
             x, w, lambda x, w: torch.einsum(spec, x, shrules.held(w)),
             {i: out_spec.index(c) for i, c in enumerate(w_spec)
-             if c in out_spec})
+             if c in out_spec},
+            {i: x_spec.index(c) for i, c in enumerate(w_spec)
+             if c in x_spec})
     contract = [c for c in x_spec if c in w_spec]
     nc = len(contract)
     if not x_spec[-nc:] == w_spec[:nc] == "".join(contract):

@@ -366,7 +366,12 @@ def _run_blocks(x, params, cfg: ModelConfig, *, positions, prefix_len=0,
     aux_total = (torch.zeros((), dtype=torch.float32, device=x.device)
                  if with_aux else None)
     int8 = is_quantized(params)
+    period = len(cfg.block_pattern)
+    n_grouped = cfg.n_layers // period * period
     for i, (kind, bp) in enumerate(zip(layer_kinds(cfg), params["layers"])):
+        if i < n_grouped and i % period == 0:
+            # a layer group's start, where the reference's scan pins it
+            x = shrules.constrain_activation(x)
         if int8:         # this layer alone, in the activations' dtype
             bp = dequant_tree(bp, x.dtype)
         block = _BLOCKS[kind]
@@ -413,16 +418,17 @@ def embed_tokens(params, cfg: ModelConfig, tokens, prefix_embeds=None,
 
 def unembed(params, cfg: ModelConfig, x):
     """Logits, float32; a rank's vocab block of the head gives its
-    columns, gathered (:func:`repro_torch.distributed.sharding.
-    block_product`)."""
+    columns, gathered, and a block of its ``d_model`` side (the train
+    layout's fallback, a tied head's) its partial sums, all-reduced
+    (:func:`repro_torch.distributed.sharding.block_product`)."""
     if cfg.tie_embeddings:
         logits = shrules.block_product(
             x, dequant_tree(params["embed"], x.dtype),
-            lambda x, w: x @ shrules.held(w).T, {0: -1})
+            lambda x, w: x @ shrules.held(w).T, {0: -1}, {1: -1})
     else:
         logits = shrules.block_product(
             x, dequant_tree(params["lm_head"], x.dtype),
-            lambda x, w: x @ shrules.held(w), {1: -1})
+            lambda x, w: x @ shrules.held(w), {1: -1}, {0: -1})
     return logits.to(torch.float32)
 
 

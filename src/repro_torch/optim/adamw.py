@@ -7,6 +7,13 @@ float32 and cast back.  ``torch.optim.AdamW`` is not used: it places
 device tensor, so an update makes no host-device synchronisation, and
 the update overwrites params and moments in place (the returned trees
 are the ones passed in), so a step holds no second copy of either.
+
+Under tensor-parallel training over ranks a leaf may be this rank's
+block of a whole leaf (a ``RankBlock`` of
+:mod:`repro_torch.distributed.sharding`): its moments are blocks of the
+same part, the update is elementwise on the block, and the clip norm adds
+each block's partial sum of squares over the model group
+(:func:`global_norm`).
 """
 from __future__ import annotations
 
@@ -87,10 +94,22 @@ def _get(tree, path):
     return tree
 
 
+def _data(x) -> torch.Tensor:
+    """A tensor leaf, or a rank block's tensor."""
+    return x if isinstance(x, torch.Tensor) else x.data
+
+
+def _zeros(p):
+    """float32 zeros like ``p``; a block's zeros are a block of the same
+    part."""
+    z = lambda t: torch.zeros(t.shape, dtype=_F32, device=t.device)
+    return z(p) if isinstance(p, torch.Tensor) else p.map(z)
+
+
 def adamw_init(params) -> OptState:
-    zeros = lambda p: torch.zeros(p.shape, dtype=_F32, device=p.device)
+    """Zero moments mirroring ``params`` (blocks as blocks), step 0."""
     dev = leaves(params)[0].device
-    return OptState(mu=tree_map(zeros, params), nu=tree_map(zeros, params),
+    return OptState(mu=tree_map(_zeros, params), nu=tree_map(_zeros, params),
                     step=torch.zeros((), dtype=torch.int32, device=dev))
 
 
@@ -112,30 +131,56 @@ def cosine_schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
     return cfg.lr * torch.where(step < cfg.warmup_steps, warm, cos)
 
 
-def global_norm(tree, period: int = 1) -> torch.Tensor:
+def global_norm(tree, period: int = 1, group=None) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, in float32, the per-leaf
     sums added in the reference's flattening order (``period``: the
-    model's block-pattern length, see :func:`ref_order_groups`)."""
-    total = None
-    for group in ref_order_groups(tree, period):
+    model's block-pattern length, see :func:`ref_order_groups`).
+
+    A rank block's sum is its block's partial sum, added over the model
+    group ``group`` in shard order (each rank's partials in its row of
+    one all-reduce: adding zeros is exact), so every rank gets the same
+    norm; a replicated leaf, whole on every rank, is counted once."""
+    sums, blocked = [], []
+    for leaf_group in ref_order_groups(tree, period):
         s = None
-        for g in group:
-            g = g.to(_F32)
+        for g in leaf_group:
+            g = _data(g).to(_F32)
             part = torch.sum(g * g)
             s = part if s is None else s + part
-        total = s if total is None else total + s
+        sums.append(s)
+        blocked.append(not isinstance(leaf_group[0], torch.Tensor))
+    if any(blocked):
+        if group is None:
+            raise ValueError("a tree of rank blocks needs the model group "
+                             "its blocks are summed over")
+        import torch.distributed as dist
+        from ..distributed.collectives import all_reduce_sum
+        at = [i for i, b in enumerate(blocked) if b]
+        rows = torch.zeros((dist.get_world_size(group), len(at)),
+                           dtype=_F32, device=sums[0].device)
+        rows[dist.get_rank(group)] = torch.stack([sums[i] for i in at])
+        rows = all_reduce_sum(rows, group, "norm")
+        total = rows[0]
+        for row in rows[1:]:
+            total = total + row
+        for k, i in enumerate(at):
+            sums[i] = total[k]
+    total = sums[0]
+    for s in sums[1:]:
+        total = total + s
     return torch.sqrt(total)
 
 
 @torch.no_grad()
 def adamw_update(grads, opt: OptState, params, cfg: AdamWConfig, *,
-                 period: int = 1
+                 period: int = 1, group=None
                  ) -> Tuple[Any, OptState, Dict[str, torch.Tensor]]:
     """One AdamW step; returns ``(params, opt, metrics)`` with params and
-    moments updated in place.  ``period`` orders the clip norm's sum
+    moments updated in place.  ``period`` orders the clip norm's sum and
+    ``group`` is the model group its blocks are summed over
     (:func:`global_norm`)."""
     step = opt.step + 1
-    gnorm = global_norm(grads, period)
+    gnorm = global_norm(grads, period, group)
     scale = torch.clamp(_scalar(cfg.clip_norm, gnorm)
                         / torch.clamp_min(gnorm, 1e-9), max=1.0)
     stepf = step.to(_F32)
@@ -144,6 +189,7 @@ def adamw_update(grads, opt: OptState, params, cfg: AdamWConfig, *,
     lr = cosine_schedule(cfg, step)
 
     def upd(p, g, m, v):
+        p, g, m, v = _data(p), _data(g), _data(m), _data(v)
         g = g.to(_F32) * scale
         m.mul_(cfg.b1).add_(g * (1 - cfg.b1))
         v.mul_(cfg.b2).add_((g * g) * (1 - cfg.b2))

@@ -75,7 +75,8 @@ class MeshGenerateResult:
     # host-clock phase times of the call: {"prefill_s", "decode_s"}
     timings: Optional[Dict[str, float]] = None
     # on a mesh over ranks: this rank's all-gathers of the call
-    # ({"calls", "bytes", "staged_bytes"}: collectives.gather_counts)
+    # ({"calls", "bytes", "staged_bytes"}: the "gather" kind of
+    # collectives.collective_counts)
     gathers: Optional[Dict[str, int]] = None
 
 
@@ -216,7 +217,7 @@ class MeshServeEngine:
         temp = ServeEngine._temperature(greedy, temperature)
         cold = _MESH_GENERATE(cfg, self.max_len, int(n_steps), top_k,
                               self.mesh)
-        before = collectives.gather_counts()
+        before = collectives.collective_counts()["gather"]
         t0 = time.perf_counter()
         with shrules.serve_mesh_scope(self.mesh):
             tokens, telemetry, timings = steps.generate(
@@ -229,7 +230,7 @@ class MeshServeEngine:
         gathers = None
         if self.ranked:
             gathers = {k: v - before[k] for k, v in
-                       collectives.gather_counts().items()}
+                       collectives.collective_counts()["gather"].items()}
             if self.mesh.size > 1:
                 self._check_same_tokens(tokens)
         if taps_enabled():

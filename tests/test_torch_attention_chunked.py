@@ -26,6 +26,7 @@ from repro_torch.models.layers import FaultConfig
 from repro_torch.serve.engine import ServeEngine
 from repro_torch.train import steps
 from repro_torch.tree import flatten
+from torch_test_common import _one_torch_thread  # noqa: F401 (autouse)
 
 # float32: products and sums in another order than XLA's
 F32_ATOL = 1e-5
@@ -58,16 +59,6 @@ CASES = {
     "prefix": dict(causal=True, prefix_len=256),
     "cross": dict(causal=False),         # Sk = 1500: kv_valid masks the pad
 }
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread for this file (the suite runs several
-    workers); restored after the file."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _inputs(S, Sk):

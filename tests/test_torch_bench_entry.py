@@ -20,18 +20,9 @@ from repro_torch.benchmarks import (kernel_bench, run, scenario_bench,
 from repro_torch.examples import quickstart
 
 from test_torch_launch import reference_served_params
+from torch_test_common import _one_torch_thread  # noqa: F401 (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread for this file (the suite runs several
-    workers); restored after the file."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def test_scenario_bench_cpu():

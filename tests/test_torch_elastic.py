@@ -2,8 +2,8 @@
 elastic``): plans against the reference's ``plan_remesh``, from logical
 meshes here and from a live 4-rank gloo mesh; the new group over the first
 ranks; a train state resharded bit for bit; and the refusals of a model
-axis over ranks (tensor-parallel placement, ROADMAP A.8c).  The ranks are
-spawned once for the module."""
+axis over ranks (its re-mesh, ROADMAP A.8c(b)).  The ranks are spawned
+once for the module."""
 import dataclasses
 
 import jax
@@ -107,12 +107,14 @@ def runs():
 
 
 def test_live_mesh_and_its_plans(runs):
-    """Under the started group the local mesh is ``(world, 1)``; the plans
-    from the live ``(4, 1)`` mesh and from a live ``(2, 2, 1)`` pod mesh
-    equal the reference's from the same named shapes."""
+    """Under the started group the local mesh is ``(world, 1)``, and
+    ``(2, 2)`` with a model axis of 2 (rank r shard r % 2 of replica r //
+    2); the plans from the live ``(4, 1)`` mesh and from a live ``(2, 2,
+    1)`` pod mesh equal the reference's from the same named shapes."""
     _, out = runs
-    for rec in out:
+    for r, rec in enumerate(out):
         assert rec["shape"] == rec["local"] == {"data": 4, "model": 1}
+        assert rec["local_tp2"] == ({"data": 2, "model": 2}, r % 2, r // 2)
         _same_plan(rec["plan"], jax_plan_remesh(
             FakeMesh({"data": 4, "model": 1}), 2, global_batch=GLOBAL_BATCH))
         assert rec["pod"] == ({"pod": 2, "data": 2, "model": 1}, 4)

@@ -22,6 +22,7 @@ from repro.serve.engine import ServeEngine as JaxServeEngine
 from repro_torch import random as prandom
 from repro_torch.serve import steps
 from repro_torch.serve.engine import ServeEngine
+from torch_test_common import _one_torch_thread  # noqa: F401 (autouse)
 
 DECODERS = ("recurrentgemma_2b", "rwkv6_3b", "paligemma_3b")
 

@@ -28,6 +28,7 @@ from repro_torch.configs import get_config
 from repro_torch.models import encdec, layers
 from repro_torch.serve import steps
 from repro_torch.serve.engine import ServeEngine
+from torch_test_common import _one_torch_thread  # noqa: F401 (autouse)
 
 
 @pytest.fixture(scope="module", params=["whisper_large_v3"])

@@ -29,6 +29,7 @@ from repro_torch.serve import steps
 from repro_torch.serve.engine import FleetServeEngine
 from repro_torch.train import steps as train_steps
 from repro_torch.tree import flatten
+from torch_test_common import _one_torch_thread  # noqa: F401 (autouse)
 
 FAMILIES = ("recurrentgemma_2b", "rwkv6_3b", "paligemma_3b",
             "whisper_large_v3")

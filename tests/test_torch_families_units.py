@@ -27,6 +27,7 @@ from repro_torch.models import attention, encdec, layers, rglru, rwkv6
 from repro_torch.models import transformer as tf
 from repro_torch.serve import steps
 from repro_torch.serve.engine import ServeEngine
+from torch_test_common import _one_torch_thread  # noqa: F401 (autouse)
 
 FAMILIES = ("recurrentgemma_2b", "rwkv6_3b", "paligemma_3b",
             "whisper_large_v3")

@@ -8,7 +8,6 @@ import re
 import jax
 import numpy as np
 import pytest
-import torch
 
 from benchmarks import fig1b_ber as jax_fig1b_ber
 from repro.configs import get_config as jax_get_config
@@ -18,6 +17,7 @@ from repro_torch.configs import get_config
 from repro_torch.convert import params_from_reference
 from repro_torch.optim import adamw_init
 from repro_torch.train import steps
+from torch_test_common import _one_torch_thread  # noqa: F401 (autouse)
 
 # the train steps' loss tolerance (tests/test_torch_train.py): float32 sums
 # in another order than XLA's, a few ulps a step
@@ -29,18 +29,6 @@ LOSS_RTOL = 2e-6
 # within INJECTED_RTOL, the clean row's printed line equal
 INJECTED_RTOL = 5e-4
 _NUMBER = re.compile(r"[-+]?\d+(?:\.\d+)?(?:e[-+]?\d+)?")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread for this file (the suite runs several workers,
-    and a worker's idle pool threads spinning against the others' slow
-    the training's many small operations many times over); restored after
-    the file."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def test_fig1b_ber_matches_reference(monkeypatch):

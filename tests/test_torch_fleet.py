@@ -37,6 +37,7 @@ from repro_torch.models.layers import FaultConfig
 from repro_torch.obs.taps import enable_taps
 from repro_torch.serve import steps
 from repro_torch.serve.engine import FleetServeEngine
+from torch_test_common import _one_torch_thread  # noqa: F401 (autouse)
 
 # the age-9 BERs: the BER curve is steep in delay, so float32 delay drift
 # of ~1e-7 relative becomes ~1e-4 (ROADMAP §C, known drift)

@@ -30,23 +30,12 @@ from repro_torch.models.transformer import init_params
 from repro_torch.obs.health import eta_to_threshold_s, fleet_health
 from repro_torch.sched import disruption
 from repro_torch.serve.engine import FleetServeEngine
+from torch_test_common import _one_torch_thread  # noqa: F401 (autouse)
 
 YEAR_S = 365.25 * 24 * 3600.0
 SHIFT_RTOL = 1e-5
 BER_RTOL = 1e-3
 STAGGER = (1.0, 3.0, 5.0, 7.0)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """This file's co-sims are loops of tiny tensor operations: run them
-    on one intra-op thread (the suite runs several workers, and a worker's
-    idle pool threads spinning against the others' slow every small
-    operation many times over); restored after the file."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _fleets(n=4, ages=STAGGER, jax_scenario=None, scenario=None):

@@ -7,7 +7,6 @@ exact."""
 
 import numpy as np
 import pytest
-import torch
 
 from repro.core.fleet import FleetRuntime as JaxFleetRuntime
 from repro.core.scenario import Scenario as JaxScenario
@@ -15,20 +14,11 @@ from repro.obs.health import fleet_health as jax_fleet_health
 from repro_torch.core.fleet import FleetRuntime
 from repro_torch.core.scenario import Scenario
 from repro_torch.obs.health import fleet_health
+from torch_test_common import _one_torch_thread  # noqa: F401 (autouse)
 
 YEAR_S = 365.25 * 24 * 3600.0
 BER_RTOL = 1e-3
 SHIFT_RTOL = 1e-5
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The co-sims are loops of tiny tensor operations: one intra-op
-    thread (the suite runs several workers); restored after the file."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _fleets(n=2, s=3, **kw):

@@ -31,6 +31,7 @@ from repro_torch.models import transformer as tf
 from repro_torch.models.layers import FaultConfig
 from torch_int8_common import (LOGIT_ATOL, TIE_MARGIN, configs, prompts,
                                reference_params, to_numpy)
+from torch_test_common import _one_torch_thread  # noqa: F401 (autouse)
 
 OPS = ("q", "k", "v", "qkt", "sv", "o", "gate", "up", "down")
 # K/V of magnitude ~3 in bf16, one layer of bf16 rounding apart (the

@@ -10,6 +10,7 @@ import pytest
 
 from torch_int8_common import (check_clean_logits, check_generate_at_9y,
                                int8_pair)
+from torch_test_common import _one_torch_thread  # noqa: F401 (autouse)
 
 FAMILIES = {"rwkv6_3b": {}, "paligemma_3b": {}}
 

@@ -18,6 +18,7 @@ from repro_torch.models import transformer as tf
 from repro_torch.tree import items
 from torch_int8_common import (DECODER_ARCHS, configs, int8_pair,
                                reference_params, to_numpy)
+from torch_test_common import _one_torch_thread  # noqa: F401 (autouse)
 
 
 def _same(got, want):

@@ -32,6 +32,7 @@ from repro_torch.serve.engine import FleetServeEngine, ServeEngine
 from repro_torch.serve.online import OnlineServeEngine, Request
 from torch_int8_common import (LOGIT_ATOL, assert_same_greedy, int8_pair,
                                prompts, sampled_logits)
+from torch_test_common import _one_torch_thread  # noqa: F401 (autouse)
 
 MAX_LEN = 32
 

@@ -23,6 +23,7 @@ from repro_torch.kernels import fused_aged_matmul as pfam
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.bitflip import bitflip_draw, bitflip_words
 from repro_torch.kernels.systolic_matmul import systolic_matmul
+from torch_test_common import _one_torch_thread  # noqa: F401 (autouse)
 
 
 # the package rebinds the submodule's name to the ops-level function

@@ -22,20 +22,11 @@ from repro.train.steps import init_train_state as jax_init_train_state
 from repro_torch.configs import ARCH_IDS, get_config, shapes
 from repro_torch.convert import params_from_reference
 from repro_torch.launch import serve
+from torch_test_common import _one_torch_thread  # noqa: F401 (autouse)
 
 SMALL = ["--gen-len", "2", "--prompt-len", "8", "--batch", "1"]
 # the admitted BERs: the physics' float32 drift (ROADMAP §C)
 BER_RTOL = 1e-3
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread for this file (the suite runs several
-    workers); restored after the file."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def reference_served_params(cfg, device):

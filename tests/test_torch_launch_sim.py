@@ -6,7 +6,6 @@ and the serve launcher on a VLM (its prefix embeddings)."""
 import jax
 import numpy as np
 import pytest
-import torch
 
 from repro.configs import get_config as jax_get_config
 from repro.launch import schedule as jax_schedule
@@ -17,22 +16,13 @@ from repro_torch.convert import params_from_reference
 from repro_torch.launch import schedule, sweep, train
 from repro_torch.optim import adamw_init
 from repro_torch.train.steps import TrainState
+from torch_test_common import _one_torch_thread  # noqa: F401 (autouse)
 
 # the lifetime power savings: float32 simulations in another order
 SAVING_ATOL = 1e-4
 # the training loss after a few AdamW steps (tests/test_torch_train.py
 # holds single steps at 2e-6; three steps carry the drift along)
 LOSS_RTOL = 1e-5
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread for this file (the suite runs several
-    workers); restored after the file."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def test_sweep_matches_reference():

@@ -14,6 +14,7 @@ from repro_torch.serve.sharded import MeshServeEngine
 
 from test_torch_mesh_common import (model, oracle_tokens, prompts,
                                     shard_fleets)
+from torch_test_common import _one_torch_thread  # noqa: F401 (autouse)
 
 F32 = dict(serve_dtype=torch.float32, device="cpu")
 

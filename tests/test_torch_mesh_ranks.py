@@ -302,20 +302,16 @@ def test_serve_shard_map_info_is_the_references_rule(tp, n_out):
 
 
 def test_one_process_helpers_are_the_identity():
-    """Without a mesh over ranks: ``constrain_replicated`` returns its
-    argument, ``shard_tree`` the whole tree, ``lookup_rows`` the
-    embedding's rows, ``block_product`` the product, and no leaf is a
-    block."""
+    """Without a mesh over ranks: ``shard_tree`` returns the whole tree,
+    ``lookup_rows`` the embedding's rows, ``block_product`` the product,
+    and no leaf is a block."""
     cfg = get_config("llama3_8b").reduced()
     params = family.init_params(cfg, 0, torch.float32, device="cpu")
     mesh = LogicalMesh(("data", "model"), (1, 4), torch.device("cpu"))
     specs = shrules.param_specs(params, cfg, mesh, layout="serve")
-    x = torch.randn(2, 3, 8)
     h = torch.randn(2, cfg.d_model)
     for scope in (None, mesh):
         with shrules.serve_mesh_scope(scope):
-            assert shrules.constrain_replicated(x, -1) is x
-            assert shrules.constrain_replicated(x) is x
             assert shrules.shard_tree(params, specs, mesh) is params
             ids = torch.tensor([[0, 5, 255]])
             assert torch.equal(shrules.lookup_rows(params["embed"], ids),

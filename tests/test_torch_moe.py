@@ -31,6 +31,7 @@ from repro_torch.models import transformer as tf
 from repro_torch.models.layers import FaultConfig
 from repro_torch.serve import steps
 from repro_torch.serve.engine import FleetServeEngine, ServeEngine
+from torch_test_common import _one_torch_thread  # noqa: F401 (autouse)
 
 OPS = ("q", "k", "v", "qkt", "sv", "o", "gate", "up", "down", "router")
 MOE_ARCHS = ("qwen3_moe_235b", "arctic_480b")

@@ -29,6 +29,7 @@ from repro_torch.models import transformer as tf
 from repro_torch.models.layers import FaultConfig
 from repro_torch.serve import steps
 from repro_torch.serve.engine import FleetServeEngine
+from torch_test_common import _one_torch_thread  # noqa: F401 (autouse)
 
 MOE_ARCHS = ("qwen3_moe_235b", "arctic_480b")
 AGES = (3.0, 6.0, 9.0)           # the reference fleet test's lane ages

@@ -9,6 +9,7 @@ import math
 import jax
 import numpy as np
 import pytest
+import torch
 
 from repro.configs import get_config as jax_get_config
 from repro.core.fleet import FleetRuntime as JaxFleetRuntime
@@ -29,6 +30,7 @@ from repro_torch.obs.taps import (Telemetry, cosim_taps, enable_taps,
                                   taps_enabled, telemetry_to_host)
 from repro_torch.sched.lifetime import CoSimTrajectory
 from repro_torch.serve.engine import FleetServeEngine, ServeEngine
+from torch_test_common import _one_torch_thread  # noqa: F401 (autouse)
 
 YEAR_S = 365.25 * 24 * 3600.0
 LOGIT_ATOL = 1e-4         # the port's logits against the reference's

@@ -13,7 +13,6 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
 
 from repro.configs import get_config as jax_get_config
 from repro.core.fleet import FleetRuntime as JaxFleetRuntime
@@ -28,17 +27,10 @@ from repro_torch.serve import online
 from repro_torch.serve.engine import ServeEngine
 from repro_torch.serve.online import (OnlineServeEngine, Request,
                                       RequestQueue, requests_from_workload)
+from torch_test_common import _one_torch_thread  # noqa: F401 (autouse)
 
 S = 8               # fixed prompt length for the run
 MAX_LEN = 64
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _model(arch):

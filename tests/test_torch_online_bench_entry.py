@@ -20,18 +20,11 @@ from repro_torch.launch import obs_report, serve
 from repro_torch.obs import export
 
 from test_torch_launch import reference_served_params
+from torch_test_common import _one_torch_thread  # noqa: F401 (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 SHIFT_RTOL = 1e-5
 BER_RTOL = 1e-3
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(autouse=True)

@@ -30,19 +30,12 @@ from repro_torch.models import transformer as tf
 from repro_torch.models.layers import FaultConfig
 from repro_torch.obs.taps import logit_taps
 from repro_torch.serve import slots, steps
+from torch_test_common import _one_torch_thread  # noqa: F401 (autouse)
 
 LOGIT_ATOL = 1e-4
 TAP_ATOL = 1e-5
 OPS = ("q", "k", "v", "qkt", "sv", "o", "gate", "up", "down", "r", "g",
        "w")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def T(x):

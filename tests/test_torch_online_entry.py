@@ -16,16 +16,9 @@ from repro.launch import online as jax_online
 from repro_torch.launch import online, serve
 
 from test_torch_launch import reference_served_params
+from torch_test_common import _one_torch_thread  # noqa: F401 (autouse)
 
 WEAR_RTOL = 1e-5
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(autouse=True)

@@ -13,7 +13,6 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
 
 from repro.configs import get_config as jax_get_config
 from repro.core.fleet import FleetRuntime as JaxFleetRuntime
@@ -27,18 +26,11 @@ from repro_torch.convert import params_from_reference
 from repro_torch.core.fleet import FleetRuntime
 from repro_torch.obs.taps import enable_taps
 from repro_torch.serve.online import OnlineFleetEngine, Request
+from torch_test_common import _one_torch_thread  # noqa: F401 (autouse)
 
 S = 8
 MAX_LEN = 64
 SHIFT_RTOL = 1e-5
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _model(arch):

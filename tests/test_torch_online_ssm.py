@@ -4,8 +4,9 @@ which runs them on the hybrid."""
 import pytest
 
 from test_torch_online_families import (  # noqa: F401 (collected here)
-    _one_torch_thread, build, test_fleet_mid_decode_arrivals,
+    build, test_fleet_mid_decode_arrivals,
     test_one_device_mid_decode_arrivals)
+from torch_test_common import _one_torch_thread  # noqa: F401 (autouse)
 
 
 @pytest.fixture(scope="module")

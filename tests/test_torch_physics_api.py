@@ -37,6 +37,7 @@ from repro_torch.core.artifacts import load_calibration
 from repro_torch.core.power import batched_lifetime_stats
 from repro_torch.core.runtime import AgingAwareRuntime
 from repro_torch.examples import lifetime_study
+from torch_test_common import _one_torch_thread  # noqa: F401 (autouse)
 
 # float32 exp/log/pow differ from XLA's by an ulp here and there; the trap
 # populations integrate that drift over the grid (ROADMAP §C, known drift)

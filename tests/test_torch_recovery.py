@@ -25,21 +25,10 @@ from repro_torch.core.policy import FaultTolerantPolicy
 from repro_torch.core.resilience import OPERATORS
 from repro_torch.core.scenario import Scenario
 from repro_torch.sched import ThermalParams, cosimulate
+from torch_test_common import _one_torch_thread  # noqa: F401 (autouse)
 
 YEAR_S = 365.25 * 24 * 3600.0
 SHIFT_RTOL = 1e-5
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """This file's co-sims are loops of tiny tensor operations: run them
-    on one intra-op thread (the suite runs several workers, and a worker's
-    idle pool threads spinning against the others' slow every small
-    operation many times over); restored after the file."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def T(x):

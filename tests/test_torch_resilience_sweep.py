@@ -36,6 +36,7 @@ from repro_torch.core.policy import (FaultTolerantPolicy,
                                      evaluate_policy, get_policy)
 from repro_torch.core.scenario import Scenario
 from repro_torch.data import SyntheticLM
+from torch_test_common import _one_torch_thread  # noqa: F401 (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 GRID = (1e-5, 1e-3, 3e-2)

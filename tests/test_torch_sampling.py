@@ -21,6 +21,7 @@ from repro_torch.data import SyntheticLM
 from repro_torch.serve import steps
 from repro_torch.serve.engine import ServeEngine
 from repro_torch.train.steps import softmax_xent
+from torch_test_common import _one_torch_thread  # noqa: F401 (autouse)
 
 TINY = float(np.finfo(np.float32).tiny)
 OPS = ("q", "k", "v", "qkt", "sv", "o", "gate", "up", "down", "router")

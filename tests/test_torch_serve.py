@@ -23,6 +23,7 @@ from repro_torch.data import SyntheticLM
 from repro_torch.models.layers import FaultConfig
 from repro_torch.serve import steps
 from repro_torch.serve.engine import ServeEngine
+from torch_test_common import _one_torch_thread  # noqa: F401 (autouse)
 
 OPS = ("q", "k", "v", "qkt", "sv", "o", "gate", "up", "down")
 # prefill logits: float32 reductions (norm means, softmax, the unembed

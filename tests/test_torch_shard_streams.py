@@ -17,6 +17,7 @@ from repro_torch import random as prandom
 from repro_torch.kernels import fused_aged_matmul as pfam
 from repro_torch.kernels import ops, ref
 from repro_torch.models import layers
+from torch_test_common import _one_torch_thread  # noqa: F401 (autouse)
 
 SHARDS = (1, 3, 4, 8)
 

@@ -30,6 +30,7 @@ from repro_torch.optim import (AdamWConfig, adamw_init, adamw_update,
 from repro_torch.optim.adamw import ref_order_groups
 from repro_torch.train import steps
 from repro_torch.tree import flatten
+from torch_test_common import _one_torch_thread  # noqa: F401 (autouse)
 
 ARCHS = ("llama3_8b", "qwen3_moe_235b")
 # the train-step tests also run the hybrid, at two full periods of its
@@ -52,18 +53,6 @@ GRAD_RTOL = 1e-5
 # of that noise moves by a share of lr: params within PARAM_ATOL
 PARAM_ATOL = 2e-4
 OPT_KW = dict(lr=3e-3, total_steps=10, warmup_steps=2)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread for this file (the suite runs several workers,
-    and a worker's idle pool threads spinning against the others' slow
-    the training's many small operations many times over); restored after
-    the file."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _leaves(tree):

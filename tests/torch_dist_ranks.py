@@ -18,21 +18,28 @@ DP_OPT = dict(lr=3e-3, total_steps=10, warmup_steps=2)
 FLIP_SHARE = 1e-3
 
 
-def hold(got, want, atol, flip_atol, what):
-    """Two trees of host arrays by path: every leaf within ``atol`` but
-    for at most FLIP_SHARE of all the elements, and those within
+def hold(got, want, atol, flip_atol, what, stats=None):
+    """Two trees of arrays or tensors by path: every leaf within ``atol``
+    but for at most FLIP_SHARE of all the elements, and those within
     ``flip_atol`` (each a number, or a function of the leaf's ``want``
-    values).  Returns how many elements lay past ``atol``."""
-    moved, n_el = 0, 0
+    values as a numpy array).  The differences are taken in float64 with
+    torch, on the device of ``want``'s leaf.  Returns how many elements lay past
+    ``atol``; ``stats``, a dict, receives the largest difference and the
+    number of elements."""
+    moved, n_el, worst = 0, 0, 0.0
     assert sorted(got) == sorted(want), what
-    at = lambda tol, w: tol(w) if callable(tol) else tol
+    at = lambda tol, w: tol(w.cpu().numpy()) if callable(tol) else tol
     for k, v in got.items():
-        w = np.asarray(want[k])
-        d = np.abs(np.asarray(v, np.float64) - w)
-        lim = at(flip_atol, w)
-        assert d.max() <= lim, (what, k, float(d.max()), lim)
-        moved, n_el = moved + int((d > at(atol, w)).sum()), n_el + v.size
+        w = torch.as_tensor(want[k])
+        d = (torch.as_tensor(v).to(w.device, torch.float64)
+             - w.to(torch.float64)).abs_()
+        lim, top = at(flip_atol, w), float(d.max())
+        assert top <= lim, (what, k, top, lim)
+        moved += int((d > at(atol, w)).sum())
+        n_el, worst = n_el + d.numel(), max(worst, top)
     assert moved <= FLIP_SHARE * n_el, (what, moved, n_el)
+    if stats is not None:
+        stats.update(max_abs_diff=worst, elements=n_el)
     return moved
 
 
@@ -208,8 +215,9 @@ def elastic_rank(mesh, arch, params, global_batch):
     none), a compressed train state resharded onto it (rank 0's values,
     each new rank the residuals of the old rank the plan gives it; every
     rank starts from different ones), then back up to 4 ranks (its
-    residuals refused, the rest carried), and the refusals of a model
-    axis over ranks.  Host data."""
+    residuals refused, the rest carried), the ``(2, 2)`` mesh
+    ``make_local_mesh(2)`` places over the ranks, and the refusal of a
+    plan with a model axis over ranks.  Host data."""
     import torch.distributed as dist
     from repro_torch.configs import get_config
     from repro_torch.distributed import elastic
@@ -257,11 +265,12 @@ def elastic_rank(mesh, arch, params, global_batch):
         (4,), (2, 2, 1), ("pod", "data", "model"), 1), device="cpu")
     out["pod"] = (pod.shape, dist.get_world_size(pod.group))
     out["pod_plan"] = elastic.plan_remesh(pod, 2, global_batch=global_batch)
+    tp2 = pmesh.make_local_mesh(2, device="cpu")
+    out["local_tp2"] = (tp2.shape, tp2.shard, tp2.replica)
     refusals = {}
     for name, call in (
-            ("local", lambda: pmesh.make_local_mesh(2, device="cpu")),
             ("plan", lambda: elastic.make_mesh_from_plan(elastic.RemeshPlan(
-                (4, 1), (2, 2), ("data", "model"), 1), device="cpu"))):
+                (4, 1), (2, 2), ("data", "model"), 1), device="cpu")),):
         try:
             call()
             refusals[name] = None
@@ -413,3 +422,80 @@ def _spec_items(specs, prefix=""):
             yield from _spec_items(v, f"{prefix}/{i}" if prefix else str(i))
     else:
         yield prefix, specs
+
+
+# tensor-parallel training over ranks (tests/test_torch_tp_train.py)
+TP_OPT = dict(lr=3e-3, total_steps=10, warmup_steps=2)
+
+
+def tp_train_rank(mesh, jobs, cli_argv=None):
+    """For each job of ``jobs`` (``{"name", "arch", "replace": config
+    fields replaced in the reduced config, "tp", "microbatches", "remat",
+    "params": flat port-layout numpy arrays of the whole tree,
+    "batches": [(tokens, labels), ...]}``): the mesh
+    ``make_local_mesh(tp)`` of this group, the whole float32 state cut to
+    this rank's blocks (``shard_train_state``), one
+    ``make_train_step(mesh=)`` step a batch.  Per job the metrics and the
+    collectives of each step, the mesh's shape, shard and replica, the
+    ranks of its data group, the block of each leaf (``(dim, shard, tp)``
+    or ``None``), this rank's replicated leaves after the steps, and, on
+    shard 0 only, the state gathered back to whole
+    (``gather_train_state``).  With ``cli_argv``, also the loss history
+    of ``launch.train.main(cli_argv)`` on this rank, and the refusal of
+    the same run with ``--ckpt-dir`` and no model axis (the message).
+    Host data."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import collectives as col
+    from repro_torch.distributed import sharding as shrules
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import family
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.train import steps as st
+    from repro_torch.tree import flatten, unflatten
+    torch.set_num_threads(1)
+    out = {}
+    for job in jobs:
+        cfg = dataclasses.replace(get_config(job["arch"]).reduced(),
+                                  **job["replace"])
+        m = make_local_mesh(job["tp"], device=mesh.device)
+        whole = unflatten(family.init_params(cfg, 0, torch.float32,
+                                             device="cpu"), {
+            k: torch.tensor(v, device=mesh.device)
+            for k, v in job["params"].items()})
+        state = st.shard_train_state(
+            st.TrainState(whole, adamw_init(whole)), cfg, m)
+        step = st.make_train_step(cfg, AdamWConfig(**TP_OPT), mesh=m,
+                                  microbatches=job["microbatches"],
+                                  remat=job["remat"])
+        rec = {"shape": m.shape, "shard": m.shard, "replica": m.replica,
+               "metrics": [], "collectives": []}
+        rec["data_ranks"] = col.all_gather_cat(
+            torch.tensor([mesh.rank]), 0, m.data_group or m.group).tolist()
+        rec["blocks"] = {k: (v.dim, v.shard, v.tp) if isinstance(
+            v, shrules.RankBlock) else None
+            for k, v in flatten(state.params).items()}
+        for tokens, labels in job["batches"]:
+            col.reset_collective_counts()
+            state, mets = step(state, {"tokens": tokens, "labels": labels})
+            rec["collectives"].append(col.collective_counts())
+            rec["metrics"].append({k: float(v) for k, v in mets.items()})
+        rec["replicated"] = {k: v.numpy().copy() for k, v in
+                             flatten(state.params).items()
+                             if isinstance(v, torch.Tensor)}
+        back = st.gather_train_state(state, m)
+        if m.shard == 0:
+            rec["whole"] = {name: {k: v.numpy() for k, v in flatten(
+                tree).items()} for name, tree in (
+                    ("params", back.params), ("mu", back.opt.mu),
+                    ("nu", back.opt.nu))}
+        out[job["name"]] = rec
+    if cli_argv is not None:
+        from repro_torch.launch import train
+        out["cli"] = [h["loss"] for h in train.rank_main(mesh, cli_argv)]
+        try:
+            train.main(cli_argv[:-2] + ["--ckpt-dir", "unused"])
+            out["cli_ckpt"] = None
+        except NotImplementedError as e:
+            out["cli_ckpt"] = str(e)
+    return out
